@@ -1,0 +1,173 @@
+"""The port's YOLOv4 predict path and its serving, against the JAX package.
+
+- ``make_yolo_predict`` and ``make_yolo_predict_batched`` against JAX's
+  ``make_yolo_predict`` at 64×64, ``iou_type="diou"``, f32, on the same bridged
+  seeded weights. The output convs' box channels are scaled by 1e-4 so that the
+  boxes are finite and valid while the class and objectness logits stay
+  saturated: scores tie at exactly 1.0, the case the stable sorts exist for.
+  Valid masks and ids must be exactly equal; boxes and scores agree to
+  rtol 1e-5 / atol 1e-5.
+- The port's serve path (``tmv_tpu_torch.cli.serve.build_app``), driven
+  in-process with a WSGI ``environ`` on ``--device cpu``.
+- Neither ``import tmv_tpu_torch`` nor building its server pulls in jax or flax.
+"""
+
+import base64
+import io
+import json
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from tmv_tpu.models.detector_harness import make_yolo_predict as jax_make_yolo_predict
+from tmv_tpu.models.yolo_v4 import YoloV4 as FlaxYoloV4
+from tmv_tpu_torch.cli import serve
+from tmv_tpu_torch.convert.flax_bridge import flax_to_state_dict
+from tmv_tpu_torch.models.detector_harness import make_yolo_predict, make_yolo_predict_batched
+from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS, YoloV4
+from torch_port_cases import seeded_variables
+
+SIZE = (64, 64)
+
+
+@pytest.fixture(scope="module")
+def models():
+    rng = np.random.default_rng(3)
+    flax_model = FlaxYoloV4(classes_num=2)
+    shapes = jax.eval_shape(flax_model.init, jax.random.key(0), jnp.zeros((1, 64, 64, 3)))
+    variables = jax.tree.map(np.asarray, seeded_variables(shapes, rng))
+    for name in ("DarknetConv_0", "DarknetConv_1", "DarknetConv_2"):
+        kernel = variables["params"][name]["Conv_0"]["kernel"]
+        kernel[..., np.arange(kernel.shape[-1]) % 7 < 4] *= 1e-4
+    net = YoloV4(classes_num=2)
+    net.load_state_dict(flax_to_state_dict(variables, net), strict=True)
+    images = rng.uniform(0, 1, (3, 64, 64, 3)).astype(np.float32)
+    jax_predict = jax_make_yolo_predict(flax_model, SIZE, COCO_ANCHORS, 2, iou_type="diou",
+                                        nms_backend="xla")
+    want = [[np.asarray(o) for o in jax_predict(variables, jnp.asarray(images[i:i + 1]))]
+            for i in range(len(images))]
+    return net.eval(), images, want
+
+
+def assert_same_detections(got, want):
+    g_boxes, g_ids, g_scores, g_valid = got
+    w_boxes, w_ids, w_scores, w_valid = want
+    assert g_boxes.shape == w_boxes.shape == (500, 4)
+    np.testing.assert_array_equal(g_valid, w_valid)
+    assert w_valid.sum() > 5
+    np.testing.assert_array_equal(g_ids[g_valid], w_ids[w_valid])
+    np.testing.assert_allclose(g_boxes[g_valid], w_boxes[w_valid], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(g_scores[g_valid], w_scores[w_valid], rtol=1e-5, atol=1e-5)
+
+
+def test_predict_matches_jax(models):
+    net, images, want = models
+    predict = make_yolo_predict(net, SIZE, COCO_ANCHORS, 2, iou_type="diou")
+    for i in range(len(images)):
+        got = predict(None, images[i:i + 1])
+        assert all(isinstance(g, np.ndarray) for g in got)
+        assert_same_detections(got, want[i])
+
+
+def test_batched_predict_matches_jax(models):
+    net, images, want = models
+    got = make_yolo_predict_batched(net, SIZE, COCO_ANCHORS, 2, iou_type="diou")(None, images)
+    assert got[0].shape == (3, 500, 4) and got[3].shape == (3, 500)
+    for i in range(len(images)):
+        assert_same_detections([g[i] for g in got], want[i])
+
+
+def _write_inputs(tmp_path, classes=3):
+    classes_file = tmp_path / "classes.txt"
+    classes_file.write_text("\n".join(f"class_{i}" for i in range(classes)) + "\n")
+    anchors_file = tmp_path / "anchors.txt"
+    anchors_file.write_text(",".join(str(int(v)) for v in COCO_ANCHORS[::-1].reshape(-1)))
+    return ["--classesFile", str(classes_file), "--anchorsFile", str(anchors_file)]
+
+
+def _post(app, payload):
+    body = json.dumps(payload).encode()
+    status = {}
+
+    def start_response(s, headers):
+        status["status"] = s
+
+    environ = {"PATH_INFO": "/ai_api/object_detection/predict", "REQUEST_METHOD": "POST",
+               "CONTENT_LENGTH": str(len(body)), "wsgi.input": io.BytesIO(body)}
+    out = b"".join(app(environ, start_response))
+    return status["status"], json.loads(out)
+
+
+def _data_url(rng, h, w):
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(buf, "JPEG")
+    return "data:image/jpeg;base64," + base64.b64encode(buf.getvalue()).decode()
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_serve_path_answers_the_reference_contract(tmp_path, rng, batch):
+    args = serve.parse_args(_write_inputs(tmp_path) + [
+        "--randomInit", "--seed", "0", "--imageSize", "64", "--device", "cpu",
+        "--batch", str(batch)])
+    app, service, model = serve.build_app(args)
+    assert next(model.parameters()).device.type == "cpu"
+    try:
+        for read in (1, 0):
+            status, out = _post(app, {"img_data": _data_url(rng, 48, 80), "read": read})
+            assert status.startswith("200"), out
+            assert set(out) == {"boxes", "classes", "random_img", "result_img"}
+            assert len(out["boxes"]) == len(out["classes"])
+            assert bool(out["result_img"]) == bool(read)
+        assert service.request_count == 2
+    finally:
+        if service.batcher is not None:
+            service.batcher.close()
+
+
+def test_serve_refuses_unported_flags_and_missing_weights(tmp_path, capsys):
+    base = _write_inputs(tmp_path)
+    for extra in (["--int8"], ["--int8Static", "calib"], ["--dp", "2"], ["--spatial", "2"],
+                  ["--artifact", "a.tmvx"], ["--family", "efficientdet"],
+                  ["--version", "v3"], ["--version", "resnet"]):
+        with pytest.raises(SystemExit):
+            serve.parse_args(base + ["--randomInit"] + extra)
+        assert "not yet ported" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        serve.parse_args(base)                   # neither --modelPath nor --randomInit
+
+
+def test_device_cuda_without_a_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    args = serve.parse_args(_write_inputs(tmp_path) + ["--randomInit", "--imageSize", "64"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.build_service(args)
+
+
+def test_port_imports_no_jax(tmp_path):
+    """Every module of the package, and a whole server build (which loads the
+    reused jax-free serving modules), leave jax and flax unimported."""
+    argv = _write_inputs(tmp_path) + ["--randomInit", "--imageSize", "32", "--device", "cpu",
+                                      "--batch", "2"]
+    code = ("import sys, pkgutil, importlib, tmv_tpu_torch\n"
+            "for m in pkgutil.walk_packages(tmv_tpu_torch.__path__, 'tmv_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "from tmv_tpu_torch.cli import serve\n"
+            f"_, service, _ = serve.build_app(serve.parse_args({argv!r}))\n"
+            "service.batcher.close()\n"
+            "for m in ('tmv_tpu.serving.app', 'tmv_tpu.serving.batching', 'tmv_tpu.data.loaders'):\n"
+            "    assert m in sys.modules, m\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'jaxlib'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"

@@ -1,0 +1,144 @@
+"""Serving CLI: a warm YOLOv4 predictor on one GPU behind the reference HTTP contract.
+
+Port of ``tmv_tpu/cli/serve.py`` for the YOLOv4 family. It reuses
+``tmv_tpu.serving.app`` (``DetectionService``, ``create_app``, ``run_server``) and
+``tmv_tpu.serving.batching.MicroBatcher`` unchanged, and warms the predictor
+before it takes traffic.
+
+Usage:
+    python -m tmv_tpu_torch.cli.serve --modelPath yolov4.pt \\
+        --classesFile classes.txt --anchorsFile anchors.txt --imageSize 640 --bf16
+
+``--modelPath`` is a ``.pt`` state_dict made by ``tools/export_torch_weights.py``
+(the flax bridge). ``--randomInit --seed N`` serves seeded He-uniform weights
+instead, for trying the path without a checkpoint. ``--device cuda`` (the
+default) raises where there is no GPU.
+"""
+
+import argparse
+
+# JAX-only flags, accepted by the parser so that they can be refused by name.
+_NOT_PORTED = {
+    "--int8": lambda a: a.int8,
+    "--int8Static": lambda a: a.int8Static is not None,
+    "--int8Margin": lambda a: a.int8Margin is not None,
+    "--int8PerChannel": lambda a: a.int8PerChannel,
+    "--dp": lambda a: a.dp is not None,
+    "--spatial": lambda a: a.spatial is not None,
+    "--artifact": lambda a: a.artifact is not None,
+    "--family efficientdet": lambda a: a.family != "yolo",
+    "--modelName": lambda a: a.modelName is not None,
+    "--version v3/resnet": lambda a: a.version != "v4",
+}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--modelPath", default=None,
+                   help=".pt state_dict from tools/export_torch_weights.py")
+    p.add_argument("--randomInit", action="store_true",
+                   help="serve seeded random weights (no checkpoint)")
+    p.add_argument("--seed", type=int, default=0, help="seed of --randomInit")
+    p.add_argument("--classesFile", required=True)
+    p.add_argument("--anchorsFile", required=True)
+    p.add_argument("--imageSize", type=int, default=416)
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--batch", type=int, default=1,
+                   help="micro-batch capacity (>1 enables the batching queue "
+                        "and the threaded server)")
+    p.add_argument("--batchWaitMs", type=float, default=4.0)
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--version", default="v4", choices=["v3", "v4", "resnet"])
+    p.add_argument("--family", default="yolo", choices=["yolo", "efficientdet"])
+    p.add_argument("--modelName", default=None)
+    p.add_argument("--int8", action="store_true")
+    p.add_argument("--int8Static", default=None)
+    p.add_argument("--int8Margin", type=float, default=None)
+    p.add_argument("--int8PerChannel", action="store_true")
+    p.add_argument("--dp", type=int, default=None)
+    p.add_argument("--spatial", type=int, default=None)
+    p.add_argument("--artifact", default=None)
+    args = p.parse_args(argv)
+    refused = [flag for flag, given in _NOT_PORTED.items() if given(args)]
+    if refused:
+        p.error(f"{', '.join(refused)}: not yet ported to tmv_tpu_torch "
+                "(serve them with python -m tmv_tpu.cli.serve)")
+    if args.randomInit == (args.modelPath is not None):
+        p.error("give exactly one of --modelPath and --randomInit")
+    if args.batch < 1:
+        p.error("--batch must be >= 1")
+    return args
+
+
+def build_service(args):
+    """Model, weights and warm predictor → ``(service, model)``: a
+    ``DetectionService`` ready for ``create_app``/``run_server`` (its
+    ``batcher`` is set when ``--batch`` > 1) and the module it serves."""
+    import numpy as np
+    import torch
+
+    from tmv_tpu.data.loaders import load_anchors, load_classes
+    from tmv_tpu.serving.app import DetectionService
+    from tmv_tpu_torch.models.detector_harness import (
+        build_yolo_model, make_yolo_predict, make_yolo_predict_batched,
+    )
+    from tmv_tpu_torch.models.layers.common import init_weights
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device is available")
+    anchors = load_anchors(args.anchorsFile)
+    classes_name, classes_num = load_classes(args.classesFile)
+    image_wh = (args.imageSize, args.imageSize)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    model, iou_type = build_yolo_model("v4", classes_num, anchors.shape[1], dtype=dtype)
+    if args.randomInit:
+        print(f"WARNING: serving random weights (--randomInit --seed {args.seed}); "
+              "the boxes mean nothing", flush=True)
+        init_weights(model, args.seed)
+    else:
+        state = torch.load(args.modelPath, map_location="cpu", weights_only=True)
+        model.load_state_dict(state, strict=True)
+    model = model.to(device=device, memory_format=torch.channels_last).eval()
+
+    kw = dict(confidence_thresh=0.5, scores_thresh=0.2, iou_thresh=0.5, iou_type=iou_type)
+    batcher = None
+    if args.batch > 1:
+        from tmv_tpu.serving.batching import MicroBatcher
+
+        batched = make_yolo_predict_batched(model, image_wh, anchors, classes_num, **kw)
+        batched(None, np.zeros((args.batch, image_wh[1], image_wh[0], 3), np.float32))
+        batcher = MicroBatcher(batched, None, max_batch=args.batch,
+                               max_wait_ms=args.batchWaitMs)
+        predict_fn = batcher.as_predict_fn()
+    else:
+        predict_fn = make_yolo_predict(model, image_wh, anchors, classes_num, **kw)
+        # warm before accepting traffic (import-time parity)
+        predict_fn(None, np.zeros((1, image_wh[1], image_wh[0], 3), np.float32))
+    print(f"predictor warm on {device} ({dtype})", flush=True)
+    service = DetectionService(predict_fn, None, classes_name, image_wh)
+    service.batcher = batcher
+    return service, model
+
+
+def build_app(args):
+    """``build_service`` behind the reference's WSGI routes → ``(app, service,
+    model)``, for a caller that runs its own WSGI server."""
+    from tmv_tpu.serving.app import create_app
+
+    service, model = build_service(args)
+    return create_app(service), service, model
+
+
+def main(argv=None):
+    from tmv_tpu.serving.app import run_server
+
+    args = parse_args(argv)
+    service, _ = build_service(args)
+    run_server(service, args.host, args.port, threaded=args.batch > 1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,71 @@
+"""IoU families in both of the reference's coordinate conventions (forward only).
+
+Port of ``tmv_tpu/ops/iou.py``, quirks included, in the same operation order so
+that the NMS kernel (``csrc/nms_sweep.cu``) and this plain version round alike:
+
+- ``iou_xyxy``: corner boxes ``(x1, y1, x2, y2)``; no zero guard on the IoU
+  division; DIoU is ``iou - (u/c)**0.6`` with the IoU kept where ``c == 0``.
+- ``iou_yxyx``: corner boxes ``(y1, x1, y2, x2)``; clamped widths and heights,
+  ``divide_no_nan``; standard DIoU ``iou - u/c``.
+
+CIoU, GIoU and the CIoU custom gradient wait for the training slice.
+"""
+
+import torch
+
+
+def _div_no_nan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """TF ``divide_no_nan``: 0 where the denominator is 0."""
+    zero = b == 0
+    return torch.where(zero, torch.zeros_like(a), a / torch.where(zero, torch.ones_like(b), b))
+
+
+def iou_xyxy(b1: torch.Tensor, b2: torch.Tensor, iou_type: str = "iou") -> torch.Tensor:
+    """Broadcasted IoU/DIoU over corner boxes ``(..., 4)`` in xyxy order."""
+    if iou_type not in ("iou", "diou"):
+        raise ValueError(f"iou_xyxy: unsupported iou_type {iou_type!r}")
+    inter_mins = torch.maximum(b1[..., 0:2], b2[..., 0:2])
+    inter_maxes = torch.minimum(b1[..., 2:4], b2[..., 2:4])
+    inter_wh = torch.clamp_min(inter_maxes - inter_mins, 0.0)
+    inter_area = inter_wh[..., 0] * inter_wh[..., 1]
+    b1_wh = b1[..., 2:4] - b1[..., 0:2]
+    b2_wh = b2[..., 2:4] - b2[..., 0:2]
+    b1_area = b1_wh[..., 0] * b1_wh[..., 1]
+    b2_area = b2_wh[..., 0] * b2_wh[..., 1]
+    iou = inter_area / (b1_area + b2_area - inter_area)
+    if iou_type == "iou":
+        return iou
+
+    ub_wh = torch.maximum(b1[..., 2:4], b2[..., 2:4]) - torch.minimum(b1[..., 0:2], b2[..., 0:2])
+    c = ub_wh[..., 0] * ub_wh[..., 0] + ub_wh[..., 1] * ub_wh[..., 1]
+    delta = (b1[..., 2:4] + b1[..., 0:2]) / 2 - (b2[..., 2:4] + b2[..., 0:2]) / 2
+    u = delta[..., 0] * delta[..., 0] + delta[..., 1] * delta[..., 1]
+    d = u / c
+    # Reference quirk: the distance term is d**0.6 (tf_iou_utils.py:50), not d.
+    return torch.where(c == 0.0, iou, iou - d**0.6)
+
+
+def iou_yxyx(boxes1: torch.Tensor, boxes2: torch.Tensor, iou_type: str = "iou") -> torch.Tensor:
+    """Broadcasted IoU/DIoU over ``(..., [y1, x1, y2, x2])`` boxes."""
+    if iou_type not in ("iou", "diou"):
+        raise ValueError(f"iou_yxyx: unsupported iou_type {iou_type!r}")
+    b1_ymin, b1_xmin, b1_ymax, b1_xmax = boxes1.unbind(-1)
+    b2_ymin, b2_xmin, b2_ymax, b2_xmax = boxes2.unbind(-1)
+
+    b1_area = torch.clamp_min(b1_xmax - b1_xmin, 0.0) * torch.clamp_min(b1_ymax - b1_ymin, 0.0)
+    b2_area = torch.clamp_min(b2_xmax - b2_xmin, 0.0) * torch.clamp_min(b2_ymax - b2_ymin, 0.0)
+    inter_area = (
+        torch.clamp_min(torch.minimum(b1_xmax, b2_xmax) - torch.maximum(b1_xmin, b2_xmin), 0.0)
+        * torch.clamp_min(torch.minimum(b1_ymax, b2_ymax) - torch.maximum(b1_ymin, b2_ymin), 0.0)
+    )
+    iou = _div_no_nan(inter_area, b1_area + b2_area - inter_area)
+    if iou_type == "iou":
+        return iou
+
+    enclose_h = torch.maximum(b1_ymax, b2_ymax) - torch.minimum(b1_ymin, b2_ymin)
+    enclose_w = torch.maximum(b1_xmax, b2_xmax) - torch.minimum(b1_xmin, b2_xmin)
+    dy = (b2_ymin + b2_ymax) / 2 - (b1_ymin + b1_ymax) / 2
+    dx = (b2_xmin + b2_xmax) / 2 - (b1_xmin + b1_xmax) / 2
+    euclidean_sq = dy * dy + dx * dx
+    diag_sq = enclose_h * enclose_h + enclose_w * enclose_w
+    return iou - _div_no_nan(euclidean_sq, diag_sq)
