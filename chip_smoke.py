@@ -3,34 +3,53 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, YOLOv4 @640 (80 classes, full width, seeded random
-weights) served at ``POST /ai_api/object_detection/predict``, through the
-hand-written greedy-NMS CUDA kernel. Phases, each printing its own lines:
+Drives the port's two main paths through their entry points, through the two
+hand-written CUDA kernels: YOLOv4 @640 (80 classes, full width) and
+EfficientDet-D0 @512 (81 classes, full width and depth), each predicting and
+served at ``POST /ai_api/object_detection/predict``, on seeded random weights.
+Phases, each printing its own lines:
 
 1. environment: torch/CUDA/nvcc versions and the card (nvidia-smi);
-2. build: the NMS sweep kernel from ``tmv_tpu_torch/csrc/nms_sweep.cu``;
-3. the kernel against its plain version (``greedy_sweep_reference``) on the card:
-   kept masks must be exactly equal over N in {1, 127, 128, 1000, 1024, 3000},
-   B in {1, 16}, iou/diou, xyxy/yxyx, with and without class-aware, on clustered
+2. build: both kernels at once (one nvcc each, started together), with each
+   build's time and registers per thread;
+3. the NMS sweep kernel against its plain version (``greedy_sweep_reference``):
+   kept masks exactly equal over N in {1, 127, 128, 1000, 1024, 3000}, B in
+   {1, 16}, iou/diou, xyxy/yxyx, with and without class-aware, on clustered
    boxes with tied scores, ineligible padding and zero-area boxes; then both
    times at N = 1024, B = 1 and 16 (class-aware diou xyxy, CUDA events, turns
-   plain, kernel, kernel, plain);
-4. the slice in f32 with TF32 off: the batched predictor with the kernel and
-   with the plain sweep give identical detections, and the card's heads agree
-   with the CPU forward of the same state_dict (tolerance 1e-4·max|ref|);
-5. serving: the port's server, built by ``tmv_tpu_torch.cli.serve.build_app``
-   in bf16, answers seeded synthetic JPEGs on a free localhost port; every
-   request must go through the kernel;
-6. numbers: b1 image→boxes p50 and b16 images/sec of the bf16 predictor @640,
-   the served requests' p50, and the predictor's stage times (H2D, forward,
-   post-process, D2H, whole) at b1 and b16 in bf16 and in f32 with TF32 off.
+   plain, kernel, kernel, plain) and the sweep's bound on that input;
+4. the YOLOv4 slice in f32 with TF32 off: the batched predictor with the kernel
+   and with the plain sweep give identical detections, and the card's heads
+   agree with the CPU forward of the same state_dict (tolerance 1e-4·max|ref|);
+5. YOLOv4 serving: the port's server (``tmv_tpu_torch.cli.serve.build_app``,
+   bf16) answers 20 seeded JPEGs; every request goes through the NMS kernel;
+6. YOLOv4 numbers: b1 image→boxes p50 and b16 images/sec (bf16 @640), the served
+   p50, and the stage times (H2D, forward, post-process, D2H, whole) at b1 and
+   b16 in bf16 and in f32 with TF32 off;
+7. the depthwise kernel against its plain version (``dw_bn_swish_reference``) at
+   all 12 D0 @512 depthwise shapes at B = 1 and 16 and at edge shapes, in f32
+   (TF32 off; tolerance 1e-5·max|plain|) and bf16 (one bf16 step of the plain
+   value plus 1e-5·max|plain|); then at each shape, B = 1 and 64, bf16: the
+   kernel's time, the plain version's, the stock cuDNN route's (``library_ms``,
+   never called by the port) and the bound;
+8. the D0 slice in f32 with TF32 off, B = 4: detections identical with the NMS
+   kernel and with the plain sweep, at least one box per image, the pre-NMS
+   candidates filled, and the card's heads within 1e-4·max|ref| of the CPU forward;
+9. D0 serving: the port's server built with ``--family efficientdet --bf16
+   --imageSize 512`` answers 10 seeded JPEGs; every forward launches the
+   depthwise kernel 16 times and every request the NMS kernel;
+10. D0 numbers: b1 image→boxes p50 and b64 images/sec (bf16 @512), the served
+    p50, and the stage times at b1 and b64.
 
-The weights are ``--randomInit --seed 0`` (He-uniform, as the JAX package
-initialises) with the three output convs' box rows scaled by 1e-4: unscaled,
-the heads reach |z| ~ 1e4 at 640 and decode to no valid box, which would leave
-the NMS sweep nothing to do. The card's name and power limit stand beside every
-number. The last line is ``{"ok": true, "device": {...}}``; any failure raises
-and exits non-zero, and without a CUDA device nothing is run.
+The weights are seeded (``--randomInit --seed 0`` of each family), adjusted so
+that NMS has real work: YOLOv4's three output convs' box rows are scaled by
+1e-4 (unscaled, the heads reach |z| ~ 1e4 at 640 and decode to no valid box);
+D0's class predict bias is raised from the focal prior −4.6 to +1.0 for the 80
+foreground classes (at −4.6 every raw logit stays below the 1e-4 threshold and
+nothing enters NMS). The card's name and power limit stand beside every number.
+The line before the last is the card; the line before it the kernels' JSON. The
+last line is ``{"ok": true, "device": {...}}``; any failure raises and exits
+non-zero, and without a CUDA device nothing is run.
 """
 
 import base64
@@ -44,6 +63,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
@@ -51,9 +71,28 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 IMAGE = 640
-KERNEL_SOURCE = "tmv_tpu_torch/csrc/nms_sweep.cu"
-KERNEL_REPLACES = "tmv_tpu/kernels/nms_pallas.py:90"
+D0_IMAGE = 512
+NMS_SOURCE = "tmv_tpu_torch/csrc/nms_sweep.cu"
+NMS_REPLACES = "tmv_tpu/kernels/nms_pallas.py:90"
+DW_SOURCE = "tmv_tpu_torch/csrc/dwconv_bn_swish.cu"
+DW_REPLACES = "tmv_tpu/kernels/dwconv_pallas.py:110"   # _fused_s1; _fused_s2 at :170
 PREDICT_KW = dict(confidence_thresh=0.5, scores_thresh=0.2, iou_thresh=0.5, iou_type="diou")
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# operations of one class-aware xyxy DIoU pair in the sweep (compare, class
+# test, intersection, areas, union, division, enclosing box, centres, the
+# 0.6 power as log/mul/exp, threshold)
+SWEEP_OPS_PER_PAIR = 46
+# Every depthwise shape of EfficientDet-D0 @512: (input H=W, C, k, stride) → blocks.
+D0_DW_SHAPES = {(256, 32, 3, 1): 1, (256, 96, 3, 2): 1, (128, 144, 3, 1): 1,
+                (128, 144, 5, 2): 1, (64, 240, 5, 1): 1, (64, 240, 3, 2): 1,
+                (32, 480, 3, 1): 2, (32, 480, 5, 1): 1, (32, 672, 5, 1): 2,
+                (32, 672, 5, 2): 1, (16, 1152, 5, 1): 3, (16, 1152, 3, 1): 1}
+# (B, H, W, C, k, stride): odd sizes at stride 2, H = W = 1, a C the 4-vector misses
+DW_EDGE_CASES = [(1, 15, 9, 4, 3, 1), (1, 13, 11, 4, 5, 2), (5, 15, 9, 4, 3, 1),
+                 (3, 17, 17, 24, 3, 2), (2, 1, 1, 8, 3, 2), (2, 1, 1, 8, 5, 1),
+                 (2, 9, 7, 6, 5, 1), (2, 9, 7, 6, 3, 2)]
 COCO_CLASSES = (
     "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train", "truck", "boat",
     "traffic light", "fire hydrant", "stop sign", "parking meter", "bench", "bird", "cat",
@@ -89,6 +128,40 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps):
+    """Median host milliseconds of ``fn`` between two synchronisations."""
+    import torch
+
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1000)
+    return statistics.median(samples)
+
+
+def turns(plain, kernel, plain_reps, kernel_reps):
+    """(kernel ms, plain ms, the four turns) timed plain, kernel, kernel, plain."""
+    t = [cuda_ms(plain, plain_reps), cuda_ms(kernel, kernel_reps),
+         cuda_ms(kernel, kernel_reps), cuda_ms(plain, plain_reps)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+
+def write_inputs(classes, anchors=None):
+    """Classes file (and YOLO anchors file) for the serving CLI."""
+    classes_file = os.path.join(WORK, "coco_classes.txt")
+    with open(classes_file, "w") as f:
+        f.write("\n".join(classes) + "\n")
+    if anchors is None:
+        return classes_file, None
+    anchors_file = os.path.join(WORK, "coco_anchors.txt")
+    with open(anchors_file, "w") as f:
+        f.write(",".join(str(int(v)) for v in anchors[::-1].reshape(-1)))
+    return classes_file, anchors_file
 
 
 # ---------------------------------------------------------------- inputs
@@ -131,12 +204,38 @@ def scene_jpeg(rng, height, width):
     return buf.getvalue()
 
 
+def dw_inputs(gen, b, h, w, c, k, dtype):
+    """Seeded depthwise inputs made on the card: channels_last activations,
+    taps ~ N(0, 0.3²), scale in [0.5, 1.5), offset ~ N(0, 0.1²)."""
+    import torch
+
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda").permute(0, 3, 1, 2)
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    taps = torch.randn((k, k, c), generator=gen, device="cuda") * 0.3
+    scale = torch.rand((c,), generator=gen, device="cuda") + 0.5
+    offset = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    return x, taps, scale, offset
+
+
+def within_one_bf16_step(got, want):
+    """|got − want| ≤ one bfloat16 step at |want| + 1e-5·max|want|, elementwise:
+    the float32 tolerance stays under the step, because where the k² sum cancels
+    to near 0 the two float32 sums differ by more than a step of their result."""
+    import torch
+
+    want = want.float()
+    _, exponent = torch.frexp(want.abs())
+    step = torch.ldexp(torch.ones_like(want), exponent - 8)
+    tol = step + 1e-5 * want.abs().max()
+    return bool(((got.float() - want).abs() <= tol).all())
+
+
 # ---------------------------------------------------------------- phases
 
 def phase_environment():
     import torch
 
-    from tmv_tpu_torch.kernels.nms_sweep import nvcc_path
+    from tmv_tpu_torch.kernels.build import nvcc_path
 
     nvcc = run([nvcc_path(), "--version"]).splitlines()[-1]
     card = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
@@ -152,16 +251,46 @@ def phase_environment():
 
 
 def phase_build():
-    from tmv_tpu_torch.kernels import nms_sweep
+    from tmv_tpu_torch.kernels import dwconv, nms_sweep
 
+    libraries = {NMS_SOURCE: nms_sweep.LIBRARY, DW_SOURCE: dwconv.LIBRARY}
     t0 = time.perf_counter()
-    nms_sweep.build()
-    seconds = time.perf_counter() - t0
-    regs = sorted({line.split("Used ")[1].split(" registers")[0]
-                   for line in nms_sweep.build_log.splitlines() if "registers" in line})
-    print(f"phase 2 build: {KERNEL_SOURCE} -> sm_90a in {seconds:.2f} s "
-          f"(8 instantiations, registers per thread {','.join(regs) or 'cached build'})",
-          flush=True)
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        for future in [pool.submit(lib.load) for lib in libraries.values()]:
+            future.result()
+    wall = time.perf_counter() - t0
+    for source, lib in libraries.items():
+        regs = sorted({int(line.split("Used ")[1].split(" registers")[0])
+                       for line in lib.log.splitlines() if "registers" in line})
+        print(f"phase 2 build: {source} -> sm_90a in {lib.seconds:.2f} s "
+              f"(registers per thread over its instantiations: "
+              f"{','.join(map(str, regs)) or 'cached build'})", flush=True)
+    print(f"phase 2 build: both kernels built in parallel in {wall:.2f} s", flush=True)
+
+
+def sweep_bound_ms(boxes, eligible, classes, iou_threshold):
+    """Least time of one class-aware xyxy DIoU sweep on this input: the larger
+    of its bytes (boxes, eligible and classes read once, kept written once) over
+    the HBM rate and the IoU operations the greedy order needs (each kept box
+    against every later unsuppressed box of its class) over the f32 rate."""
+    import torch
+
+    from tmv_tpu_torch.ops.iou import iou_xyxy
+
+    boxes, eligible, classes = (torch.from_numpy(a[0]) for a in (boxes, eligible, classes))
+    n = boxes.shape[0]
+    suppressed = torch.zeros(n, dtype=torch.bool)
+    pairs = 0
+    for i in range(n):
+        if suppressed[i] or not eligible[i]:
+            continue
+        later = ~suppressed[i + 1:] & (classes[i + 1:] == classes[i])
+        pairs += int(later.sum())
+        hit = iou_xyxy(boxes[i:i + 1], boxes[i + 1:], iou_type="diou") >= iou_threshold
+        suppressed[i + 1:] |= hit & later
+    bytes_ms = n * (16 + 1 + 4 + 1) / HBM_BYTES_PER_S * 1e3
+    ops_ms = pairs * SWEEP_OPS_PER_PAIR / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", pairs
 
 
 def phase_kernel(card):
@@ -191,10 +320,10 @@ def phase_kernel(card):
     print(f"phase 3 kernel vs plain: {cases} cases, kept masks exactly equal "
           f"(max |kernel - plain| = {max_err}, {kept_total} boxes kept in all)", flush=True)
 
-    times = {}
+    times, bound = {}, None
     for batch in (1, 16):
-        boxes, eligible, classes = (torch.from_numpy(a).to(dev)
-                                    for a in sweep_case(rng, 1024, batch, "xyxy"))
+        arrays = sweep_case(rng, 1024, batch, "xyxy")
+        boxes, eligible, classes = (torch.from_numpy(a).to(dev) for a in arrays)
 
         def kernel():
             greedy_sweep(boxes, eligible, classes, 0.5, "diou", "xyxy")
@@ -203,13 +332,18 @@ def phase_kernel(card):
             greedy_sweep_reference(boxes, eligible, classes, 0.5, "diou", "xyxy")
 
         kernel(), plain()
-        turns = [cuda_ms(plain, 3), cuda_ms(kernel, 200), cuda_ms(kernel, 200), cuda_ms(plain, 3)]
-        times[batch] = ((turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2)
+        times[batch] = turns(plain, kernel, 3, 200)
         print(f"phase 3 time N=1024 B={batch} class-aware diou xyxy on [{card}]: "
               f"kernel {times[batch][0]:.4f} ms, plain {times[batch][1]:.2f} ms "
               f"(turns plain/kernel/kernel/plain: "
-              f"{', '.join(f'{t:.4f}' for t in turns)} ms)", flush=True)
-    return max_err, times
+              f"{', '.join(f'{t:.4f}' for t in times[batch][2])} ms)", flush=True)
+        if batch == 1:
+            bound = sweep_bound_ms(*arrays, 0.5)
+            print(f"phase 3 bound N=1024 B=1: {bound[0]:.6f} ms, by {bound[1]} "
+                  f"({bound[2]} IoU pairs x {SWEEP_OPS_PER_PAIR} operations at 67 TFLOP/s "
+                  f"f32; {1024 * 22} bytes at 3.35 TB/s); no single PyTorch call computes "
+                  f"the sweep (library_ms null)", flush=True)
+    return max_err, times, bound
 
 
 def seeded_model(dtype, device):
@@ -272,25 +406,14 @@ def phase_slice(card):
     return model, weights
 
 
-def phase_serving(card, weights):
-    import torch
+def drive_server(app, count, seed):
+    """Serve ``app`` on a free localhost port, post ``count`` seeded JPEGs
+    (read=1 and read=0 in turns, 375x500 … 1080x1920), check each answer, and
+    return (latencies, latencies by read, boxes seen, kernel launches in the run).
+    The launch counts are set to 0 just before the first request."""
     from wsgiref.simple_server import WSGIRequestHandler, make_server
 
-    from tmv_tpu_torch.cli import serve
-    from tmv_tpu_torch.kernels import nms_sweep
-    from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS
-
-    classes_file = os.path.join(WORK, "coco_classes.txt")
-    with open(classes_file, "w") as f:
-        f.write("\n".join(COCO_CLASSES) + "\n")
-    anchors_file = os.path.join(WORK, "coco_anchors.txt")
-    with open(anchors_file, "w") as f:
-        f.write(",".join(str(int(v)) for v in COCO_ANCHORS[::-1].reshape(-1)))
-    args = serve.parse_args(["--modelPath", weights, "--classesFile", classes_file,
-                             "--anchorsFile", anchors_file, "--imageSize", str(IMAGE),
-                             "--bf16", "--device", "cuda"])
-    app, _, model = serve.build_app(args)
-    check(all(p.device.type == "cuda" for p in model.parameters()), "model is not on cuda")
+    from tmv_tpu_torch.kernels import dwconv, nms_sweep
 
     class Quiet(WSGIRequestHandler):
         def log_message(self, *a):
@@ -300,12 +423,12 @@ def phase_serving(card, weights):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}/ai_api/object_detection/predict"
-    rng = np.random.default_rng(2)
+    rng = np.random.default_rng(seed)
     sizes = [(480, 640), (720, 1280), (640, 640), (375, 500), (1080, 1920)]
     latencies, by_read, boxes_seen = [], {0: [], 1: []}, 0
     try:
-        nms_sweep.launches = 0
-        for i in range(20):
+        nms_sweep.launches = dwconv.launches = 0
+        for i in range(count):
             h, w = sizes[i % len(sizes)]
             read = 1 if i % 2 == 0 else 0
             data = "data:image/jpeg;base64," + base64.b64encode(scene_jpeg(rng, h, w)).decode()
@@ -326,31 +449,61 @@ def phase_serving(card, weights):
             check(len(out["boxes"]) == len(out["classes"]), f"request {i}: boxes/classes")
             check(bool(out["result_img"]) == bool(read), f"request {i}: read={read} images")
             boxes_seen += len(out["boxes"])
-        launches = nms_sweep.launches
+        launches = {"nms_sweep": nms_sweep.launches, "dwconv_bn_swish": dwconv.launches}
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=10)
-    check(launches >= len(latencies), f"{launches} kernel launches for {len(latencies)} requests")
+    return latencies, by_read, boxes_seen, launches
+
+
+def phase_serving(card, weights):
+    from tmv_tpu_torch.cli import serve
+    from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS
+
+    classes_file, anchors_file = write_inputs(COCO_CLASSES, COCO_ANCHORS)
+    args = serve.parse_args(["--modelPath", weights, "--classesFile", classes_file,
+                             "--anchorsFile", anchors_file, "--imageSize", str(IMAGE),
+                             "--bf16", "--device", "cuda"])
+    app, _, model = serve.build_app(args)
+    check(all(p.device.type == "cuda" for p in model.parameters()), "model is not on cuda")
+    latencies, by_read, boxes_seen, launches = drive_server(app, 20, 2)
+    check(launches["nms_sweep"] >= len(latencies),
+          f"{launches['nms_sweep']} NMS launches for {len(latencies)} requests")
     p50 = statistics.median(latencies)
     print(f"phase 5 serving: {len(latencies)} requests (read=1 and read=0, 375x500..1080x1920 "
           f"JPEGs) -> HTTP 200 with the reference keys, {boxes_seen} boxes; "
-          f"nms_sweep.launches {launches}; served p50 {p50:.2f} ms "
+          f"nms_sweep.launches {launches['nms_sweep']}, dwconv.launches "
+          f"{launches['dwconv_bn_swish']}; served p50 {p50:.2f} ms "
           f"(read=0 {statistics.median(by_read[0]):.2f} ms, boxes only; "
           f"read=1 {statistics.median(by_read[1]):.2f} ms, with the two JPEGs drawn and "
           f"encoded) (YOLOv4 bf16 @{IMAGE}, on [{card}])", flush=True)
     return model, launches, p50
 
 
-def stage_times(model, batch, reps=20):
-    """Milliseconds per stage of the batched predictor @640 on ``batch`` seeded
-    images: H2D (pageable, as the predictor copies) and D2H of the four outputs
-    on the host clock around a synchronised copy; forward and post-process
-    (decode, pre-NMS top-k, NMS, gathers) by CUDA events over ``reps``
-    back-to-back calls; the whole predictor on the host clock. Medians of
-    ``reps`` where the host clock is used."""
+def stage_times(images, predict, forward, post, reps):
+    """Milliseconds per stage of a batched predictor on ``images``: H2D
+    (pageable, as the predictor copies) and D2H of the four outputs on the host
+    clock around a synchronised copy; forward and post-process (decode, pre-NMS
+    top-k, NMS, gathers) by CUDA events over ``reps`` back-to-back calls; the
+    whole predictor on the host clock. Medians of ``reps`` where the host clock
+    is used."""
     import torch
 
+    for _ in range(3):
+        predict(None, images)
+    with torch.inference_mode():
+        x = torch.from_numpy(images).cuda()
+        heads = forward(x)
+        out = post(heads)
+        return {"H2D": host_ms(lambda: torch.from_numpy(images).to("cuda"), reps),
+                "forward": cuda_ms(lambda: forward(x), reps),
+                "post-process": cuda_ms(lambda: post(heads), reps),
+                "D2H": host_ms(lambda: [o.cpu() for o in out], reps),
+                "whole": host_ms(lambda: predict(None, images), reps)}
+
+
+def yolo_stage_times(model, batch, reps=20):
     from tmv_tpu_torch.models.detector_harness import make_yolo_predict_batched
     from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS
     from tmv_tpu_torch.ops.yolo import nms_boxes_batched
@@ -358,30 +511,11 @@ def stage_times(model, batch, reps=20):
     images = np.random.default_rng(4).uniform(0, 1, (batch, IMAGE, IMAGE, 3)).astype(np.float32)
     predict = make_yolo_predict_batched(model, (IMAGE, IMAGE), COCO_ANCHORS, 80, **PREDICT_KW)
 
-    def host_ms(fn):
-        samples = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            samples.append((time.perf_counter() - t0) * 1000)
-        return statistics.median(samples)
-
     def post(heads):
-        return nms_boxes_batched(heads, COCO_ANCHORS, (IMAGE, IMAGE), 80, **PREDICT_KW)
+        out = nms_boxes_batched(heads, COCO_ANCHORS, (IMAGE, IMAGE), 80, **PREDICT_KW)
+        return [out[i] for i in (0, 1, 2, 5)]
 
-    for _ in range(3):
-        predict(None, images)
-    with torch.inference_mode():
-        x = torch.from_numpy(images).cuda()
-        heads = model(x)
-        out = post(heads)
-        return {"H2D": host_ms(lambda: torch.from_numpy(images).to("cuda")),
-                "forward": cuda_ms(lambda: model(x), reps),
-                "post-process": cuda_ms(lambda: post(heads), reps),
-                "D2H": host_ms(lambda: [out[i].cpu() for i in (0, 1, 2, 5)]),
-                "whole": host_ms(lambda: predict(None, images))}
+    return stage_times(images, predict, model, post, reps)
 
 
 def phase_numbers(card, model, model_f32, served_p50):
@@ -419,9 +553,261 @@ def phase_numbers(card, model, model_f32, served_p50):
           "TF32 must stay off for the f32 stage times")
     for name, m in (("bf16", model), ("f32, TF32 off", model_f32)):
         for batch in (1, 16):
-            stages = stage_times(m, batch)
+            stages = yolo_stage_times(m, batch)
             print(f"phase 6 stages on [{card}]: YOLOv4 80 classes {name} @{IMAGE} b{batch}: "
                   + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()), flush=True)
+    return b1, ips
+
+
+def dw_bound_ms(b, hw, c, k, stride, itemsize):
+    """Least time of one depthwise launch: the larger of its bytes (input and
+    output activations once, taps, scale and offset once) over the HBM rate and
+    its operations (2k² per output for the taps, 2 for the affine, 4 for the
+    swish: neg, exp, add, div) over the f32 rate."""
+    out = -(-hw // stride)
+    nbytes = (b * hw * hw * c + b * out * out * c) * itemsize + (k * k * c + 2 * c) * 4
+    ops = b * out * out * c * (2 * k * k + 6)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def library_dw(x, w, scale, offset, stride):
+    """The stock route a PyTorch user would take, which the port never calls:
+    ``F.conv2d(groups=C)`` (cuDNN; with ``F.pad`` first where TF-SAME pads
+    asymmetrically), ``torch.addcmul`` for the affine and ``F.silu``, in the
+    activations' dtype."""
+    import torch
+    import torch.nn.functional as F
+
+    from tmv_tpu_torch.models.layers.common import same_pads
+
+    c, k = x.shape[1], w.shape[0]
+    weight = w.permute(2, 0, 1).unsqueeze(1).to(x.dtype).contiguous()
+    top, bottom = same_pads(x.shape[2], k, stride)
+    left, right = same_pads(x.shape[3], k, stride)
+    scale, offset = scale.to(x.dtype).view(1, c, 1, 1), offset.to(x.dtype).view(1, c, 1, 1)
+
+    def call():
+        if (top, left) == (bottom, right):
+            y = F.conv2d(x, weight, None, stride, (top, left), groups=c)
+        else:
+            y = F.conv2d(F.pad(x, (left, right, top, bottom)), weight, None, stride, groups=c)
+        return F.silu(torch.addcmul(offset, y, scale))
+
+    return call
+
+
+def phase_dw_kernel(card):
+    import torch
+
+    from tmv_tpu_torch.kernels.dwconv import dw_bn_swish_reference, fused_dw_bn_swish
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [(b, hw, hw, c, k, s) for (hw, c, k, s) in D0_DW_SHAPES for b in (1, 16)]
+    cases += DW_EDGE_CASES
+    max_err = {}
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        worst = 0.0
+        for b, h, w, c, k, stride in cases:
+            x, taps, scale, offset = dw_inputs(gen, b, h, w, c, k, dtype)
+            got = fused_dw_bn_swish(x, taps, scale, offset, stride)
+            want = dw_bn_swish_reference(x, taps, scale, offset, stride)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == dtype
+                  and got.is_contiguous(memory_format=torch.channels_last),
+                  f"dw kernel output at {(b, h, w, c, k, stride)} {name}")
+            err = float((got.float() - want.float()).abs().max())
+            if dtype == torch.float32:
+                ok = err <= 1e-5 * float(want.abs().max())
+            else:
+                ok = within_one_bf16_step(got, want)
+            check(ok, f"dw kernel != plain at (B,H,W,C,k,s)={(b, h, w, c, k, stride)} {name}: "
+                      f"max |diff| {err:.3g}, max |plain| {float(want.abs().max()):.3g}")
+            worst = max(worst, err)
+        max_err[name] = worst
+        tolerance = "1e-5·max|plain|" + ("" if name == "f32" else " + one bf16 step of plain")
+        print(f"phase 7 dw kernel vs plain {name}: {len(cases)} cases (12 D0 @512 shapes at "
+              f"B=1 and 16, {len(DW_EDGE_CASES)} edge shapes) within tolerance ({tolerance}); "
+              f"max |kernel - plain| = {worst:.3g}", flush=True)
+
+    sums = {}
+    for b in (1, 64):
+        total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                     by={"bytes": 0.0, "operations": 0.0})
+        for (hw, c, k, stride), blocks in D0_DW_SHAPES.items():
+            x, taps, scale, offset = dw_inputs(gen, b, hw, hw, c, k, torch.bfloat16)
+
+            def kernel():
+                fused_dw_bn_swish(x, taps, scale, offset, stride)
+
+            def plain():
+                dw_bn_swish_reference(x, taps, scale, offset, stride)
+
+            library = library_dw(x, taps, scale, offset, stride)
+            lib_out = library()
+            ref = dw_bn_swish_reference(x, taps, scale, offset, stride)
+            lib_err = float((lib_out.float() - ref.float()).abs().max())
+            check(lib_err <= 0.05 * float(ref.float().abs().max()),
+                  f"the library route computes another function at {(hw, c, k, stride)}")
+            kernel(), plain()
+            kernel_reps, plain_reps = (200, 50) if b == 1 else (20, 5)
+            k_ms, p_ms, t = turns(plain, kernel, plain_reps, kernel_reps)
+            lib_ms = cuda_ms(library, plain_reps if b > 1 else kernel_reps)
+            bound, by = dw_bound_ms(b, hw, c, k, stride, 2)
+            for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", lib_ms),
+                           ("bound_ms", bound)):
+                total[key] += blocks * v
+            total["by"][by] += blocks * bound
+            print(f"phase 7 dw time B={b} H=W={hw} C={c} k={k} s={stride} bf16 (x{blocks} per "
+                  f"forward) on [{card}]: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+                  f"{lib_ms:.4f} ms, bound {bound:.4f} ms by {by} (kernel at "
+                  f"{bound / k_ms:.1%} of the bound; turns plain/kernel/kernel/plain "
+                  f"{', '.join(f'{v:.4f}' for v in t)} ms)", flush=True)
+        sums[b] = total
+        print(f"phase 7 dw per D0 forward (16 launches) B={b} bf16 on [{card}]: kernel "
+              f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, library (F.conv2d + "
+              f"torch.addcmul + F.silu, F.pad at asymmetric stride 2) {total['library_ms']:.4f} "
+              f"ms, bound {total['bound_ms']:.4f} ms", flush=True)
+    return max(max_err.values()), sums
+
+
+def seeded_d0(dtype, device, image_size=D0_IMAGE):
+    """``--randomInit --seed 0`` D0 (81 classes) with the 80 foreground classes'
+    predict bias raised from the focal prior to +1.0."""
+    import torch
+
+    from tmv_tpu_torch.models.efficientdet.harness import build_efficientdet
+    from tmv_tpu_torch.models.efficientdet.net import init_weights
+
+    model, anchors = build_efficientdet("efficientdet-d0", 81, image_size, dtype=dtype)
+    init_weights(model, 0)
+    with torch.no_grad():
+        model.class_net.net.predict.pointwise.bias.view(9, 81)[:, 1:] = 1.0
+    return model.to(device=device, memory_format=torch.channels_last).eval(), anchors
+
+
+def phase_d0_slice(card):
+    import torch
+
+    from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep_reference
+    from tmv_tpu_torch.models.efficientdet.harness import (
+        build_efficientdet, make_efficientdet_predict_batched,
+    )
+
+    torch.backends.cudnn.deterministic = True
+    model, anchors = seeded_d0(torch.float32, "cuda")
+    weights = os.path.join(WORK, "efficientdet_d0_seed0.pt")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, weights)
+    images = np.random.default_rng(11).uniform(0, 1, (4, D0_IMAGE, D0_IMAGE, 3)).astype(np.float32)
+    predict = make_efficientdet_predict_batched(model, anchors, D0_IMAGE)
+    got = predict(None, images)
+    with mock.patch("tmv_tpu_torch.ops.nms.greedy_sweep", greedy_sweep_reference):
+        want = predict(None, images)
+    for g, w, name in zip(got, want, ("boxes", "ids", "scores", "valid")):
+        check(np.array_equal(g, w), f"D0 slice {name} differ between kernel and plain sweep")
+    boxes, ids, scores, valid = got
+    check(boxes.shape == (4, 200, 4) and valid.shape == (4, 200), "D0 predictor output shapes")
+    check((valid.sum(1) >= 1).all(), "a D0 image kept no box")
+    check(np.isfinite(boxes[valid]).all() and np.isfinite(scores[valid]).all(),
+          "non-finite D0 detections")
+    check(((ids[valid] >= 0) & (ids[valid] < 80)).all(), "D0 class ids out of range")
+
+    with torch.inference_mode():
+        boxes_out, classes_out = model(torch.from_numpy(images).cuda())
+        logits = torch.cat([c.float().reshape(4, -1, 81) for c in classes_out], 1)
+        above = ((logits.argmax(-1) != 0) & (logits.amax(-1) >= 1e-4)).sum(1).tolist()
+        card_heads = [h.float().cpu().numpy() for h in (*boxes_out, *classes_out)]
+        box_max = max(float(np.abs(h).max()) for h in card_heads[:5])
+    check(min(above) >= 1024, f"the pre-NMS candidates are not filled: {above} above 1e-4")
+    print(f"phase 8 D0 slice: EfficientDet-D0 81 classes @{D0_IMAGE} f32 B=4, kernel and plain "
+          f"sweep give identical detections, kept per image {valid.sum(1).tolist()}; "
+          f"foreground anchors with a raw logit >= 1e-4 per image {above} of "
+          f"{logits.shape[1]} (all 1024 pre-NMS candidates eligible); max |box regression| "
+          f"{box_max:.3g}", flush=True)
+
+    cpu_model, _ = build_efficientdet("efficientdet-d0", 81, D0_IMAGE)
+    cpu_model.load_state_dict(torch.load(weights, weights_only=True), strict=True)
+    with torch.inference_mode():
+        cpu_heads = [h.numpy() for heads in cpu_model.eval()(torch.from_numpy(images[:4]))
+                     for h in heads]
+    rel = max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(card_heads, cpu_heads))
+    check(rel <= 1e-4, f"D0 card heads differ from the CPU forward: {rel:.3g} of max|ref|")
+    print(f"phase 8 D0 slice: card heads (depthwise kernel, cuDNN) vs CPU forward (plain "
+          f"depthwise) of the same state_dict, B=4: max |diff| = {rel:.3g}·max|ref| "
+          f"(tolerance 1e-4) on [{card}]", flush=True)
+    torch.backends.cudnn.deterministic = False
+    return weights
+
+
+def phase_d0_serving(card, weights):
+    from tmv_tpu_torch.cli import serve
+
+    classes_file, _ = write_inputs(COCO_CLASSES)
+    args = serve.parse_args(["--family", "efficientdet", "--modelName", "efficientdet-d0",
+                             "--modelPath", weights, "--classesFile", classes_file,
+                             "--imageSize", str(D0_IMAGE), "--bf16", "--device", "cuda"])
+    app, _, model = serve.build_app(args)
+    check(all(p.device.type == "cuda" for p in model.parameters()), "D0 is not on cuda")
+    latencies, by_read, boxes_seen, launches = drive_server(app, 10, 12)
+    n = len(latencies)
+    check(launches["dwconv_bn_swish"] == 16 * n,
+          f"{launches['dwconv_bn_swish']} depthwise launches for {n} forwards (16 each)")
+    check(launches["nms_sweep"] >= n, f"{launches['nms_sweep']} NMS launches for {n} requests")
+    p50 = statistics.median(latencies)
+    print(f"phase 9 D0 serving: {n} requests -> HTTP 200 with the reference keys, "
+          f"{boxes_seen} boxes; dwconv.launches {launches['dwconv_bn_swish']} (16 x {n} "
+          f"forwards), nms_sweep.launches {launches['nms_sweep']}; served p50 {p50:.2f} ms "
+          f"(read=0 {statistics.median(by_read[0]):.2f} ms, read=1 "
+          f"{statistics.median(by_read[1]):.2f} ms) (EfficientDet-D0 bf16 @{D0_IMAGE}, "
+          f"on [{card}])", flush=True)
+    return launches, p50
+
+
+def phase_d0_numbers(card, weights, served_p50):
+    import torch
+
+    from tmv_tpu_torch.models.efficientdet.harness import (
+        build_efficientdet, make_efficientdet_predict, make_efficientdet_predict_batched,
+    )
+
+    model, anchors = build_efficientdet("efficientdet-d0", 81, D0_IMAGE, dtype=torch.bfloat16)
+    model.load_state_dict(torch.load(weights, weights_only=True), strict=True)
+    model = model.to(device="cuda", memory_format=torch.channels_last).eval()
+    rng = np.random.default_rng(13)
+    one = rng.uniform(0, 1, (1, D0_IMAGE, D0_IMAGE, 3)).astype(np.float32)
+    many = rng.uniform(0, 1, (64, D0_IMAGE, D0_IMAGE, 3)).astype(np.float32)
+    predict = make_efficientdet_predict(model, anchors, D0_IMAGE)
+    batched = make_efficientdet_predict_batched(model, anchors, D0_IMAGE)
+    for _ in range(5):
+        predict(None, one)
+    latencies = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        predict(None, one)
+        latencies.append((time.perf_counter() - t0) * 1000)
+    for _ in range(2):
+        batched(None, many)
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        batched(None, many)
+    ips = 64 * reps / (time.perf_counter() - t0)
+    b1 = statistics.median(latencies)
+    print(f"phase 10 D0 numbers on [{card}]: EfficientDet-D0 81 classes bf16 @{D0_IMAGE}: "
+          f"b1 image->boxes p50 {b1:.2f} ms (host numpy in, host numpy out, 50 runs); "
+          f"b64 batched predictor {ips:.1f} images/s; served p50 {served_p50:.2f} ms", flush=True)
+
+    def post(heads):
+        boxes_out, classes_out = heads
+        decoded = anchors.convert_outputs_boxes([b.float() for b in boxes_out])
+        return anchors.convert_outputs_one(decoded, [c.float() for c in classes_out])
+
+    for batch, images, reps in ((1, one, 20), (64, many, 5)):
+        predict_b = make_efficientdet_predict_batched(model, anchors, D0_IMAGE)
+        stages = stage_times(images, predict_b, model, post, reps)
+        print(f"phase 10 stages on [{card}]: EfficientDet-D0 81 classes bf16 @{D0_IMAGE} "
+              f"b{batch}: " + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()),
+              flush=True)
     return b1, ips
 
 
@@ -432,16 +818,36 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = phase_environment()
+    os.makedirs(WORK, exist_ok=True)
     phase_build()
-    max_err, times = phase_kernel(card)
+    nms_err, nms_times, nms_bound = phase_kernel(card)
     model_f32, weights = phase_slice(card)
-    model, launches, served_p50 = phase_serving(card, weights)
+    model, yolo_launches, served_p50 = phase_serving(card, weights)
     phase_numbers(card, model, model_f32, served_p50)
-    print(json.dumps({"kernels": [{
-        "name": "nms_sweep", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": round(times[1][0], 5), "plain_ms": round(times[1][1], 3)}]}))
+    del model, model_f32
+    dw_err, dw_sums = phase_dw_kernel(card)
+    d0_weights = phase_d0_slice(card)
+    d0_launches, d0_served_p50 = phase_d0_serving(card, d0_weights)
+    phase_d0_numbers(card, d0_weights, d0_served_p50)
+    dw = dw_sums[64]
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s; kernels "
+          f"line: nms_sweep at N=1024 B=1, launches over both served paths (YOLOv4 "
+          f"{yolo_launches['nms_sweep']}, D0 {d0_launches['nms_sweep']}); dwconv_bn_swish "
+          f"summed over the 16 launches of one D0 bf16 forward at B=64, launches from the D0 "
+          f"served path", flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "nms_sweep", "route": "cuda", "source": NMS_SOURCE, "replaces": NMS_REPLACES,
+         "launches": yolo_launches["nms_sweep"] + d0_launches["nms_sweep"],
+         "max_abs_err": nms_err, "ms": nms_times[1][0], "plain_ms": nms_times[1][1],
+         "bound_ms": nms_bound[0], "bound_by": nms_bound[1], "library_ms": None},
+        {"name": "dwconv_bn_swish", "route": "cuda", "source": DW_SOURCE,
+         "replaces": DW_REPLACES, "launches": d0_launches["dwconv_bn_swish"],
+         "max_abs_err": dw_err, "ms": dw["ms"], "plain_ms": dw["plain_ms"],
+         "bound_ms": dw["bound_ms"], "bound_by": max(dw["by"], key=dw["by"].get),
+         "library_ms": dw["library_ms"]},
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

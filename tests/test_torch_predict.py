@@ -9,7 +9,8 @@
   rtol 1e-5 / atol 1e-5.
 - The port's serve path (``tmv_tpu_torch.cli.serve.build_app``), driven
   in-process with a WSGI ``environ`` on ``--device cpu``.
-- Neither ``import tmv_tpu_torch`` nor building its server pulls in jax or flax.
+- Neither ``import tmv_tpu_torch`` nor building its servers (both families) pulls in
+  ``tmv_tpu``, jax or flax.
 """
 
 import base64
@@ -133,13 +134,14 @@ def test_serve_path_answers_the_reference_contract(tmp_path, rng, batch):
 def test_serve_refuses_unported_flags_and_missing_weights(tmp_path, capsys):
     base = _write_inputs(tmp_path)
     for extra in (["--int8"], ["--int8Static", "calib"], ["--dp", "2"], ["--spatial", "2"],
-                  ["--artifact", "a.tmvx"], ["--family", "efficientdet"],
-                  ["--version", "v3"], ["--version", "resnet"]):
+                  ["--artifact", "a.tmvx"], ["--version", "v3"], ["--version", "resnet"]):
         with pytest.raises(SystemExit):
             serve.parse_args(base + ["--randomInit"] + extra)
         assert "not yet ported" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         serve.parse_args(base)                   # neither --modelPath nor --randomInit
+    with pytest.raises(SystemExit):
+        serve.parse_args(base[:2] + ["--randomInit"])   # yolo without --anchorsFile
 
 
 def test_device_cuda_without_a_card_raises(tmp_path):
@@ -152,19 +154,21 @@ def test_device_cuda_without_a_card_raises(tmp_path):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Every module of the package, and a whole server build (which loads the
-    reused jax-free serving modules), leave jax and flax unimported."""
-    argv = _write_inputs(tmp_path) + ["--randomInit", "--imageSize", "32", "--device", "cpu",
+    """Every module of the package, and a whole server build of each family,
+    leave ``tmv_tpu`` (and jax, flax, jaxlib) out of ``sys.modules``."""
+    yolo = _write_inputs(tmp_path) + ["--randomInit", "--imageSize", "32", "--device", "cpu",
                                       "--batch", "2"]
+    det = _write_inputs(tmp_path)[:2] + ["--family", "efficientdet", "--randomInit",
+                                         "--imageSize", "64", "--device", "cpu"]
     code = ("import sys, pkgutil, importlib, tmv_tpu_torch\n"
             "for m in pkgutil.walk_packages(tmv_tpu_torch.__path__, 'tmv_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "from tmv_tpu_torch.cli import serve\n"
-            f"_, service, _ = serve.build_app(serve.parse_args({argv!r}))\n"
+            f"_, service, _ = serve.build_app(serve.parse_args({yolo!r}))\n"
             "service.batcher.close()\n"
-            "for m in ('tmv_tpu.serving.app', 'tmv_tpu.serving.batching', 'tmv_tpu.data.loaders'):\n"
-            "    assert m in sys.modules, m\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'jaxlib'))\n"
+            f"serve.build_app(serve.parse_args({det!r}))\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('tmv_tpu', 'jax', 'flax', 'jaxlib'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -6,10 +6,12 @@ public functions: images NHWC ``(B, H, W, 3)`` float in [0, 1], heads
 ``channels_last`` memory. The TPU's Pallas kernels become kernels written by hand
 for Hopper (``kernels/``, sources in ``csrc/``).
 
-Ported so far: the YOLOv4 predict path and its HTTP serving (``cli/serve.py``),
-the flax weight bridge (``convert/flax_bridge.py``) and the greedy-NMS kernel.
-The package imports ``torch`` and never ``jax``; it reuses the jax-free modules of
-``tmv_tpu`` (``serving.app``, ``serving.batching``, ``data.loaders``, ``utils``).
+Ported so far: the YOLOv4 and EfficientDet-D0 predict paths and their HTTP
+serving (``cli/serve.py``), the flax weight bridge (``convert/flax_bridge.py``),
+the greedy-NMS kernel and the fused depthwise-conv + BatchNorm + swish kernel.
+The package imports ``torch``, numpy, PIL and the standard library, and nothing
+of ``jax``, ``flax`` or the ``tmv_tpu`` package: where it needs a jax-free module
+of ``tmv_tpu`` (config, loaders, image helpers, serving), it keeps its own copy.
 """
 
 __version__ = "0.1.0"

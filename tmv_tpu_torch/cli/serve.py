@@ -1,18 +1,22 @@
-"""Serving CLI: a warm YOLOv4 predictor on one GPU behind the reference HTTP contract.
+"""Serving CLI: a warm detector on one GPU behind the reference HTTP contract.
 
-Port of ``tmv_tpu/cli/serve.py`` for the YOLOv4 family. It reuses
-``tmv_tpu.serving.app`` (``DetectionService``, ``create_app``, ``run_server``) and
-``tmv_tpu.serving.batching.MicroBatcher`` unchanged, and warms the predictor
-before it takes traffic.
+Port of ``tmv_tpu/cli/serve.py`` for the YOLOv4 family and the EfficientDet
+family (``--family efficientdet --modelName efficientdet-d0``, as
+``_serve_efficientdet`` there: ``num_classes`` = classes + 1 for the background,
+pyramid levels sized from ``--imageSize``). It serves through the port's own
+``serving.app`` (``DetectionService``, ``create_app``, ``run_server``) and
+``serving.batching.MicroBatcher``, and warms the predictor before it takes traffic.
 
 Usage:
     python -m tmv_tpu_torch.cli.serve --modelPath yolov4.pt \\
         --classesFile classes.txt --anchorsFile anchors.txt --imageSize 640 --bf16
+    python -m tmv_tpu_torch.cli.serve --family efficientdet --modelName efficientdet-d0 \\
+        --classesFile classes.txt --imageSize 512 --bf16 --randomInit --seed 0
 
-``--modelPath`` is a ``.pt`` state_dict made by ``tools/export_torch_weights.py``
-(the flax bridge). ``--randomInit --seed N`` serves seeded He-uniform weights
-instead, for trying the path without a checkpoint. ``--device cuda`` (the
-default) raises where there is no GPU.
+``--modelPath`` is a ``.pt`` state_dict of the port's module (for YOLOv4, made by
+``tools/export_torch_weights.py`` through the flax bridge). ``--randomInit --seed
+N`` serves seeded random weights instead, for trying the path without a
+checkpoint. ``--device cuda`` (the default) raises where there is no GPU.
 """
 
 import argparse
@@ -26,21 +30,20 @@ _NOT_PORTED = {
     "--dp": lambda a: a.dp is not None,
     "--spatial": lambda a: a.spatial is not None,
     "--artifact": lambda a: a.artifact is not None,
-    "--family efficientdet": lambda a: a.family != "yolo",
-    "--modelName": lambda a: a.modelName is not None,
-    "--version v3/resnet": lambda a: a.version != "v4",
+    "--version v3/resnet": lambda a: a.family == "yolo" and a.version != "v4",
 }
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--modelPath", default=None,
-                   help=".pt state_dict from tools/export_torch_weights.py")
+                   help=".pt state_dict of the port's module (YOLOv4: from "
+                        "tools/export_torch_weights.py)")
     p.add_argument("--randomInit", action="store_true",
                    help="serve seeded random weights (no checkpoint)")
     p.add_argument("--seed", type=int, default=0, help="seed of --randomInit")
     p.add_argument("--classesFile", required=True)
-    p.add_argument("--anchorsFile", required=True)
+    p.add_argument("--anchorsFile", default=None, help="required for --family yolo")
     p.add_argument("--imageSize", type=int, default=416)
     p.add_argument("--device", default="cuda")
     p.add_argument("--bf16", action="store_true")
@@ -52,7 +55,8 @@ def parse_args(argv=None):
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--version", default="v4", choices=["v3", "v4", "resnet"])
     p.add_argument("--family", default="yolo", choices=["yolo", "efficientdet"])
-    p.add_argument("--modelName", default=None)
+    p.add_argument("--modelName", default="efficientdet-d0",
+                   help="EfficientDet config name (--family efficientdet)")
     p.add_argument("--int8", action="store_true")
     p.add_argument("--int8Static", default=None)
     p.add_argument("--int8Margin", type=float, default=None)
@@ -67,9 +71,38 @@ def parse_args(argv=None):
                 "(serve them with python -m tmv_tpu.cli.serve)")
     if args.randomInit == (args.modelPath is not None):
         p.error("give exactly one of --modelPath and --randomInit")
+    if args.family == "yolo" and args.anchorsFile is None:
+        p.error("--anchorsFile is required for --family yolo")
     if args.batch < 1:
         p.error("--batch must be >= 1")
     return args
+
+
+def _build_model(args, classes_num, dtype):
+    """``(model, make_batched, init)`` of the family: the module, a factory of
+    its batched predictor and its seeded init."""
+    if args.family == "efficientdet":
+        from tmv_tpu_torch.models.efficientdet.harness import (
+            build_efficientdet, make_efficientdet_predict_batched,
+        )
+        from tmv_tpu_torch.models.efficientdet.net import init_weights
+
+        # background reserved at id 0
+        model, anchors = build_efficientdet(args.modelName, classes_num + 1, args.imageSize,
+                                            dtype=dtype)
+        return (model, lambda: make_efficientdet_predict_batched(model, anchors, args.imageSize),
+                init_weights)
+
+    from tmv_tpu_torch.data.loaders import load_anchors
+    from tmv_tpu_torch.models.detector_harness import build_yolo_model, make_yolo_predict_batched
+    from tmv_tpu_torch.models.layers.common import init_weights
+
+    anchors = load_anchors(args.anchorsFile)
+    model, iou_type = build_yolo_model("v4", classes_num, anchors.shape[1], dtype=dtype)
+    image_wh = (args.imageSize, args.imageSize)
+    kw = dict(confidence_thresh=0.5, scores_thresh=0.2, iou_thresh=0.5, iou_type=iou_type)
+    return (model, lambda: make_yolo_predict_batched(model, image_wh, anchors, classes_num, **kw),
+            init_weights)
 
 
 def build_service(args):
@@ -79,21 +112,16 @@ def build_service(args):
     import numpy as np
     import torch
 
-    from tmv_tpu.data.loaders import load_anchors, load_classes
-    from tmv_tpu.serving.app import DetectionService
-    from tmv_tpu_torch.models.detector_harness import (
-        build_yolo_model, make_yolo_predict, make_yolo_predict_batched,
-    )
-    from tmv_tpu_torch.models.layers.common import init_weights
+    from tmv_tpu_torch.data.loaders import load_classes
+    from tmv_tpu_torch.serving.app import DetectionService
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is available")
-    anchors = load_anchors(args.anchorsFile)
     classes_name, classes_num = load_classes(args.classesFile)
     image_wh = (args.imageSize, args.imageSize)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model, iou_type = build_yolo_model("v4", classes_num, anchors.shape[1], dtype=dtype)
+    model, make_batched, init_weights = _build_model(args, classes_num, dtype)
     if args.randomInit:
         print(f"WARNING: serving random weights (--randomInit --seed {args.seed}); "
               "the boxes mean nothing", flush=True)
@@ -103,20 +131,19 @@ def build_service(args):
         model.load_state_dict(state, strict=True)
     model = model.to(device=device, memory_format=torch.channels_last).eval()
 
-    kw = dict(confidence_thresh=0.5, scores_thresh=0.2, iou_thresh=0.5, iou_type=iou_type)
+    batched = make_batched()
     batcher = None
+    # warm before accepting traffic (import-time parity)
+    batched(None, np.zeros((args.batch, image_wh[1], image_wh[0], 3), np.float32))
     if args.batch > 1:
-        from tmv_tpu.serving.batching import MicroBatcher
+        from tmv_tpu_torch.serving.batching import MicroBatcher
 
-        batched = make_yolo_predict_batched(model, image_wh, anchors, classes_num, **kw)
-        batched(None, np.zeros((args.batch, image_wh[1], image_wh[0], 3), np.float32))
         batcher = MicroBatcher(batched, None, max_batch=args.batch,
                                max_wait_ms=args.batchWaitMs)
         predict_fn = batcher.as_predict_fn()
     else:
-        predict_fn = make_yolo_predict(model, image_wh, anchors, classes_num, **kw)
-        # warm before accepting traffic (import-time parity)
-        predict_fn(None, np.zeros((1, image_wh[1], image_wh[0], 3), np.float32))
+        def predict_fn(variables, image):
+            return tuple(o[0] for o in batched(variables, image))
     print(f"predictor warm on {device} ({dtype})", flush=True)
     service = DetectionService(predict_fn, None, classes_name, image_wh)
     service.batcher = batcher
@@ -126,14 +153,14 @@ def build_service(args):
 def build_app(args):
     """``build_service`` behind the reference's WSGI routes → ``(app, service,
     model)``, for a caller that runs its own WSGI server."""
-    from tmv_tpu.serving.app import create_app
+    from tmv_tpu_torch.serving.app import create_app
 
     service, model = build_service(args)
     return create_app(service), service, model
 
 
 def main(argv=None):
-    from tmv_tpu.serving.app import run_server
+    from tmv_tpu_torch.serving.app import run_server
 
     args = parse_args(argv)
     service, _ = build_service(args)

@@ -2,23 +2,28 @@
 
 Every converter of the JAX package (Darknet ``.weights``, Keras ``.h5``, orbax
 checkpoints) ends in the same flax tree ``{"params": …, "batch_stats": …}``, so
-this one bridge loads all of them. The port's modules carry the flax
-auto-names, so the bridge is a walk over paths, not a table:
+this one bridge loads all of them. The port's modules carry the flax names, so
+the bridge is a walk over paths, not a table:
 
-- ``…/Conv_k/kernel`` (HWIO) → ``….Conv_k.weight`` (OIHW); a depthwise kernel
-  ``(k, k, 1, C)`` becomes ``(C, 1, k, k)`` by the same transpose;
+- conv kinds — ``Conv_k``, and EfficientDet's ``conv2d``, ``depthwise`` and
+  ``pointwise`` — map ``…/kernel`` (HWIO) → ``….weight`` (OIHW); a depthwise
+  kernel ``(k, k, 1, C)`` becomes ``(C, 1, k, k)`` by the same transpose;
 - ``…/Dense_k/kernel`` ``(in, out)`` → ``….Dense_k.weight`` ``(out, in)``;
-- ``…/bias`` as is;
-- ``…/BatchNorm_k/{scale, bias}`` + ``batch_stats …/{mean, var}`` →
-  ``weight``/``bias``/``running_mean``/``running_var``, plus
+- ``…/bias`` of a conv or Dense as is;
+- BatchNorm kinds — ``BatchNorm_k``, and EfficientDet's ``bn`` and
+  ``bn_{i}_level_{l}`` — map ``{scale, bias}`` + ``batch_stats …/{mean, var}``
+  → ``weight``/``bias``/``running_mean``/``running_var``, plus
   ``num_batches_tracked`` = 0 (Keras BN: epsilon 1e-3 and momentum 0.99, which
-  the port's modules set as torch ``eps=1e-3, momentum=0.01``).
+  the port's modules set as torch ``eps=1e-3, momentum=0.01``);
+- a BiFPN fusion weight ``…/BiFPNNode_j/WSM_i`` (a scalar or ``(C,)`` param
+  directly under the node) → the parameter ``….BiFPNNode_j.WSM_i``.
 
 It raises on a leaf it does not know and on two leaves that land on one key.
 Given a ``model``, it also checks that the keys are exactly the model's and the
 shapes match.
 """
 
+import re
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -37,8 +42,21 @@ def _leaves(tree: Mapping[str, Any], prefix=()):
             yield path, value
 
 
+_CONV_KINDS = {"Conv", "conv2d", "depthwise", "pointwise"}
+_BN_KINDS = {"BatchNorm", "bn"}
+_BN_PER_LEVEL = re.compile(r"bn_\d+_level_\d+")
+
+
 def _kind(module_name: str) -> str:
-    return module_name.rsplit("_", 1)[0]
+    """``Conv``, ``BatchNorm`` or the module's class name without its ``_k``."""
+    if _BN_PER_LEVEL.fullmatch(module_name):
+        return "BatchNorm"
+    base = re.sub(r"_\d+$", "", module_name)
+    if base in _CONV_KINDS:
+        return "Conv"
+    if base in _BN_KINDS:
+        return "BatchNorm"
+    return base
 
 
 def _map_leaf(collection: str, path) -> tuple:
@@ -57,6 +75,8 @@ def _map_leaf(collection: str, path) -> tuple:
             return f"{stem}.bias", None
         if kind == "BatchNorm" and leaf in _BN_PARAMS:
             return f"{stem}.{_BN_PARAMS[leaf]}", None
+        if kind == "BiFPNNode" and re.fullmatch(r"WSM_\d+", leaf):
+            return f"{stem}.{leaf}", None
     elif collection == "batch_stats":
         if kind == "BatchNorm" and leaf in _BN_STATS:
             return f"{stem}.{_BN_STATS[leaf]}", None
@@ -82,7 +102,7 @@ def flax_to_state_dict(variables: Mapping[str, Any],
             array = np.asarray(value, dtype=np.float32)
             if transform is not None:
                 array = transform(array)
-            state[key] = torch.tensor(np.ascontiguousarray(array))
+            state[key] = torch.tensor(np.array(array, order="C"))  # keeps 0-d leaves 0-d
             source[key] = where
             if _kind(path[-2]) == "BatchNorm":
                 bn_modules.add(key.rsplit(".", 1)[0])

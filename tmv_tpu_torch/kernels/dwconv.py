@@ -1,0 +1,116 @@
+"""Fused depthwise conv + BatchNorm (folded) + swish: the CUDA kernel, its wrapper
+and its plain version.
+
+Replaces the Pallas TPU kernels ``tmv_tpu/kernels/dwconv_pallas.py::_fused_s1``
+(body ``_dw_kernel_s1_folded``) and ``::_fused_s2`` (body ``_dw_kernel_s2_whole``),
+which ``tmv_tpu/models/efficientdet/backbone.py::MBConvBlock`` calls for the eval
+depthwise step of every MBConv block. One kernel covers both strides; its source
+is ``tmv_tpu_torch/csrc/dwconv_bn_swish.cu``, whose header says what bounds it on
+the H100 (device-memory bytes) and what the design does about it.
+
+- ``fused_dw_bn_swish`` is the wrapper the port calls. It checks its inputs on
+  every device, then a CUDA tensor launches the kernel or raises, and a CPU
+  tensor runs ``dw_bn_swish_reference``. There is no other route and no switch.
+- ``dw_bn_swish_reference`` is the plain PyTorch version, the counterpart of
+  ``dwconv_pallas.py::dw_reference``: a grouped ``F.conv2d`` in float32 on the
+  explicitly TF-SAME-padded input, then ``· scale + offset``, then
+  ``y · sigmoid(y)``, cast to the input's dtype.
+- ``LIBRARY`` builds the source with ``nvcc`` at first use (``kernels/build.py``).
+- ``launches`` counts kernel launches.
+
+Layout: activations are channels_last ``(B, C, H, W)`` tensors (physically NHWC,
+as the port's models keep them), float32 or bfloat16; taps are ``(k, k, C)``
+float32 (the JAX package's layout, the flax ``(k, k, 1, C)`` kernel squeezed),
+``scale`` and ``offset`` ``(C,)`` float32 (``γ / sqrt(var + eps)`` and
+``β − mean · scale``). k is 3 or 5 and the stride 1 or 2; the result is a
+channels_last tensor in the input's dtype.
+"""
+
+import ctypes
+import threading
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from tmv_tpu_torch.kernels.build import SM90A_FLAGS, KernelLibrary
+from tmv_tpu_torch.models.layers.common import same_pads
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "dwconv_bn_swish.cu"
+
+
+def _bind(lib: ctypes.CDLL):
+    lib.tmv_dw_bn_swish.restype = ctypes.c_int
+    lib.tmv_dw_bn_swish.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+
+
+LIBRARY = KernelLibrary(SOURCE, SM90A_FLAGS, _bind)
+launches = 0
+_lock = threading.Lock()
+
+
+def dw_bn_swish_reference(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                          offset: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """Plain PyTorch ``swish(depthwise_conv(x, w, stride, SAME) · scale + offset)``."""
+    c, k = x.shape[1], w.shape[0]
+    top, bottom = same_pads(x.shape[2], k, stride)
+    left, right = same_pads(x.shape[3], k, stride)
+    xp = F.pad(x.float(), (left, right, top, bottom))
+    y = F.conv2d(xp, w.float().permute(2, 0, 1).unsqueeze(1), stride=stride, groups=c)
+    y = y * scale.float().view(1, c, 1, 1) + offset.float().view(1, c, 1, 1)
+    return (y * torch.sigmoid(y)).to(x.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _check(x, w, scale, offset, stride):
+    if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_dw_bn_swish: x must be a 4-d float32 or bfloat16 tensor, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("fused_dw_bn_swish: x must be channels_last-contiguous (B, C, H, W)")
+    c, k = x.shape[1], w.shape[0]
+    if k not in (3, 5) or tuple(w.shape) != (k, k, c):
+        raise ValueError(f"fused_dw_bn_swish: taps must be (k, k, {c}) with k in (3, 5), "
+                         f"got {tuple(w.shape)}")
+    if stride not in (1, 2):
+        raise ValueError(f"fused_dw_bn_swish: stride must be 1 or 2, got {stride}")
+    for name, t, shape in (("taps", w, (k, k, c)), ("scale", scale, (c,)),
+                           ("offset", offset, (c,))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"fused_dw_bn_swish: {name} must be contiguous float32 {shape}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"fused_dw_bn_swish: {name} is on {t.device}, x on {x.device}")
+
+
+def fused_dw_bn_swish(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                      offset: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """``swish(depthwise_conv(x, w, stride, SAME) · scale + offset)``; the CUDA
+    kernel for CUDA tensors. Does not synchronise."""
+    _check(x, w, scale, offset, stride)
+    if x.device.type == "cpu":
+        return dw_bn_swish_reference(x, w, scale, offset, stride)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_dw_bn_swish: no kernel for device {x.device}")
+    b, c, h, width = x.shape
+    k = w.shape[0]
+    h_out, w_out = -(-h // stride), -(-width // stride)
+    top, left = same_pads(h, k, stride)[0], same_pads(width, k, stride)[0]
+    out = torch.empty((b, c, h_out, w_out), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    if out.numel() == 0:
+        return out
+    # 4-channel vectors where C and every pointer allow, else one channel a thread
+    vector_ok = (c % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
+                 and all(t.data_ptr() % 16 == 0 for t in (w, scale, offset)))
+    lib = LIBRARY.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tmv_dw_bn_swish(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), offset.data_ptr(), out.data_ptr(),
+            b, h, width, c, h_out, w_out, top, left, k, stride,
+            int(x.dtype == torch.bfloat16), 4 if vector_ok else 1, stream)
+    LIBRARY.check(err, "tmv_dw_bn_swish")
+    global launches
+    with _lock:
+        launches += 1
+    return out

@@ -12,30 +12,23 @@ suppression loop of both detectors' predict paths. The kernel source is
 - ``greedy_sweep_reference`` is the plain PyTorch version: the sequential loop of
   ``tmv_tpu/ops/nms.py:104-119``, vectorised over the leading image axis. The CPU
   tests and the comparison on the card call it by name.
-- ``build`` compiles the source with ``nvcc`` at first use into
-  ``build/tmv_tpu_torch/`` beside the package (a directory git ignores), keyed by a
-  hash of the source and the flags, and loads it through ``ctypes``.
+- ``LIBRARY`` builds the source with ``nvcc`` at first use (``kernels/build.py``)
+  and loads it through ``ctypes``.
 - ``launches`` counts kernel launches, so that a run can show that its main path
   went through the kernel.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from tmv_tpu_torch.kernels.build import SM90A_FLAGS, KernelLibrary
 from tmv_tpu_torch.ops.iou import iou_xyxy, iou_yxyx
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "nms_sweep.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tmv_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # 16-byte box + 4-byte class + suppressed and eligible flags per candidate, in
 # the 227 KB of shared memory one block may use on Hopper.
 MAX_CANDIDATES = 232448 // 22
@@ -43,53 +36,21 @@ MAX_CANDIDATES = 232448 // 22
 _VARIANTS = {("xyxy", "iou"): 0, ("xyxy", "diou"): 1,
              ("yxyx", "iou"): 2, ("yxyx", "diou"): 3}
 
+
+def _bind(lib: ctypes.CDLL):
+    lib.tmv_nms_sweep.restype = ctypes.c_int
+    lib.tmv_nms_sweep.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+
+
+# -fmad=false: every product and sum rounds as in the plain version, so the
+# kept sets compare exactly.
+LIBRARY = KernelLibrary(SOURCE, SM90A_FLAGS + ["-fmad=false"], _bind)
 launches = 0
-build_log = ""
-_lib = None
 _lock = threading.Lock()
-
-
-def nvcc_path() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(candidate):
-        return candidate
-    raise RuntimeError("nvcc not found: the NMS sweep kernel is built from "
-                       f"{SOURCE} with nvcc at first use")
-
-
-def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
-    global _lib, build_log
-    with _lock:
-        if _lib is not None:
-            return _lib
-        digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-        lib_path = BUILD_DIR / f"libtmv_nms_sweep_{digest.hexdigest()[:16]}.so"
-        if not lib_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-            build_log = proc.stdout + proc.stderr
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(str(lib_path))
-        lib.tmv_nms_sweep.restype = ctypes.c_int
-        lib.tmv_nms_sweep.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        lib.tmv_cuda_error_string.restype = ctypes.c_char_p
-        lib.tmv_cuda_error_string.argtypes = [ctypes.c_int]
-        _lib = lib
-        return lib
 
 
 def _iou_fn(coord: str):
@@ -166,16 +127,14 @@ def greedy_sweep(boxes: torch.Tensor, eligible: torch.Tensor,
     kept = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
     if b == 0 or n == 0:
         return kept
-    lib = build()
+    lib = LIBRARY.load()
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tmv_nms_sweep(
             boxes.data_ptr(), eligible.data_ptr(),
             classes.data_ptr() if classes is not None else None,
             kept.data_ptr(), b, n, float(iou_threshold), _VARIANTS[key], stream)
-    if err != 0:
-        raise RuntimeError(f"tmv_nms_sweep launch failed: cudaError {err} "
-                           f"({lib.tmv_cuda_error_string(err).decode()})")
+    LIBRARY.check(err, "tmv_nms_sweep")
     global launches
     with _lock:
         launches += 1

@@ -30,7 +30,7 @@ def build_yolo_model(version: str, classes_num: int, anchors_per_scale: int = 3,
     raise ValueError(f"yolo-family version {version!r} is not ported to tmv_tpu_torch yet")
 
 
-def _to_device(images, model: torch.nn.Module) -> torch.Tensor:
+def images_to_device(images, model: torch.nn.Module) -> torch.Tensor:
     device = next(model.parameters()).device
     return torch.as_tensor(images).to(device=device, dtype=torch.float32, non_blocking=True)
 
@@ -46,7 +46,7 @@ def make_yolo_predict_batched(model, image_wh: Tuple[int, int], anchors_wh, clas
 
     def predict(_variables, images):
         with torch.inference_mode():
-            heads = model(_to_device(images, model))
+            heads = model(images_to_device(images, model))
             boxes, ids, scores, _classes, _conf, valid = nms_boxes_batched(
                 heads, anchors, image_wh, classes_num,
                 confidence_thresh=confidence_thresh, scores_thresh=scores_thresh,

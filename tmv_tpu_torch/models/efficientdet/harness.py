@@ -1,0 +1,76 @@
+"""EfficientDet prediction harness: forward + decode + background filter + DIoU-NMS.
+
+Port of ``tmv_tpu/models/efficientdet/harness.py::make_efficientdet_predict`` and
+``make_efficientdet_predict_batched`` with the contract of the YOLO predictors
+(``models/detector_harness.py``): ``(variables, (B, H, W, 3) float [0, 1]
+images)`` → padded ``(boxes, classes_id, scores, valid)`` host numpy arrays,
+boxes as **normalized xyxy** (the yxyx letterbox pixels divided by
+``image_size``), class ids 0-based against the classes file (the internal
+background id 0 removed by the shift of −1), padded to 200. The heads are
+decoded in float32. The batched form replaces ``jax.vmap`` with one NMS launch
+per batch. ``variables`` is not read (pass None): the weights live in the module.
+"""
+
+import torch
+
+from tmv_tpu_torch.models.detector_harness import images_to_device
+from tmv_tpu_torch.models.efficientdet.config import get_efficientdet_config
+from tmv_tpu_torch.models.efficientdet.net import EfficientDetNet
+from tmv_tpu_torch.ops.anchors import Anchors
+
+
+def efficientdet_config(model_name: str, num_classes: int, image_size: int):
+    """The D-config for ``model_name`` at ``image_size`` with ``num_classes``
+    (background included), its ``levels_size`` recomputed for the size."""
+    cfg = get_efficientdet_config(model_name)
+    cfg.num_classes = num_classes
+    cfg.image_size = image_size
+    cfg.levels_size = [image_size]
+    for _ in range(cfg.max_level):
+        cfg.levels_size.append((cfg.levels_size[-1] + 1) // 2)
+    return cfg
+
+
+def build_efficientdet(model_name: str, num_classes: int, image_size: int,
+                       dtype: torch.dtype = torch.float32, device=None):
+    """``(model, anchors)`` for a D-config at ``image_size``."""
+    cfg = efficientdet_config(model_name, num_classes, image_size)
+    anchors = Anchors(cfg.min_level, cfg.max_level, (image_size, image_size), cfg.num_scales,
+                      cfg.aspect_ratios, cfg.anchor_scale)
+    return EfficientDetNet(cfg, dtype=dtype, device=device), anchors
+
+
+def make_efficientdet_predict_batched(model, anchors: Anchors, image_size: int,
+                                      max_output_size: int = 200,
+                                      iou_threshold: float = 0.5,
+                                      score_threshold: float = 0.0001,
+                                      iou_type: str = "diou"):
+    """Batched predictor: ``(variables, (B, H, W, 3) float images)`` → per-image
+    padded (boxes, classes_id, scores, valid) numpy arrays with a leading batch
+    axis."""
+
+    def predict(_variables, images):
+        with torch.inference_mode():
+            boxes_out, classes_out = model(images_to_device(images, model))
+            decoded = anchors.convert_outputs_boxes([b.float() for b in boxes_out])
+            boxes, ids, scores, valid = anchors.convert_outputs_one(
+                decoded, [c.float() for c in classes_out], max_output_size=max_output_size,
+                iou_threshold=iou_threshold, score_threshold=score_threshold,
+                iou_type=iou_type)
+            # yxyx letterbox pixels → normalized xyxy; background id 0 removed
+            boxes = boxes[..., [1, 0, 3, 2]] / float(image_size)
+            return tuple(t.cpu().numpy() for t in (boxes, ids - 1, scores, valid))
+
+    return predict
+
+
+def make_efficientdet_predict(model, anchors: Anchors, image_size: int, **kwargs):
+    """Single-image predictor: ``(variables, (1, H, W, 3) float image)`` → padded
+    (boxes, classes_id, scores, valid) numpy arrays; keyword arguments are those
+    of ``make_efficientdet_predict_batched``."""
+    batched = make_efficientdet_predict_batched(model, anchors, image_size, **kwargs)
+
+    def predict(variables, image):
+        return tuple(o[0] for o in batched(variables, image))
+
+    return predict

@@ -36,6 +36,17 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias=None,
+                stride: Union[int, Tuple[int, int]] = 1, groups: int = 1) -> torch.Tensor:
+    """``F.conv2d`` with TF-SAME padding; an asymmetric pad is applied explicitly."""
+    stride = _pair(stride)
+    (top, bottom), (left, right) = (same_pads(x.shape[2], weight.shape[2], stride[0]),
+                                    same_pads(x.shape[3], weight.shape[3], stride[1]))
+    if top == bottom and left == right:
+        return F.conv2d(x, weight, bias, stride, (top, left), groups=groups)
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, bias, stride, groups=groups)
+
+
 class DarknetConv(nn.Module):
     """Conv2D with Darknet padding semantics (no BN, optional bias)."""
 
@@ -50,21 +61,11 @@ class DarknetConv(nn.Module):
                                 bias=use_bias, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.Conv_0
         if self.strides == (2, 2):
             # Darknet downsampling: top-left zero pad + VALID
-            x = F.pad(x, (1, 0, 1, 0))
-            padding = (0, 0)
-        else:
-            (top, bottom), (left, right) = (
-                same_pads(x.shape[2], self.kernel_size[0], self.strides[0]),
-                same_pads(x.shape[3], self.kernel_size[1], self.strides[1]))
-            if top == bottom and left == right:
-                padding = (top, left)
-            else:
-                x = F.pad(x, (left, right, top, bottom))
-                padding = (0, 0)
-        conv = self.Conv_0
-        return F.conv2d(x, conv.weight, conv.bias, self.strides, padding)
+            return F.conv2d(F.pad(x, (1, 0, 1, 0)), conv.weight, conv.bias, self.strides)
+        return conv2d_same(x, conv.weight, conv.bias, self.strides)
 
 
 class ConvBN(nn.Module):

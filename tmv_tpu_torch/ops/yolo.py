@@ -55,7 +55,7 @@ def decode_boxes(y: torch.Tensor, anchors_wh: torch.Tensor, classes_num: int):
             classes.reshape(*lead, n, classes_num), valid.reshape(*lead, n))
 
 
-def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather rows ``idx (B, K)`` of ``x (B, N, ...)``."""
     if x.dim() == 2:
         return torch.gather(x, 1, idx)
@@ -111,12 +111,12 @@ def nms_boxes_batched(
     cand = torch.sort(masked, dim=-1, descending=True, stable=True).indices[:, :k]
 
     idx, out_valid = nms_by_classes(
-        _take(boxes, cand), _take(scores, cand), _take(classes_id, cand),
-        _take(valid, cand), max_output_size=max_output_size,
+        gather_rows(boxes, cand), gather_rows(scores, cand), gather_rows(classes_id, cand),
+        gather_rows(valid, cand), max_output_size=max_output_size,
         iou_threshold=iou_thresh, iou_type=iou_type, coord="xyxy")
     sel = torch.gather(cand, 1, idx.long())
-    return (_take(boxes, sel), _take(classes_id, sel), _take(scores, sel),
-            _take(classes, sel), _take(conf, sel), out_valid)
+    return (gather_rows(boxes, sel), gather_rows(classes_id, sel), gather_rows(scores, sel),
+            gather_rows(classes, sel), gather_rows(conf, sel), out_valid)
 
 
 def nms_boxes(heads: Sequence[torch.Tensor], anchors_wh, image_wh: Tuple[int, int],
