@@ -11,13 +11,18 @@ Phases, each printing its own lines:
 
 1. environment: torch/CUDA/nvcc versions and the card (nvidia-smi);
 2. build: both kernels at once (one nvcc each, started together), with each
-   build's time and registers per thread;
-3. the NMS sweep kernel against its plain version (``greedy_sweep_reference``):
-   kept masks exactly equal over N in {1, 127, 128, 1000, 1024, 3000}, B in
-   {1, 16}, iou/diou, xyxy/yxyx, with and without class-aware, on clustered
-   boxes with tied scores, ineligible padding and zero-area boxes; then both
-   times at N = 1024, B = 1 and 16 (class-aware diou xyxy, CUDA events, turns
-   plain, kernel, kernel, plain) and the sweep's bound on that input;
+   build's time, registers per thread and shared memory per block of every
+   instantiation (ptxas for the NMS stages, the CUDA runtime for the depthwise
+   kernel, with its spills and resident blocks per SM);
+3. the NMS sweep kernel (a mask kernel and a scan kernel) against its plain
+   version (``greedy_sweep_reference``): kept masks exactly equal over N in
+   {1, 127, 128, 1000, 1024, 3000}, B in {1, 16}, iou/diou, xyxy/yxyx, with and
+   without class-aware, on clustered boxes with tied scores, ineligible padding
+   and zero-area boxes; then the sweep's times at N = 1024, B = 1 and 16
+   (class-aware diou xyxy; calls back to back by CUDA events, turns plain,
+   kernel, kernel, plain, which include the wrapper's host work), its device
+   time and each stage's by CUDA-graph replay, and the sweep's bound on that
+   input;
 4. the YOLOv4 slice in f32 with TF32 off: the batched predictor with the kernel
    and with the plain sweep give identical detections, and the card's heads
    agree with the CPU forward of the same state_dict (tolerance 1e-4·max|ref|);
@@ -27,11 +32,14 @@ Phases, each printing its own lines:
    p50, and the stage times (H2D, forward, post-process, D2H, whole) at b1 and
    b16 in bf16 and in f32 with TF32 off;
 7. the depthwise kernel against its plain version (``dw_bn_swish_reference``) at
-   all 12 D0 @512 depthwise shapes at B = 1 and 16 and at edge shapes, in f32
+   all 12 D0 @512 depthwise shapes at B = 1 and 16 and at edge shapes (ragged
+   8 x 8 tiles and 32-channel chunks, C in {4, 6, 24, 144, 240}), in f32
    (TF32 off; tolerance 1e-5·max|plain|) and bf16 (one bf16 step of the plain
    value plus 1e-5·max|plain|); then at each shape, B = 1 and 64, bf16: the
    kernel's time, the plain version's, the stock cuDNN route's (``library_ms``,
-   never called by the port) and the bound;
+   never called by the port) and the bound, and at B = 1, where calls back to
+   back time the host, the kernel's and the library's device time by CUDA-graph
+   replay;
 8. the D0 slice in f32 with TF32 off, B = 4: detections identical with the NMS
    kernel and with the plain sweep, at least one box per image, the pre-NMS
    candidates filled, and the card's heads within 1e-4·max|ref| of the CPU forward;
@@ -56,6 +64,7 @@ import base64
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -89,10 +98,13 @@ D0_DW_SHAPES = {(256, 32, 3, 1): 1, (256, 96, 3, 2): 1, (128, 144, 3, 1): 1,
                 (128, 144, 5, 2): 1, (64, 240, 5, 1): 1, (64, 240, 3, 2): 1,
                 (32, 480, 3, 1): 2, (32, 480, 5, 1): 1, (32, 672, 5, 1): 2,
                 (32, 672, 5, 2): 1, (16, 1152, 5, 1): 3, (16, 1152, 3, 1): 1}
-# (B, H, W, C, k, stride): odd sizes at stride 2, H = W = 1, a C the 4-vector misses
+# (B, H, W, C, k, stride): odd sizes at stride 2, H = W = 1, a C the 4-vector
+# misses, and H, W, C that cut the kernel's 8 x 8 pixel x 32 channel tiles raggedly
 DW_EDGE_CASES = [(1, 15, 9, 4, 3, 1), (1, 13, 11, 4, 5, 2), (5, 15, 9, 4, 3, 1),
                  (3, 17, 17, 24, 3, 2), (2, 1, 1, 8, 3, 2), (2, 1, 1, 8, 5, 1),
-                 (2, 9, 7, 6, 5, 1), (2, 9, 7, 6, 3, 2)]
+                 (2, 9, 7, 6, 5, 1), (2, 9, 7, 6, 3, 2), (1, 19, 21, 144, 5, 1),
+                 (2, 23, 17, 240, 3, 2), (1, 1, 1, 240, 5, 1), (3, 9, 10, 24, 5, 2),
+                 (1, 31, 29, 144, 5, 2), (2, 10, 9, 4, 5, 1), (1, 33, 35, 6, 5, 2)]
 COCO_CLASSES = (
     "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train", "truck", "boat",
     "traffic light", "fire hydrant", "stop sign", "parking meter", "bench", "bird", "cat",
@@ -142,6 +154,27 @@ def host_ms(fn, reps):
         torch.cuda.synchronize()
         samples.append((time.perf_counter() - t0) * 1000)
     return statistics.median(samples)
+
+
+def graph_ms(fn, reps=20, per_graph=10):
+    """Device milliseconds of one ``fn`` call: ``per_graph`` calls captured in a
+    CUDA graph, the graph replayed ``reps`` times between CUDA events. The host
+    work of the call (the wrapper's checks, ``ctypes``) is left out, so this is
+    the kernels' time where ``cuda_ms`` of back-to-back calls is bound by the
+    host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    return cuda_ms(graph.replay, reps) / per_graph
 
 
 def turns(plain, kernel, plain_reps, kernel_reps):
@@ -250,7 +283,24 @@ def phase_environment():
     return card
 
 
-def phase_build():
+def ptxas_entries(log):
+    """(kernel, integer template arguments, registers, static shared bytes) of
+    each ``*_kernel`` entry function in an ``nvcc -Xptxas -v`` log."""
+    entries, name = [], None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '\w*?(\d+)([a-z_]+_kernel)(\w*)'", line)
+        if found:
+            name = (found.group(2), re.findall(r"L[ib](\d+)E", found.group(3)))
+        used = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if used and name:
+            entries.append((*name, int(used.group(1)), int(used.group(2) or 0)))
+            name = None
+    return entries
+
+
+def phase_build(card):
+    import torch
+
     from tmv_tpu_torch.kernels import dwconv, nms_sweep
 
     libraries = {NMS_SOURCE: nms_sweep.LIBRARY, DW_SOURCE: dwconv.LIBRARY}
@@ -260,12 +310,28 @@ def phase_build():
             future.result()
     wall = time.perf_counter() - t0
     for source, lib in libraries.items():
-        regs = sorted({int(line.split("Used ")[1].split(" registers")[0])
-                       for line in lib.log.splitlines() if "registers" in line})
-        print(f"phase 2 build: {source} -> sm_90a in {lib.seconds:.2f} s "
-              f"(registers per thread over its instantiations: "
-              f"{','.join(map(str, regs)) or 'cached build'})", flush=True)
-    print(f"phase 2 build: both kernels built in parallel in {wall:.2f} s", flush=True)
+        print(f"phase 2 build: {source} -> sm_90a in {lib.seconds:.2f} s on [{card}]", flush=True)
+    for kernel, args, regs, smem in ptxas_entries(nms_sweep.LIBRARY.log):
+        what = (f"variant {args[0]}, class-aware {args[1]}" if len(args) == 2 else
+                f"dynamic shared memory N x ceil(N/64) x 8 bytes per block where it fits "
+                f"({1024 * 16 * 8} at N = 1024)")
+        print(f"phase 2 build: nms {kernel} ({what}): {regs} registers per thread, "
+              f"{smem} bytes static shared memory per block (ptxas) on [{card}]", flush=True)
+    max_k5 = 0
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for k in (3, 5):
+            for stride in (1, 2):
+                info = dwconv.kernel_info(k, stride, dtype)
+                print(f"phase 2 build: dwconv {name} k={k} s={stride}: {info['registers']} "
+                      f"registers per thread, {info['smem_bytes']} bytes shared memory per "
+                      f"block, {info['spill_bytes']} bytes spilled, {info['blocks_per_sm']} "
+                      f"resident blocks of {info['threads']} threads per SM on [{card}]",
+                      flush=True)
+                check(info["spill_bytes"] == 0, f"dwconv {name} k={k} s={stride} spills")
+                if k == 5:
+                    max_k5 = max(max_k5, info["registers"])
+    check(max_k5 <= 128, f"a k = 5 depthwise instantiation uses {max_k5} registers")
+    print(f"phase 2 build: both kernels built in parallel in {wall:.2f} s on [{card}]", flush=True)
 
 
 def sweep_bound_ms(boxes, eligible, classes, iou_threshold):
@@ -296,7 +362,9 @@ def sweep_bound_ms(boxes, eligible, classes, iou_threshold):
 def phase_kernel(card):
     import torch
 
-    from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep, greedy_sweep_reference
+    from tmv_tpu_torch.kernels.nms_sweep import (
+        greedy_sweep, greedy_sweep_reference, scan, suppression_mask,
+    )
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -318,9 +386,10 @@ def phase_kernel(card):
                         kept_total += int(got.sum())
                         cases += 1
     print(f"phase 3 kernel vs plain: {cases} cases, kept masks exactly equal "
-          f"(max |kernel - plain| = {max_err}, {kept_total} boxes kept in all)", flush=True)
+          f"(max |kernel - plain| = {max_err}, {kept_total} boxes kept in all) on [{card}]",
+          flush=True)
 
-    times, bound = {}, None
+    times, device, bound = {}, {}, None
     for batch in (1, 16):
         arrays = sweep_case(rng, 1024, batch, "xyxy")
         boxes, eligible, classes = (torch.from_numpy(a).to(dev) for a in arrays)
@@ -333,17 +402,25 @@ def phase_kernel(card):
 
         kernel(), plain()
         times[batch] = turns(plain, kernel, 3, 200)
+        mask = suppression_mask(boxes, classes, 0.5, "diou", "xyxy")
+        device[batch] = {
+            "sweep": graph_ms(kernel),
+            "mask": graph_ms(lambda: suppression_mask(boxes, classes, 0.5, "diou", "xyxy")),
+            "scan": graph_ms(lambda: scan(mask, eligible))}
         print(f"phase 3 time N=1024 B={batch} class-aware diou xyxy on [{card}]: "
-              f"kernel {times[batch][0]:.4f} ms, plain {times[batch][1]:.2f} ms "
-              f"(turns plain/kernel/kernel/plain: "
-              f"{', '.join(f'{t:.4f}' for t in times[batch][2])} ms)", flush=True)
+              f"calls back to back: kernel {times[batch][0]:.4f} ms, plain "
+              f"{times[batch][1]:.2f} ms (turns plain/kernel/kernel/plain: "
+              f"{', '.join(f'{t:.4f}' for t in times[batch][2])} ms); device time "
+              f"(CUDA graph): sweep {device[batch]['sweep']:.4f} ms = mask kernel "
+              f"{device[batch]['mask']:.4f} ms + scan kernel {device[batch]['scan']:.4f} ms",
+              flush=True)
         if batch == 1:
             bound = sweep_bound_ms(*arrays, 0.5)
             print(f"phase 3 bound N=1024 B=1: {bound[0]:.6f} ms, by {bound[1]} "
                   f"({bound[2]} IoU pairs x {SWEEP_OPS_PER_PAIR} operations at 67 TFLOP/s "
                   f"f32; {1024 * 22} bytes at 3.35 TB/s); no single PyTorch call computes "
                   f"the sweep (library_ms null)", flush=True)
-    return max_err, times, bound
+    return max_err, times, device, bound
 
 
 def seeded_model(dtype, device):
@@ -391,7 +468,7 @@ def phase_slice(card):
           "non-finite detections")
     check(((ids[valid] >= 0) & (ids[valid] < 80)).all(), "class ids out of range")
     print(f"phase 4 slice: YOLOv4 80 classes @{IMAGE} f32 B=4, kernel and plain sweep give "
-          f"identical detections, kept per image {valid.sum(1).tolist()}", flush=True)
+          f"identical detections, kept per image {valid.sum(1).tolist()} on [{card}]", flush=True)
 
     with torch.inference_mode():
         card_heads = [h.float().cpu().numpy() for h in model(torch.from_numpy(images[:1]).cuda())]
@@ -628,12 +705,12 @@ def phase_dw_kernel(card):
         tolerance = "1e-5·max|plain|" + ("" if name == "f32" else " + one bf16 step of plain")
         print(f"phase 7 dw kernel vs plain {name}: {len(cases)} cases (12 D0 @512 shapes at "
               f"B=1 and 16, {len(DW_EDGE_CASES)} edge shapes) within tolerance ({tolerance}); "
-              f"max |kernel - plain| = {worst:.3g}", flush=True)
+              f"max |kernel - plain| = {worst:.3g} on [{card}]", flush=True)
 
     sums = {}
     for b in (1, 64):
-        total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                     by={"bytes": 0.0, "operations": 0.0})
+        total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, device_ms=0.0,
+                     device_library_ms=0.0, by={"bytes": 0.0, "operations": 0.0})
         for (hw, c, k, stride), blocks in D0_DW_SHAPES.items():
             x, taps, scale, offset = dw_inputs(gen, b, hw, hw, c, k, torch.bfloat16)
 
@@ -654,6 +731,13 @@ def phase_dw_kernel(card):
             k_ms, p_ms, t = turns(plain, kernel, plain_reps, kernel_reps)
             lib_ms = cuda_ms(library, plain_reps if b > 1 else kernel_reps)
             bound, by = dw_bound_ms(b, hw, c, k, stride, 2)
+            on_device = ""
+            if b == 1:   # back-to-back calls time the host; the graph times the card
+                k_dev, lib_dev = graph_ms(kernel), graph_ms(library)
+                total["device_ms"] += blocks * k_dev
+                total["device_library_ms"] += blocks * lib_dev
+                on_device = (f"; device time (CUDA graph): kernel {k_dev:.4f} ms at "
+                             f"{bound / k_dev:.1%} of the bound, library {lib_dev:.4f} ms")
             for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", lib_ms),
                            ("bound_ms", bound)):
                 total[key] += blocks * v
@@ -662,12 +746,14 @@ def phase_dw_kernel(card):
                   f"forward) on [{card}]: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
                   f"{lib_ms:.4f} ms, bound {bound:.4f} ms by {by} (kernel at "
                   f"{bound / k_ms:.1%} of the bound; turns plain/kernel/kernel/plain "
-                  f"{', '.join(f'{v:.4f}' for v in t)} ms)", flush=True)
+                  f"{', '.join(f'{v:.4f}' for v in t)} ms){on_device}", flush=True)
         sums[b] = total
         print(f"phase 7 dw per D0 forward (16 launches) B={b} bf16 on [{card}]: kernel "
               f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, library (F.conv2d + "
               f"torch.addcmul + F.silu, F.pad at asymmetric stride 2) {total['library_ms']:.4f} "
-              f"ms, bound {total['bound_ms']:.4f} ms", flush=True)
+              f"ms, bound {total['bound_ms']:.4f} ms"
+              + (f"; device time (CUDA graph): kernel {total['device_ms']:.4f} ms, library "
+                 f"{total['device_library_ms']:.4f} ms" if b == 1 else ""), flush=True)
     return max(max_err.values()), sums
 
 
@@ -723,7 +809,7 @@ def phase_d0_slice(card):
           f"sweep give identical detections, kept per image {valid.sum(1).tolist()}; "
           f"foreground anchors with a raw logit >= 1e-4 per image {above} of "
           f"{logits.shape[1]} (all 1024 pre-NMS candidates eligible); max |box regression| "
-          f"{box_max:.3g}", flush=True)
+          f"{box_max:.3g} on [{card}]", flush=True)
 
     cpu_model, _ = build_efficientdet("efficientdet-d0", 81, D0_IMAGE)
     cpu_model.load_state_dict(torch.load(weights, weights_only=True), strict=True)
@@ -821,8 +907,8 @@ def main():
     t_start = time.perf_counter()
     card = phase_environment()
     os.makedirs(WORK, exist_ok=True)
-    phase_build()
-    nms_err, nms_times, nms_bound = phase_kernel(card)
+    phase_build(card)
+    nms_err, nms_times, nms_device, nms_bound = phase_kernel(card)
     model_f32, weights = phase_slice(card)
     model, yolo_launches, served_p50 = phase_serving(card, weights)
     phase_numbers(card, model, model_f32, served_p50)
@@ -832,15 +918,16 @@ def main():
     d0_launches, d0_served_p50 = phase_d0_serving(card, d0_weights)
     phase_d0_numbers(card, d0_weights, d0_served_p50)
     dw = dw_sums[64]
-    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s; kernels "
-          f"line: nms_sweep at N=1024 B=1, launches over both served paths (YOLOv4 "
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s on [{card}]; kernels "
+          f"line: nms_sweep at N=1024 B=1 (ms: device time by CUDA graph, mask + scan "
+          f"kernels), launches over both served paths (YOLOv4 "
           f"{yolo_launches['nms_sweep']}, D0 {d0_launches['nms_sweep']}); dwconv_bn_swish "
           f"summed over the 16 launches of one D0 bf16 forward at B=64, launches from the D0 "
           f"served path", flush=True)
     print(json.dumps({"kernels": [
         {"name": "nms_sweep", "route": "cuda", "source": NMS_SOURCE, "replaces": NMS_REPLACES,
          "launches": yolo_launches["nms_sweep"] + d0_launches["nms_sweep"],
-         "max_abs_err": nms_err, "ms": nms_times[1][0], "plain_ms": nms_times[1][1],
+         "max_abs_err": nms_err, "ms": nms_device[1]["sweep"], "plain_ms": nms_times[1][1],
          "bound_ms": nms_bound[0], "bound_by": nms_bound[1], "library_ms": None},
         {"name": "dwconv_bn_swish", "route": "cuda", "source": DW_SOURCE,
          "replaces": DW_REPLACES, "launches": d0_launches["dwconv_bn_swish"],

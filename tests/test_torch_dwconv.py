@@ -13,7 +13,10 @@ kernel, the wrapper's checks, and the CUDA kernel against the plain version.
   every device, and on a CPU tensor runs the plain version without a launch.
 - The ``cuda`` cases build the kernel and compare it with the plain version on
   the card at every EfficientDet-D0 @512 depthwise shape and at the edge shapes,
-  in float32 (TF32 off) and bfloat16. They skip without a card; on the GPU host run
+  in float32 (TF32 off) and bfloat16, then at shapes that cut the kernel's 8 x 8
+  pixel tiles and 32-channel chunks raggedly, and check that every
+  instantiation stays within 128 registers without spilling. They skip without a
+  card; on the GPU host run
   them with ``python -m pytest tests/test_torch_dwconv.py -m cuda`` (that host
   need not have jax, which is imported only inside the tests that compare with it).
 """
@@ -34,6 +37,13 @@ CASES = [(2, 16, 16, 8, k, s) for k in (3, 5) for s in (1, 2)] + [
     (2, 9, 7, 6, 5, 1),     # C not a multiple of the 4-channel vector
 ]
 # Every depthwise shape of EfficientDet-D0 @512: (input H=W, C, k, stride).
+# (B, H, W, C, k, stride) that cut the kernel's tiles raggedly: H, W not
+# multiples of 8, C in {4, 6, 24, 144, 240} (C % 32 != 0; 6 takes the
+# element-by-element staging), H = W = 1, odd sizes at stride 2
+RAGGED_CASES = [(1, 19, 21, 144, 5, 1), (2, 23, 17, 240, 3, 2), (1, 1, 1, 240, 5, 1),
+                (1, 1, 1, 4, 3, 2), (3, 9, 10, 24, 5, 2), (2, 12, 13, 6, 3, 1),
+                (1, 31, 29, 144, 5, 2), (2, 10, 9, 4, 5, 1), (1, 17, 15, 24, 3, 1),
+                (1, 33, 35, 6, 5, 2), (2, 7, 7, 240, 5, 2), (1, 3, 5, 144, 3, 1)]
 D0_SHAPES = [(256, 32, 3, 1), (256, 96, 3, 2), (128, 144, 3, 1), (128, 144, 5, 2),
              (64, 240, 5, 1), (64, 240, 3, 2), (32, 480, 3, 1), (32, 480, 5, 1),
              (32, 672, 5, 1), (32, 672, 5, 2), (16, 1152, 5, 1), (16, 1152, 3, 1)]
@@ -169,3 +179,29 @@ def test_kernel_matches_reference_on_card(cuda, dtype):
             assert_close_f32(nhwc(got), nhwc(want))
         else:
             assert_within_one_bf16_step(nhwc(got), nhwc(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_ragged_tiles_on_card(cuda, dtype):
+    rng = np.random.default_rng(8)
+    for b, h, w, c, k, stride in RAGGED_CASES:
+        args = to_torch(*make_case(rng, b, h, w, c, k), dtype, cuda)
+        got = fused_dw_bn_swish(*args, stride)
+        want = dw_bn_swish_reference(*args, stride)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == want.shape, (b, h, w, c, k, stride)
+        if dtype == torch.float32:
+            assert_close_f32(nhwc(got), nhwc(want))
+        else:
+            assert_within_one_bf16_step(nhwc(got), nhwc(want))
+
+
+@pytest.mark.cuda
+def test_kernel_register_budget_on_card(cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        for k in (3, 5):
+            for stride in (1, 2):
+                info = dwconv.kernel_info(k, stride, dtype)
+                assert info["registers"] <= 128 and info["spill_bytes"] == 0, (k, stride, info)
+                assert info["blocks_per_sm"] * info["threads"] >= 256, (k, stride, info)

@@ -6,7 +6,9 @@ Replaces the Pallas TPU kernels ``tmv_tpu/kernels/dwconv_pallas.py::_fused_s1``
 which ``tmv_tpu/models/efficientdet/backbone.py::MBConvBlock`` calls for the eval
 depthwise step of every MBConv block. One kernel covers both strides; its source
 is ``tmv_tpu_torch/csrc/dwconv_bn_swish.cu``, whose header says what bounds it on
-the H100 (device-memory bytes) and what the design does about it.
+the H100 (device-memory bytes) and what the design does about it: a halo tile
+staged in shared memory by double-buffered ``cp.async`` in persistent blocks, and
+a sliding window in registers over each thread's 2 x 4 output pixels.
 
 - ``fused_dw_bn_swish`` is the wrapper the port calls. It checks its inputs on
   every device, then a CUDA tensor launches the kernel or raises, and a CPU
@@ -17,6 +19,8 @@ the H100 (device-memory bytes) and what the design does about it.
   ``y · sigmoid(y)``, cast to the input's dtype.
 - ``LIBRARY`` builds the source with ``nvcc`` at first use (``kernels/build.py``).
 - ``launches`` counts kernel launches.
+- ``kernel_info`` reports what each instantiation uses on the card (registers,
+  shared memory, spills, resident blocks per SM).
 
 Layout: activations are channels_last ``(B, C, H, W)`` tensors (physically NHWC,
 as the port's models keep them), float32 or bfloat16; taps are ``(k, k, C)``
@@ -42,6 +46,8 @@ SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "dwconv_bn_swish.cu"
 def _bind(lib: ctypes.CDLL):
     lib.tmv_dw_bn_swish.restype = ctypes.c_int
     lib.tmv_dw_bn_swish.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    lib.tmv_dw_bn_swish_info.restype = ctypes.c_int
+    lib.tmv_dw_bn_swish_info.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
 
 
 LIBRARY = KernelLibrary(SOURCE, SM90A_FLAGS, _bind)
@@ -99,7 +105,8 @@ def fused_dw_bn_swish(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                       memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
-    # 4-channel vectors where C and every pointer allow, else one channel a thread
+    # 4-channel-aligned rows and pointers: the halo is staged by cp.async; else
+    # element by element
     vector_ok = (c % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
                  and all(t.data_ptr() % 16 == 0 for t in (w, scale, offset)))
     lib = LIBRARY.load()
@@ -114,3 +121,16 @@ def fused_dw_bn_swish(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     with _lock:
         launches += 1
     return out
+
+
+def kernel_info(k: int, stride: int, dtype: torch.dtype) -> dict:
+    """What the kernel instantiated for ``(k, stride, dtype)`` uses on the
+    current card: registers per thread, shared memory per block (bytes, the
+    double buffer included), spilled bytes per thread, resident blocks per SM
+    and threads per block."""
+    lib = LIBRARY.load()
+    out = (ctypes.c_int * 5)()
+    LIBRARY.check(lib.tmv_dw_bn_swish_info(k, stride, int(dtype == torch.bfloat16), out),
+                  "tmv_dw_bn_swish_info")
+    return dict(zip(("registers", "smem_bytes", "spill_bytes", "blocks_per_sm", "threads"),
+                    out))
