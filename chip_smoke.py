@@ -47,9 +47,25 @@ Phases, each printing its own lines:
    --imageSize 512`` answers 10 seeded JPEGs; every forward launches the
    depthwise kernel 16 times and every request the NMS kernel;
 10. D0 numbers: b1 image→boxes p50 and b64 images/sec (bf16 @512), the served
-    p50, and the stage times at b1 and b64.
+    p50, and the stage times at b1 and b64;
+11. YOLOv4 training (80 classes @416 b8, bf16 activations on float32 master
+    weights) on 64 synthetic JPEGs of ``tools/e2e_converged_map.py::make_dataset``:
+    ``tmv_tpu_torch.cli.train_yolo`` takes two epochs of 20 steps with checkpoints
+    and a val mAP per epoch (through the NMS kernel); then the step's time by
+    CUDA events, its parts (forward, loss, backward, optimizer), one step alone
+    between synchronisations, its kernels' device time (torch.profiler), the
+    data pipeline's host and device time and
+    the peak memory; an overfit of one fixed batch (30 steps must halve the raw
+    loss); one float32 step (TF32 off) on the card and on the CPU from one
+    state_dict and batch at B = 2, each held against the CPU's float64 step; and
+    a resume from the CLI's last checkpoint (step and Adam state continue);
+12. eval: ``tmv_tpu_torch.cli.eval_map`` in both modes on that checkpoint
+    (the set's labels) and on a ``.pt`` of the seeded serving weights (labels
+    made from their own detections: mAP strictly between 0 and 1), with the NMS
+    kernel and again with the plain sweep patched in: equal mAPs and identical
+    kept sets, and the kernel's launches counted.
 
-The weights are seeded (``--randomInit --seed 0`` of each family), adjusted so
+The serving weights are seeded (``--randomInit --seed 0`` of each family), adjusted so
 that NMS has real work: YOLOv4's three output convs' box rows are scaled by
 1e-4 (unscaled, the heads reach |z| ~ 1e4 at 640 and decode to no valid box);
 D0's class predict bias is raised from the focal prior −4.6 to +1.0 for the 80
@@ -81,6 +97,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 IMAGE = 640
 D0_IMAGE = 512
+TRAIN_IMAGE = 416
+TRAIN_BATCH = 8
+TRAIN_STEPS_PER_EPOCH = 20
+TRAIN_SET = 64
+VAL_SET = 16
+OVERFIT_STEPS = 30
 NMS_SOURCE = "tmv_tpu_torch/csrc/nms_sweep.cu"
 NMS_REPLACES = "tmv_tpu/kernels/nms_pallas.py:90"
 DW_SOURCE = "tmv_tpu_torch/csrc/dwconv_bn_swish.cu"
@@ -811,7 +833,7 @@ def phase_d0_slice(card):
           f"{logits.shape[1]} (all 1024 pre-NMS candidates eligible); max |box regression| "
           f"{box_max:.3g} on [{card}]", flush=True)
 
-    cpu_model, _ = build_efficientdet("efficientdet-d0", 81, D0_IMAGE)
+    cpu_model, _ = build_efficientdet("efficientdet-d0", 81, D0_IMAGE, device="cpu")
     cpu_model.load_state_dict(torch.load(weights, weights_only=True), strict=True)
     with torch.inference_mode():
         cpu_heads = [h.numpy() for heads in cpu_model.eval()(torch.from_numpy(images[:4]))
@@ -897,6 +919,372 @@ def phase_d0_numbers(card, weights, served_p50):
     return b1, ips
 
 
+# ---------------------------------------------------------------- training
+
+def write_train_set(root):
+    """64 synthetic 416 x 416 JPEGs by ``tools/e2e_converged_map.py::make_dataset``
+    (seed 7; its 4 colour classes), a classes file of 80 names (the 4 colours
+    and 76 COCO names), the COCO anchors and a val label file of the first 16."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from e2e_converged_map import CLASS_COLORS, make_dataset
+
+    from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS
+
+    make_dataset(root, n=TRAIN_SET, hw=TRAIN_IMAGE)
+    names = list(CLASS_COLORS) + [c for c in COCO_CLASSES if c not in CLASS_COLORS]
+    with open(os.path.join(root, "classes.txt"), "w") as f:
+        f.write("\n".join(names[:80]) + "\n")
+    with open(os.path.join(root, "anchors.txt"), "w") as f:
+        f.write(",".join(str(int(v)) for v in COCO_ANCHORS[::-1].reshape(-1)))
+    with open(os.path.join(root, "labels.txt")) as f:
+        lines = f.readlines()
+    with open(os.path.join(root, "val_labels.txt"), "w") as f:
+        f.writelines(lines[:VAL_SET])
+    return {k: os.path.join(root, v) for k, v in (
+        ("images", "imgs"), ("labels", "labels.txt"), ("val", "val_labels.txt"),
+        ("classes", "classes.txt"), ("anchors", "anchors.txt"))}
+
+
+def train_setup(files, dtype, device, seed=0):
+    """The CLI's model, optimizer, train state, loss and step at 416."""
+    import torch
+
+    from tmv_tpu_torch.core.train_state import TrainState, make_train_step
+    from tmv_tpu_torch.data.loaders import load_anchors
+    from tmv_tpu_torch.models.detector_harness import build_yolo_model, make_yolo_loss_fn
+    from tmv_tpu_torch.models.layers.common import init_weights
+
+    anchors = load_anchors(files["anchors"])
+    model, _ = build_yolo_model("v4", 80, dtype=dtype, device=device,
+                                param_dtype=torch.float32)
+    init_weights(model, seed)
+    model = model.to(memory_format=torch.channels_last)
+    state = TrainState.create(model, torch.optim.Adam(model.parameters(), lr=5e-4))
+    loss_fn = make_yolo_loss_fn((TRAIN_IMAGE, TRAIN_IMAGE), anchors, iou_type="ciou")
+    return state, loss_fn, make_train_step(loss_fn, shadow_loss=True), anchors
+
+
+def step_kernel_ms(fn, reps):
+    """Device milliseconds of the kernels of one ``fn`` call: the sum of every
+    kernel's time that ``torch.profiler`` traces over ``reps`` calls, per call
+    (0 where the profiler traces no kernel)."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                   for e in prof.key_averages())
+    return total_us / 1e3 / reps
+
+
+def grads_of(model):
+    return {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()}
+
+
+def phase_train(card, files):
+    import torch
+
+    from tmv_tpu_torch.cli import train_yolo
+    from tmv_tpu_torch.data.yolo_pipeline import YoloDataPipeline
+    from tmv_tpu_torch.kernels import nms_sweep
+    from tmv_tpu_torch.ops.yolo import yolo_loss
+
+    ckpt = os.path.join(WORK, "yolov4_train")
+    argv = ["--version", "v4", "--trainData", files["labels"], "--trainImagePath",
+            files["images"], "--valData", files["val"], "--valImagePath", files["images"],
+            "--classesFile", files["classes"], "--anchorsFile", files["anchors"],
+            "--imageSize", str(TRAIN_IMAGE), "--batchSize", str(TRAIN_BATCH), "--bf16",
+            "--stepsPerEpoch", str(TRAIN_STEPS_PER_EPOCH), "--epochs", "2", "--lr", "5e-4",
+            "--modelPath", ckpt, "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    nms_sweep.launches = 0
+    t0 = time.perf_counter()
+    out = train_yolo.main(argv)
+    wall = time.perf_counter() - t0
+    val_launches = nms_sweep.launches
+    cli_peak = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["raw_loss"] for r in records]
+    steps = 2 * TRAIN_STEPS_PER_EPOCH
+    check(out["step"] == steps and len(records) == steps, f"the CLI took {out['step']} steps")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["raw_loss"]) for r in records),
+          "a non-finite training loss")
+    check(len(out["val_mAP"]) == 2 and all(np.isfinite(out["val_mAP"])), "val mAP missing")
+    check(val_launches >= 2 * VAL_SET, f"{val_launches} NMS launches for {2 * VAL_SET} val images")
+    host_step = statistics.median(r["step_time_s"] for r in records[max(1, steps // 4):]) * 1e3
+    print(f"phase 11 train CLI: YOLOv4 80 classes @{TRAIN_IMAGE} b{TRAIN_BATCH} bf16 "
+          f"(float32 master weights), {steps} steps in {wall:.1f} s with two val passes of "
+          f"{VAL_SET} images and three checkpoints; raw loss first {losses[0]:.2f}, last "
+          f"{losses[-1]:.2f}; val mAP per epoch {[round(m, 4) for m in out['val_mAP']]}; "
+          f"host step time p50 {host_step:.2f} ms; nms_sweep.launches in the val passes "
+          f"{val_launches}; peak memory {cli_peak:.2f} GiB on [{card}]", flush=True)
+
+    state, _, step, anchors = train_setup(files, torch.bfloat16, "cuda")
+    pipeline = YoloDataPipeline(files["images"], files["labels"], files["classes"],
+                                TRAIN_BATCH, anchors, image_wh=(TRAIN_IMAGE, TRAIN_IMAGE),
+                                device="cuda")
+    batches = iter(pipeline)
+    batch = next(batches)
+    batches.close()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        step(state, batch)
+    reps = 10
+    step_ms = cuda_ms(lambda: step(state, batch), reps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    parts = {"forward": [], "loss": [], "backward": [], "optimizer": []}
+    model = state.model
+    for _ in range(5):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        state.optimizer.zero_grad(set_to_none=True)
+        events[0].record()
+        heads = model(batch["image"])
+        events[1].record()
+        loss = yolo_loss(batch["targets"], heads, (TRAIN_IMAGE, TRAIN_IMAGE), anchors,
+                         iou_type="ciou")
+        events[2].record()
+        loss.backward()
+        events[3].record()
+        state.optimizer.step()
+        events[4].record()
+        torch.cuda.synchronize()
+        for k, (a, b) in zip(parts, zip(events, events[1:])):
+            parts[k].append(a.elapsed_time(b))
+    parts = {k: statistics.median(v) for k, v in parts.items()}
+    kernel_ms = step_kernel_ms(lambda: step(state, batch), 3)
+    alone_ms = host_ms(lambda: step(state, batch), 5)
+    labels = [next(iter(pipeline.sampler)) for _ in range(TRAIN_BATCH)]
+    with ThreadPoolExecutor(TRAIN_BATCH) as pool:
+        stage_host = host_ms(lambda: pipeline.stage_batch(labels, pool), 5)
+        staged = pipeline.stage_batch(labels, pool)
+    stage_device = cuda_ms(lambda: pipeline.device_batch(staged), 5)
+    print(f"phase 11 train step on [{card}]: YOLOv4 80 classes @{TRAIN_IMAGE} b{TRAIN_BATCH} "
+          f"bf16: {step_ms:.2f} ms per step by CUDA events over {reps} steps after 3 of "
+          f"warm-up = {TRAIN_BATCH * 1e3 / step_ms:.1f} images/s; parts (CUDA events, "
+          f"median of 5): " + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
+          + f"; one step between synchronisations (host clock, median of 5) {alone_ms:.2f} ms"
+          + f"; kernels' device time per step (torch.profiler, 3 steps) "
+          + (f"{kernel_ms:.2f} ms, busy share {kernel_ms / step_ms:.3f}" if kernel_ms else
+             "not measured (the profiler traced no kernel)")
+          + f"; data pipeline per batch of {TRAIN_BATCH}: host decode + resize "
+          f"{stage_host:.2f} ms on {TRAIN_BATCH} threads, device H2D + augmentation + "
+          f"targets {stage_device:.2f} ms; peak memory {peak:.2f} GiB", flush=True)
+
+    state, _, step, _ = train_setup(files, torch.bfloat16, "cuda", seed=1)
+    overfit = [float(step(state, batch)["raw_loss"]) for _ in range(OVERFIT_STEPS)]
+    check(all(np.isfinite(overfit)), "non-finite loss in the overfit")
+    check(overfit[-1] <= overfit[0] / 2,
+          f"overfitting one batch: raw loss {overfit[0]:.2f} -> {overfit[-1]:.2f}")
+    print(f"phase 11 overfit of one fixed batch, {OVERFIT_STEPS} steps bf16 lr 5e-4: raw loss "
+          f"{overfit[0]:.2f} -> {overfit[-1]:.2f} ({overfit[0] / overfit[-1]:.1f}x lower; "
+          f"required >= 2x) on [{card}]", flush=True)
+    del state, batch
+    f32 = phase_train_f32(card, files, anchors)
+    resume = phase_resume(card, files, ckpt, steps)
+    return {"ckpt": ckpt, "val_launches": val_launches, "step_ms": step_ms, "parts": parts,
+            "kernel_ms": kernel_ms, "alone_ms": alone_ms, "peak": peak, "f32": f32,
+            "resume": resume}
+
+
+def rel_l2(got, want):
+    """(relative L2 error over all tensors, worst tensor's) of two gradient dicts."""
+    num = sum(float((got[k].double() - want[k].double()).norm() ** 2) for k in want)
+    den = sum(float(want[k].double().norm() ** 2) for k in want)
+    worst = max(float((got[k].double() - want[k].double()).norm()
+                      / want[k].double().norm().clamp_min(1e-300)) for k in want)
+    return (num / den) ** 0.5, worst
+
+
+def phase_train_f32(card, files, anchors):
+    """One float32 step (TF32 off) on the card and on the CPU from one state_dict
+    and one batch at 416, B = 2, beside the same step in float64 on the CPU.
+    Train-mode BatchNorm at random init amplifies rounding through YOLOv4's 107
+    layers, so float32 gradients (the CPU's too) sit far from the float64 ones;
+    the card must be as close to float64 as the CPU's float32 is (within 2x,
+    plus 1e-4) and agree with the CPU on the loss within 1e-3."""
+    import torch
+
+    from tmv_tpu_torch.data.yolo_pipeline import YoloDataPipeline
+    from tmv_tpu_torch.models.detector_harness import check_device
+
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 must stay off for the float32 comparison")
+    pipeline = YoloDataPipeline(files["images"], files["labels"], files["classes"], 2, anchors,
+                                image_wh=(TRAIN_IMAGE, TRAIN_IMAGE), prefetch=0, device="cpu")
+    batches = iter(pipeline)
+    batch = next(batches)
+    batches.close()
+    results = {}
+    for name, device, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                                ("cpu f64", "cpu", torch.float64)):
+        state, loss_fn, _, _ = train_setup(files, torch.float32, device, seed=2)
+        model = state.model.to(dtype).train()
+        model.dtype = dtype
+        on = {"image": batch["image"].to(check_device(device), dtype),
+              "targets": tuple(t.to(check_device(device), dtype) for t in batch["targets"])}
+        loss, _ = loss_fn(model, on)
+        loss.backward()
+        results[name] = (loss.item(), grads_of(model))
+        del state, model
+    (card_loss, card_g), (cpu_loss, cpu_g), (ref_loss, ref_g) = (
+        results[k] for k in ("card", "cpu", "cpu f64"))
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    card_err, cpu_err = rel_l2(card_g, ref_g), rel_l2(cpu_g, ref_g)
+    card_cpu = rel_l2(card_g, cpu_g)
+    check(loss_rel <= 1e-3, f"f32 loss card {card_loss} vs CPU {cpu_loss}")
+    check(card_err[0] <= 2 * cpu_err[0] + 1e-4 and card_err[1] <= 2 * cpu_err[1] + 1e-4,
+          f"f32 gradients: card vs float64 {card_err}, CPU vs float64 {cpu_err}")
+    print(f"phase 11 f32 step card vs CPU (TF32 off, YOLOv4 80 classes @{TRAIN_IMAGE} B=2, one "
+          f"state_dict and batch, train mode): loss card {card_loss:.4f}, CPU {cpu_loss:.4f} "
+          f"(relative {loss_rel:.3g}, tolerance 1e-3), CPU float64 {ref_loss:.4f}; gradients' "
+          f"relative L2 error (overall, worst of {len(ref_g)} tensors) against the CPU float64 "
+          f"step: card {card_err[0]:.3g}, {card_err[1]:.3g}; CPU float32 {cpu_err[0]:.3g}, "
+          f"{cpu_err[1]:.3g} (tolerance: the card within 2x the CPU's + 1e-4); card vs CPU "
+          f"float32 {card_cpu[0]:.3g}, {card_cpu[1]:.3g} on [{card}]", flush=True)
+    return {"loss_rel": loss_rel, "card_err": card_err, "cpu_err": cpu_err}
+
+
+def phase_resume(card, files, ckpt, steps):
+    """Restore the CLI's last checkpoint into a fresh state, check the step and
+    the Adam state, take one step and check that both continue."""
+    import torch
+
+    from tmv_tpu_torch.core.checkpoint import CheckpointManager
+    from tmv_tpu_torch.data.yolo_pipeline import YoloDataPipeline
+
+    state, _, step, anchors = train_setup(files, torch.bfloat16, "cuda", seed=3)
+    mgr = CheckpointManager(ckpt)
+    saved = torch.load(mgr.path(mgr.latest_step()), map_location="cpu", weights_only=True)
+    mgr.restore(state)
+    check(state.step == steps == saved["step"], f"restored step {state.step}, expected {steps}")
+    adam = state.optimizer.state_dict()["state"]
+    check(all(int(v["step"]) == steps for v in adam.values()), "restored Adam step count")
+    first = next(iter(saved["optimizer"]["state"]))
+    check(torch.equal(adam[first]["exp_avg"].cpu(), saved["optimizer"]["state"][first]["exp_avg"]),
+          "restored Adam moments")
+    pipeline = YoloDataPipeline(files["images"], files["labels"], files["classes"], TRAIN_BATCH,
+                                anchors, image_wh=(TRAIN_IMAGE, TRAIN_IMAGE), prefetch=0,
+                                device="cuda")
+    batches = iter(pipeline)
+    metrics = step(state, next(batches))
+    batches.close()
+    adam = state.optimizer.state_dict()["state"]
+    check(state.step == steps + 1 and all(int(v["step"]) == steps + 1 for v in adam.values()),
+          "the step count did not continue after the resume")
+    check(np.isfinite(float(metrics["loss"])), "non-finite loss after the resume")
+    saved_avg = saved["optimizer"]["state"][first]["exp_avg"]
+    moved = not torch.equal(adam[first]["exp_avg"].cpu(), saved_avg)
+    check(moved, "the Adam moments did not move after the resume")
+    mgr.close()
+    print(f"phase 11 resume: checkpoint step {saved['step']} restored (Adam step count "
+          f"{steps} on all {len(adam)} tensors), one more step -> step {state.step}, Adam step "
+          f"{steps + 1}, loss {float(metrics['loss']):.2f} on [{card}]", flush=True)
+    return state.step
+
+
+def write_own_labels(files, records):
+    """A label file of the model's own detections: for each image its 4
+    best-scored kept boxes that lie inside the image and span more than 2 px,
+    each corner moved by up to 2 px, and one box the model did not find, so
+    that an eval against it scores strictly between 0 and 1. The eval CLI's
+    records come in its sampler's order (seed 0), which maps them to the
+    images. Returns the file's path and the number of the model's boxes in it."""
+    from tmv_tpu_torch.data.loaders import load_classes, load_labels
+    from tmv_tpu_torch.data.samplers import ClassBalancedSampler
+
+    names, _ = load_classes(files["classes"])
+    labels, _ = load_labels(files["labels"], files["images"], names)
+    order = iter(ClassBalancedSampler(labels, label_mean=False, seed=0))
+    rng = np.random.default_rng(12)
+    entries, count = {}, 0
+    for i, record in enumerate(records):
+        inside = [row for row in record["prediction"]
+                  if 0 <= row[0] and 0 <= row[1] and row[2] <= 1 and row[3] <= 1
+                  and min(row[2] - row[0], row[3] - row[1]) * TRAIN_IMAGE > 2]
+        own = []
+        for *box, cls, _score in sorted(inside, key=lambda row: -row[5])[:4]:
+            x1, y1, x2, y2 = np.clip(np.array(box) * TRAIN_IMAGE + rng.uniform(-2, 2, 4), 0,
+                                     TRAIN_IMAGE)
+            own.append(f"{names[int(cls)]},{x1:.1f},{y1:.1f},{x2:.1f},{y2:.1f}")
+        count += len(own)
+        own.append(f"{names[i % 4]},3,3,40,36")
+        entries[next(order)["image_path"]] = own
+    path = os.path.join(os.path.dirname(files["labels"]), "own_labels.txt")
+    with open(path, "w") as f:
+        for label in labels:
+            f.write(f"{os.path.basename(label['image_path'])}|"
+                    f"{'|'.join(entries[label['image_path']])}|\n")
+    return path, count
+
+
+def phase_eval(card, files, ckpt):
+    """The eval CLI through the NMS kernel, then again with the plain sweep: on
+    the trained checkpoint against the set's labels, and on a ``.pt`` of the
+    serving phases' seeded weights (sane boxes at every cell) against labels
+    made from its own detections, which must score strictly between 0 and 1."""
+    import torch
+
+    from tmv_tpu_torch.cli import eval_map
+    from tmv_tpu_torch.kernels import nms_sweep
+    from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep_reference
+
+    seeded_pt = os.path.join(WORK, "seeded_yolov4.pt")
+    torch.save(seeded_model(torch.float32, "cuda")[0].state_dict(), seeded_pt)
+    common = ["--family", "yolo", "--version", "v4", "--imagePath", files["images"],
+              "--classesFile", files["classes"], "--anchorsFile", files["anchors"],
+              "--imageSize", str(TRAIN_IMAGE), "--confidenceThresh", "0.2",
+              "--scoresThresh", "0.05", "--batchSize", "8", "--bf16", "--device", "cuda"]
+    trained = common + ["--modelPath", ckpt, "--labelFile", files["labels"]]
+    seeded = common + ["--modelPath", seeded_pt]
+    modes = ("batch", "global")
+
+    def evaluate(own_labels=None):
+        """Both modes and the records of each model; the seeded model's own
+        labels are written from its records when not given."""
+        maps = {mode: eval_map.main(trained + ["--mode", mode]) for mode in modes}
+        records, _ = eval_map.predict_records(eval_map.parse_args(trained))
+        seeded_records, _ = eval_map.predict_records(
+            eval_map.parse_args(seeded + ["--labelFile", files["labels"]]))
+        own_labels = own_labels or write_own_labels(files, seeded_records)
+        own = {mode: eval_map.main(seeded + ["--mode", mode, "--labelFile", own_labels[0]])
+               for mode in modes}
+        return maps, records + seeded_records, own, own_labels
+
+    nms_sweep.launches = 0
+    maps, records, own, own_labels = evaluate()
+    launches = nms_sweep.launches
+    with mock.patch("tmv_tpu_torch.ops.nms.greedy_sweep", greedy_sweep_reference):
+        plain, plain_records, plain_own, _ = evaluate(own_labels)
+    batches = 6 * TRAIN_SET // 8
+    check(launches >= batches, f"{launches} NMS launches for {batches} eval batches")
+    check(nms_sweep.launches == launches, "the plain sweep launched the kernel")
+    for name, got, want in (("trained", maps, plain), ("seeded", own, plain_own)):
+        for mode in modes:
+            check(got[mode]["mAP"] == want[mode]["mAP"] and got[mode]["images"] == TRAIN_SET,
+                  f"eval {mode} of the {name} model: kernel mAP {got[mode]['mAP']} vs plain "
+                  f"{want[mode]['mAP']}")
+    check(own_labels[1] > 0 and all(0 < own[mode]["mAP"] < 1 for mode in modes),
+          f"eval on the seeded model's own labels ({own_labels[1]} boxes): mAP "
+          f"{[own[m]['mAP'] for m in modes]} not in (0, 1)")
+    kept = [sum(len(r["prediction"]) for r in part)
+            for part in (records[:TRAIN_SET], records[TRAIN_SET:])]
+    check(min(kept) > 0, f"boxes kept by the trained and the seeded model: {kept}")
+    check(all(a["prediction"] == b["prediction"] for a, b in zip(records, plain_records)),
+          "kept sets differ between the kernel and the plain sweep")
+    print(f"phase 12 eval: tmv_tpu_torch.cli.eval_map, {TRAIN_SET} images @{TRAIN_IMAGE} bf16 "
+          f"b8: the trained checkpoint on the set's labels mAP batch {maps['batch']['mAP']:.4f}, "
+          f"global {maps['global']['mAP']:.4f}; the seeded weights on their own labels "
+          f"({own_labels[1]} of their kept boxes moved by up to 2 px, plus one missed box per "
+          f"image) batch {own['batch']['mAP']:.4f}, global {own['global']['mAP']:.4f}; each "
+          f"equal with the plain sweep; kept sets identical ({kept[0]} and {kept[1]} boxes "
+          f"kept); nms_sweep.launches {launches} on [{card}]", flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -917,16 +1305,22 @@ def main():
     d0_weights = phase_d0_slice(card)
     d0_launches, d0_served_p50 = phase_d0_serving(card, d0_weights)
     phase_d0_numbers(card, d0_weights, d0_served_p50)
+    files = write_train_set(os.path.join(WORK, "train_set"))
+    train = phase_train(card, files)
+    eval_launches = phase_eval(card, files, train["ckpt"])
+    nms_launches = (yolo_launches["nms_sweep"] + d0_launches["nms_sweep"]
+                    + train["val_launches"] + eval_launches)
     dw = dw_sums[64]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s on [{card}]; kernels "
           f"line: nms_sweep at N=1024 B=1 (ms: device time by CUDA graph, mask + scan "
           f"kernels), launches over both served paths (YOLOv4 "
-          f"{yolo_launches['nms_sweep']}, D0 {d0_launches['nms_sweep']}); dwconv_bn_swish "
+          f"{yolo_launches['nms_sweep']}, D0 {d0_launches['nms_sweep']}), the trainer's val "
+          f"passes ({train['val_launches']}) and the eval CLI ({eval_launches}); dwconv_bn_swish "
           f"summed over the 16 launches of one D0 bf16 forward at B=64, launches from the D0 "
           f"served path", flush=True)
     print(json.dumps({"kernels": [
         {"name": "nms_sweep", "route": "cuda", "source": NMS_SOURCE, "replaces": NMS_REPLACES,
-         "launches": yolo_launches["nms_sweep"] + d0_launches["nms_sweep"],
+         "launches": nms_launches,
          "max_abs_err": nms_err, "ms": nms_device[1]["sweep"], "plain_ms": nms_times[1][1],
          "bound_ms": nms_bound[0], "bound_by": nms_bound[1], "library_ms": None},
         {"name": "dwconv_bn_swish", "route": "cuda", "source": DW_SOURCE,

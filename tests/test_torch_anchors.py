@@ -114,7 +114,7 @@ def d0_pair():
     variables = jax.tree.map(np.asarray, seeded_variables(shapes, np.random.default_rng(5)))
     for head, factor in (("class_net", 1e-6), ("box_net", 1e-7)):
         variables["params"][head]["net"]["predict"]["pointwise"]["kernel"] *= factor
-    net, anchors = build_efficientdet("efficientdet-d0", 81, size)
+    net, anchors = build_efficientdet("efficientdet-d0", 81, size, device="cpu")
     net.load_state_dict(flax_to_state_dict(variables, net), strict=True)
     ref_anchors = JaxAnchors(cfg.min_level, cfg.max_level, (size, size), cfg.num_scales,
                              cfg.aspect_ratios, cfg.anchor_scale)

@@ -193,7 +193,7 @@ def _d0_pair(size):
     cfg.fused_dw_eval = False
     flax_model = FlaxEfficientDetNet(config=cfg)
     variables = seeded(flax_model, jnp.zeros((1, size, size, 3)), train=False, seed=size)
-    net, _ = build_efficientdet("efficientdet-d0", 81, size)
+    net, _ = build_efficientdet("efficientdet-d0", 81, size, device="cpu")
     return flax_model, variables, bridged(net, variables).eval()
 
 

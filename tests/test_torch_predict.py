@@ -9,8 +9,9 @@
   rtol 1e-5 / atol 1e-5.
 - The port's serve path (``tmv_tpu_torch.cli.serve.build_app``), driven
   in-process with a WSGI ``environ`` on ``--device cpu``.
-- Neither ``import tmv_tpu_torch`` nor building its servers (both families) pulls in
-  ``tmv_tpu``, jax or flax.
+- Neither ``import tmv_tpu_torch`` nor building its servers (both families), nor
+  the trainer's and eval CLI's arguments, pipeline and train state, pulls in
+  ``tmv_tpu``, jax or flax; the model factories default to the card.
 """
 
 import base64
@@ -154,19 +155,41 @@ def test_device_cuda_without_a_card_raises(tmp_path):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Every module of the package, and a whole server build of each family,
+    """Every module of the package, a whole server build of each family, and the
+    trainer's and eval CLI's arguments, pipeline and train state at a tiny size
     leave ``tmv_tpu`` (and jax, flax, jaxlib) out of ``sys.modules``."""
     yolo = _write_inputs(tmp_path) + ["--randomInit", "--imageSize", "32", "--device", "cpu",
                                       "--batch", "2"]
     det = _write_inputs(tmp_path)[:2] + ["--family", "efficientdet", "--randomInit",
                                          "--imageSize", "64", "--device", "cpu"]
+    Image.fromarray(np.zeros((40, 48, 3), np.uint8)).save(tmp_path / "im0.png")
+    (tmp_path / "labels.txt").write_text("im0.png|class_1,2,3,20,30|\n")
+    files = _write_inputs(tmp_path)
+    train = files + ["--trainData", str(tmp_path / "labels.txt"), "--trainImagePath",
+                     str(tmp_path), "--imageSize", "32", "--batchSize", "2", "--device", "cpu"]
+    evaluate = files + ["--imagePath", str(tmp_path), "--labelFile",
+                        str(tmp_path / "labels.txt"), "--imageSize", "32", "--device", "cpu"]
     code = ("import sys, pkgutil, importlib, tmv_tpu_torch\n"
             "for m in pkgutil.walk_packages(tmv_tpu_torch.__path__, 'tmv_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
-            "from tmv_tpu_torch.cli import serve\n"
+            "import torch\n"
+            "from tmv_tpu_torch.cli import eval_map, serve, train_yolo\n"
+            "from tmv_tpu_torch.core.train_state import TrainState, make_train_step\n"
+            "from tmv_tpu_torch.data.loaders import load_anchors\n"
+            "from tmv_tpu_torch.data.yolo_pipeline import YoloDataPipeline\n"
+            "from tmv_tpu_torch.models.detector_harness import build_yolo_model\n"
             f"_, service, _ = serve.build_app(serve.parse_args({yolo!r}))\n"
             "service.batcher.close()\n"
             f"serve.build_app(serve.parse_args({det!r}))\n"
+            f"a = train_yolo.parse_args({train!r})\n"
+            f"e = eval_map.parse_args({evaluate!r})\n"
+            "anchors = load_anchors(a.anchorsFile)\n"
+            "p = YoloDataPipeline(a.trainImagePath, a.trainData, a.classesFile, a.batchSize,\n"
+            "                     anchors, image_wh=(32, 32), prefetch=0, device=a.device)\n"
+            "batch = next(iter(p))\n"
+            "model, _ = build_yolo_model('v4', p.classes_num, device='cpu')\n"
+            "state = TrainState.create(model, torch.optim.Adam(model.parameters()))\n"
+            "assert batch['image'].shape == (2, 32, 32, 3) and state.step == 0\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('tmv_tpu', 'jax', 'flax', 'jaxlib'))\n"
             "assert not bad, bad\n"
@@ -175,3 +198,19 @@ def test_port_imports_no_jax(tmp_path):
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_model_factories_default_to_the_card():
+    """``build_yolo_model`` and ``build_efficientdet`` build on the card unless
+    asked for the CPU; without a card that default raises."""
+    from tmv_tpu_torch.models.detector_harness import build_yolo_model
+    from tmv_tpu_torch.models.efficientdet.harness import build_efficientdet
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_yolo_model("v4", 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_efficientdet("efficientdet-d0", 4, 64)
+    model, _ = build_yolo_model("v4", 3, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"

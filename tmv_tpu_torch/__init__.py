@@ -7,11 +7,14 @@ public functions: images NHWC ``(B, H, W, 3)`` float in [0, 1], heads
 for Hopper (``kernels/``, sources in ``csrc/``).
 
 Ported so far: the YOLOv4 and EfficientDet-D0 predict paths and their HTTP
-serving (``cli/serve.py``), the flax weight bridge (``convert/flax_bridge.py``),
-the greedy-NMS kernel and the fused depthwise-conv + BatchNorm + swish kernel.
+serving (``cli/serve.py``), YOLOv4 training and mAP evaluation
+(``cli/train_yolo.py``, ``cli/eval_map.py``), the flax weight and Adam-state
+bridge (``convert/flax_bridge.py``), the greedy-NMS kernel and the fused
+depthwise-conv + BatchNorm + swish kernel.
 The package imports ``torch``, numpy, PIL and the standard library, and nothing
 of ``jax``, ``flax`` or the ``tmv_tpu`` package: where it needs a jax-free module
-of ``tmv_tpu`` (config, loaders, image helpers, serving), it keeps its own copy.
+of ``tmv_tpu`` (config, loaders, samplers, map_eval, image helpers, serving),
+it keeps its own copy.
 """
 
 __version__ = "0.1.0"

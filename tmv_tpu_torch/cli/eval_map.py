@@ -1,0 +1,179 @@
+"""Dataset mAP evaluation CLI for a trained YOLOv4 of the port.
+
+Port of ``tmv_tpu/cli/eval_map.py`` for ``--family yolo --version v4``:
+
+- ``--mode batch`` (default): per-image mAP averaged over the set, the
+  reference's ``test_step`` semantics; ``--mode global`` pools all images into
+  one PR curve per class;
+- ``--variant reference|voc|coco`` picks the AP integrator
+  (``ops/map_eval.py::get_ap{,_voc,_coco}``).
+
+``--modelPath`` is a port checkpoint directory (``cli/train_yolo.py``; the
+latest step) or a ``.pt`` state_dict (``tools/export_torch_weights.py``);
+omitted, the model is seeded random weights (a smoke run only). The images go
+through the batched predictor, and so through the NMS kernel on the card.
+``--device cuda`` (the default) raises where there is no GPU.
+
+Usage:
+    python -m tmv_tpu_torch.cli.eval_map --family yolo --version v4 \\
+        --imagePath imgs/ --labelFile labels.txt --classesFile classes.txt \\
+        --anchorsFile anchors.txt --modelPath ./weights --imageSize 416
+"""
+
+import argparse
+import json
+
+import numpy as np
+
+_NOT_PORTED = {
+    "--family efficientdet": (
+        lambda a: a.family != "yolo",
+        "ROADMAP.md queue 1: the EfficientDet-D0 training slice and its eval"),
+    "--version v3/resnet": (lambda a: a.version != "v4", "ROADMAP.md queue 1: the YOLOv3 family"),
+    "--cacheDir": (lambda a: a.cacheDir is not None, "ROADMAP.md queue 1: data/stage_cache.py"),
+    "--int8Static": (lambda a: a.int8Static, "ROADMAP.md queue 1: int8"),
+    "--int8Margin": (lambda a: a.int8Margin is not None, "ROADMAP.md queue 1: int8"),
+    "--int8PerChannel": (lambda a: a.int8PerChannel, "ROADMAP.md queue 1: int8"),
+}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--family", default="yolo", choices=["yolo", "efficientdet"])
+    p.add_argument("--version", default="v4", choices=["v3", "v4", "resnet"])
+    p.add_argument("--modelName", default="efficientdet-d0")
+    p.add_argument("--imagePath", required=True)
+    p.add_argument("--labelFile", required=True)
+    p.add_argument("--classesFile", required=True)
+    p.add_argument("--anchorsFile", default=None, help="required for --family yolo")
+    p.add_argument("--modelPath", default=None,
+                   help="checkpoint dir or .pt (omit = seeded random weights, smoke only)")
+    p.add_argument("--imageSize", type=int, default=416)
+    p.add_argument("--maxImages", type=int, default=0,
+                   help="cap evaluated images (0 = whole set once)")
+    p.add_argument("--batchSize", type=int, default=1,
+                   help="images per predictor call (per-image results are identical)")
+    p.add_argument("--mode", default="batch", choices=["batch", "global"])
+    p.add_argument("--variant", default="reference", choices=["reference", "voc", "coco"])
+    p.add_argument("--thresh", type=float, default=0.5,
+                   help="IoU match threshold (non-coco variants)")
+    p.add_argument("--confidenceThresh", type=float, default=0.5)
+    p.add_argument("--scoresThresh", type=float, default=0.2)
+    p.add_argument("--iouThresh", type=float, default=0.5)
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--cacheDir", default=None)
+    p.add_argument("--int8Static", action="store_true")
+    p.add_argument("--int8Margin", type=float, default=None)
+    p.add_argument("--int8PerChannel", action="store_true")
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    refused = [f"{flag} ({where})" for flag, (given, where) in _NOT_PORTED.items()
+               if given(args)]
+    if refused:
+        p.error(f"not yet ported to tmv_tpu_torch: {'; '.join(refused)}")
+    if args.anchorsFile is None:
+        p.error("--anchorsFile is required for --family yolo")
+    return args
+
+
+def score_dataset(data, classes_num: int, mode: str, variant: str, thresh: float) -> float:
+    """Score per-image records (``{"image_path", "groud_truth", "prediction"}``,
+    the reference evaluator's format) under ``mode`` × ``variant``."""
+    from tmv_tpu_torch.ops.map_eval import get_map, get_map_coco
+
+    def one(subset):
+        if variant == "coco":
+            return get_map_coco(subset, classes_num)
+        return get_map(subset, classes_num, thresh, variant=variant)
+
+    if mode == "global":
+        return float(one(data))
+    per_image = [one([d]) for d in data]
+    return float(np.mean(per_image)) if per_image else 0.0
+
+
+def load_model(args, classes_num: int, anchors_per_scale: int, device):
+    """The YOLOv4 of ``--modelPath`` on ``device`` in eval mode → (model, iou_type)."""
+    import os
+
+    import torch
+
+    from tmv_tpu_torch.core.checkpoint import CheckpointManager
+    from tmv_tpu_torch.models.detector_harness import build_yolo_model
+    from tmv_tpu_torch.models.layers.common import init_weights
+
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    model, iou_type = build_yolo_model(args.version, classes_num, anchors_per_scale,
+                                       dtype=dtype, device=device)
+    if args.modelPath is None:
+        init_weights(model, 0)
+    elif os.path.isdir(args.modelPath):
+        mgr = CheckpointManager(args.modelPath)
+        step = mgr.restore_weights(model)
+        mgr.close()
+        if step is None:
+            raise FileNotFoundError(f"{args.modelPath} holds no checkpoint")
+        print(f"checkpoint at step {step}", flush=True)
+    else:
+        model.load_state_dict(torch.load(args.modelPath, map_location="cpu", weights_only=True),
+                              strict=True)
+    return model.to(memory_format=torch.channels_last).eval(), iou_type
+
+
+def predict_records(args):
+    """Predict every image of the set → (per-image records in the reference
+    evaluator's format, classes_num)."""
+    from tmv_tpu_torch.data.loaders import load_anchors
+    from tmv_tpu_torch.data.yolo_pipeline import YoloDataPipeline
+    from tmv_tpu_torch.models.detector_harness import (
+        check_device, ground_truth_from_targets, make_yolo_predict_batched,
+    )
+
+    device = check_device(args.device)
+    anchors = load_anchors(args.anchorsFile)
+    image_wh = (args.imageSize, args.imageSize)
+    pipeline = YoloDataPipeline(args.imagePath, args.labelFile, args.classesFile,
+                                args.batchSize, anchors, image_wh=image_wh, image_random=False,
+                                label_mean=False, device=device)
+    classes_num = pipeline.classes_num
+    model, iou_type = load_model(args, classes_num, anchors.shape[1], device)
+    predict_b = make_yolo_predict_batched(
+        model, image_wh, anchors, classes_num, confidence_thresh=args.confidenceThresh,
+        scores_thresh=args.scoresThresh, iou_thresh=args.iouThresh, iou_type=iou_type)
+
+    n = args.maxImages or pipeline.labels_num
+    data = []
+    batches = iter(pipeline)
+    try:
+        for bi in range((n + args.batchSize - 1) // args.batchSize):
+            batch = next(batches)
+            boxes_b, ids_b, scores_b, valid_b = predict_b(None, batch["image"])
+            for j in range(min(args.batchSize, n - bi * args.batchSize)):
+                v = valid_b[j]
+                pred = np.concatenate([boxes_b[j][v], ids_b[j][v][:, None].astype(np.float64),
+                                       scores_b[j][v][:, None]], axis=-1)
+                gt = ground_truth_from_targets([t[j] for t in batch["targets"]], classes_num)
+                data.append({"image_path": f"{bi * args.batchSize + j}.jpg",
+                             "groud_truth": gt.tolist(), "prediction": pred.tolist()})
+    finally:
+        batches.close()
+    return data, classes_num
+
+
+def eval_yolo(args):
+    data, classes_num = predict_records(args)
+    return {"mAP": score_dataset(data, classes_num, args.mode, args.variant, args.thresh),
+            "images": len(data)}
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    result = eval_yolo(args)
+    result.update({"family": args.family, "mode": args.mode, "variant": args.variant,
+                   "quant": "off"})
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -89,7 +89,7 @@ def _build_model(args, classes_num, dtype):
 
         # background reserved at id 0
         model, anchors = build_efficientdet(args.modelName, classes_num + 1, args.imageSize,
-                                            dtype=dtype)
+                                            dtype=dtype, device=args.device)
         return (model, lambda: make_efficientdet_predict_batched(model, anchors, args.imageSize),
                 init_weights)
 
@@ -98,7 +98,8 @@ def _build_model(args, classes_num, dtype):
     from tmv_tpu_torch.models.layers.common import init_weights
 
     anchors = load_anchors(args.anchorsFile)
-    model, iou_type = build_yolo_model("v4", classes_num, anchors.shape[1], dtype=dtype)
+    model, iou_type = build_yolo_model("v4", classes_num, anchors.shape[1], dtype=dtype,
+                                       device=args.device)
     image_wh = (args.imageSize, args.imageSize)
     kw = dict(confidence_thresh=0.5, scores_thresh=0.2, iou_thresh=0.5, iou_type=iou_type)
     return (model, lambda: make_yolo_predict_batched(model, image_wh, anchors, classes_num, **kw),
@@ -115,9 +116,9 @@ def build_service(args):
     from tmv_tpu_torch.data.loaders import load_classes
     from tmv_tpu_torch.serving.app import DetectionService
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is available")
+    from tmv_tpu_torch.models.detector_harness import check_device
+
+    device = check_device(args.device)
     classes_name, classes_num = load_classes(args.classesFile)
     image_wh = (args.imageSize, args.imageSize)
     dtype = torch.bfloat16 if args.bf16 else torch.float32

@@ -1,0 +1,212 @@
+"""YOLOv4 training CLI on one GPU.
+
+Port of ``tmv_tpu/cli/train_yolo.py`` for ``--version v4`` on one device: the
+train and val pipelines, Adam at ``--lr`` with the shadow loss, ``--accumSteps``,
+checkpoint resume with the epoch derived from the step, a per-epoch asynchronous
+save, ReduceLROnPlateau, EarlyStopping, GracefulShutdown, the per-epoch val mAP
+over ``min(50, labels)`` images through the predictor (and so through the NMS
+kernel on the card), and a final save. ``iou_type`` is ``ciou`` in the loss and
+``diou`` in the predictor. ``--bf16`` trains bf16 activations on float32 master
+weights and float32 Adam moments. ``--device cuda`` (the default) raises where
+there is no GPU; ``--device cpu`` is for tests.
+
+Usage:
+    python -m tmv_tpu_torch.cli.train_yolo --version v4 \\
+        --trainData ./data/train_labels.txt --trainImagePath ./imgs \\
+        --valData ./data/val_labels.txt --valImagePath ./imgs \\
+        --classesFile ./data/classes.txt --anchorsFile ./data/anchors.txt --bf16
+
+Checkpoints are ``<modelPath>/<step>.pt`` (``core/checkpoint.py``), with
+``metrics.jsonl`` beside them; ``cli/eval_map.py`` scores them.
+"""
+
+import argparse
+import os
+
+import numpy as np
+
+# Flags of the JAX CLI the port does not run yet → the later ROADMAP.md item.
+_NOT_PORTED = {
+    "--version v3": (lambda a: a.version != "v4",
+                     "YOLOv3 training (ROADMAP.md queue 1: the YOLOv3 family)"),
+    "--darknetWeights": (lambda a: a.darknetWeights is not None,
+                         "convert/darknet.py builds flax trees (ROADMAP.md queue 1: "
+                         "convert/darknet.py with freeze_mask/masked_optimizer)"),
+    "--mosaic": (lambda a: a.mosaic > 0, "ROADMAP.md queue 1: data/mosaic.py"),
+    "--cacheDir": (lambda a: a.cacheDir is not None, "ROADMAP.md queue 1: data/stage_cache.py"),
+    "--remat": (lambda a: a.remat, "ROADMAP.md queue 1: --remat"),
+    "--dp": (lambda a: a.dp, "ROADMAP.md queue 1: multi-GPU training"),
+    "--sp": (lambda a: a.sp > 1, "ROADMAP.md queue 1: multi-GPU training"),
+    "--tp": (lambda a: a.tp > 1, "ROADMAP.md queue 1: multi-GPU training"),
+    "--fsdp": (lambda a: a.fsdp, "ROADMAP.md queue 1: multi-GPU training"),
+}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--version", default="v4", choices=["v3", "v4"])
+    p.add_argument("--trainData", required=True)
+    p.add_argument("--trainImagePath", required=True)
+    p.add_argument("--valData", default=None)
+    p.add_argument("--valImagePath", default=None)
+    p.add_argument("--classesFile", required=True)
+    p.add_argument("--anchorsFile", required=True)
+    p.add_argument("--batchSize", type=int, default=8)
+    p.add_argument("--imageSize", type=int, default=416)
+    p.add_argument("--stepsPerEpoch", type=int, default=5000)
+    p.add_argument("--epochs", type=int, default=300)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--modelPath", default="./data/yolo_weights")
+    p.add_argument("--darknetWeights", default=None)
+    p.add_argument("--warmupSteps", type=int, default=1000,
+                   help="head-only warm start steps after --darknetWeights (not ported)")
+    p.add_argument("--mosaic", type=float, default=0.0)
+    p.add_argument("--cacheDir", default=None)
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--dp", action="store_true")
+    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--fsdp", action="store_true")
+    p.add_argument("--accumSteps", type=int, default=1,
+                   help="gradient accumulation micro-steps (batchSize must divide)")
+    p.add_argument("--remat", action="store_true")
+    p.add_argument("--earlyStopPatience", type=int, default=10,
+                   help="epochs without train-loss improvement before stopping (0 disables)")
+    p.add_argument("--reduceLrFactor", type=float, default=0.1)
+    p.add_argument("--reduceLrPatience", type=int, default=3,
+                   help="flat epochs before LR *= factor (0 disables)")
+    p.add_argument("--minLr", type=float, default=1e-6)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    refused = [f"{flag} ({where})" for flag, (given, where) in _NOT_PORTED.items()
+               if given(args)]
+    if refused:
+        p.error(f"not yet ported to tmv_tpu_torch: {'; '.join(refused)}")
+    if args.batchSize % args.accumSteps:
+        p.error("--accumSteps must divide --batchSize")
+    return args
+
+
+def main(argv=None):
+    """Train; returns ``{"step", "epochs", "val_mAP"}`` (the per-epoch val mAPs)."""
+    import torch
+
+    from tmv_tpu_torch.core.callbacks import (
+        EarlyStopping, GracefulShutdown, ReduceLROnPlateau, set_learning_rate,
+    )
+    from tmv_tpu_torch.core.checkpoint import CheckpointManager
+    from tmv_tpu_torch.core.metrics import MetricsLogger, StepTimer
+    from tmv_tpu_torch.core.train_state import TrainState, make_train_step
+    from tmv_tpu_torch.data.loaders import load_anchors
+    from tmv_tpu_torch.data.yolo_pipeline import YoloDataPipeline
+    from tmv_tpu_torch.models.detector_harness import (
+        build_yolo_model, check_device, make_yolo_loss_fn, make_yolo_predict,
+    )
+    from tmv_tpu_torch.models.layers.common import init_weights
+
+    args = parse_args(argv)
+    device = check_device(args.device)
+    anchors = load_anchors(args.anchorsFile)
+    image_wh = (args.imageSize, args.imageSize)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+
+    pipeline = YoloDataPipeline(args.trainImagePath, args.trainData, args.classesFile,
+                                args.batchSize, anchors, image_wh=image_wh, device=device)
+    model, predict_iou_type = build_yolo_model(args.version, pipeline.classes_num,
+                                               anchors.shape[1], dtype=dtype, device=device,
+                                               param_dtype=torch.float32)
+    init_weights(model, 0)
+    model = model.to(memory_format=torch.channels_last)
+    optimizer = torch.optim.Adam(model.parameters(), lr=args.lr, betas=(0.9, 0.999), eps=1e-8)
+    state = TrainState.create(model, optimizer)
+    mgr = CheckpointManager(args.modelPath)
+    state = mgr.restore(state)
+    start_step = state.step
+    if start_step:
+        print(f"resumed from step {start_step}", flush=True)
+
+    loss_fn = make_yolo_loss_fn(image_wh, anchors, iou_type="ciou")
+    step_fn = make_train_step(loss_fn, shadow_loss=True, accum_steps=args.accumSteps)
+    logger = MetricsLogger(os.path.join(args.modelPath, "metrics.jsonl"), print_every=50)
+    timer = StepTimer(batch_size=args.batchSize)
+    predict_fn = make_yolo_predict(model, image_wh, anchors, pipeline.classes_num,
+                                   iou_type=predict_iou_type)
+    shutdown = GracefulShutdown()
+    early = EarlyStopping(patience=args.earlyStopPatience) if args.earlyStopPatience else None
+    plateau = (ReduceLROnPlateau(factor=args.reduceLrFactor, patience=args.reduceLrPatience,
+                                 min_lr=args.minLr, base_lr=args.lr)
+               if args.reduceLrPatience else None)
+
+    total_steps = args.stepsPerEpoch * args.epochs
+    epoch_losses, val_maps, pending = [], [], []
+
+    def record():
+        # a step's metrics are read after the next step is queued, so the host
+        # does not wait for the card at every step
+        for i, m in pending:
+            logger.log(i, m)
+            epoch_losses.append(float(m["loss"]))
+        pending.clear()
+
+    it = iter(pipeline)
+    try:
+        for step_i in range(start_step, total_steps):
+            metrics = step_fn(state, next(it))
+            metrics.update(timer.tick())
+            record()
+            pending.append((step_i, metrics))
+            if shutdown.requested or (step_i + 1) % args.stepsPerEpoch == 0:
+                record()
+            if shutdown.requested:
+                print(f"preemption signal: checkpointing at step {state.step} and exiting",
+                      flush=True)
+                break
+            if (step_i + 1) % args.stepsPerEpoch == 0:
+                mgr.save(state.step, state, wait=False)
+                epoch_loss = float(np.mean(epoch_losses))
+                epoch_losses = []
+                if plateau is not None:
+                    new_lr = plateau.update(epoch_loss)
+                    set_learning_rate(optimizer, new_lr)
+                    print(f"epoch loss {epoch_loss:.4f} lr {new_lr:.2e}", flush=True)
+                if early is not None and early.update(epoch_loss):
+                    print(f"early stopping: no improvement for {args.earlyStopPatience} "
+                          "epochs", flush=True)
+                    break
+                if args.valData:
+                    val_maps.append(validate(args, anchors, image_wh, device, model,
+                                             predict_fn, pipeline.classes_num))
+                    print(f"epoch {(step_i + 1) // args.stepsPerEpoch} "
+                          f"val_mAP={val_maps[-1]:.4f}", flush=True)
+        record()
+    finally:
+        it.close()
+        shutdown.uninstall()
+    mgr.save(state.step, state)
+    mgr.close()
+    logger.close()
+    return {"step": state.step, "epochs": state.step // args.stepsPerEpoch, "val_mAP": val_maps}
+
+
+def validate(args, anchors, image_wh, device, model, predict_fn, classes_num):
+    """Mean per-image mAP over the first ``min(50, labels)`` val images, the
+    model in eval mode (running statistics) meanwhile."""
+    from tmv_tpu_torch.data.yolo_pipeline import YoloDataPipeline
+    from tmv_tpu_torch.models.detector_harness import eval_map_step
+
+    val = YoloDataPipeline(args.valImagePath, args.valData, args.classesFile, 1, anchors,
+                           image_wh=image_wh, image_random=False, label_mean=False,
+                           device=device)
+    model.eval()
+    vit = iter(val)
+    try:
+        maps = [eval_map_step(predict_fn, None, next(vit), classes_num)
+                for _ in range(min(50, val.labels_num))]
+    finally:
+        vit.close()
+        model.train()
+    return float(np.mean(maps))
+
+
+if __name__ == "__main__":
+    main()

@@ -21,6 +21,11 @@ the bridge is a walk over paths, not a table:
 It raises on a leaf it does not know and on two leaves that land on one key.
 Given a ``model``, it also checks that the keys are exactly the model's and the
 shapes match.
+
+``optax_adam_state_dict`` carries an optax Adam state (``ScaleByAdamState``,
+also inside ``inject_hyperparams``) into a ``torch.optim.Adam`` state dict: its
+moments ``mu``/``nu`` walk the same paths with the same layout transposes as
+the parameters, so a JAX ``TrainState`` resumes in the port.
 """
 
 import re
@@ -83,6 +88,26 @@ def _map_leaf(collection: str, path) -> tuple:
     raise KeyError(f"flax leaf {collection}/{'/'.join(path)} has no torch counterpart")
 
 
+def _convert(collection: str, tree: Mapping[str, Any], state: Dict[str, torch.Tensor],
+             source: Dict[str, str]):
+    """Map every leaf of one collection into ``state``; returns the stems of the
+    BatchNorm modules met."""
+    bn_modules = set()
+    for path, value in _leaves(tree):
+        key, transform = _map_leaf(collection, path)
+        where = f"{collection}/{'/'.join(path)}"
+        if key in state:
+            raise KeyError(f"{where} and {source[key]} both map to {key}")
+        array = np.asarray(value, dtype=np.float32)
+        if transform is not None:
+            array = transform(array)
+        state[key] = torch.tensor(np.array(array, order="C"))  # keeps 0-d leaves 0-d
+        source[key] = where
+        if _kind(path[-2]) == "BatchNorm":
+            bn_modules.add(key.rsplit(".", 1)[0])
+    return bn_modules
+
+
 def flax_to_state_dict(variables: Mapping[str, Any],
                        model: Optional[torch.nn.Module] = None) -> Dict[str, torch.Tensor]:
     """Map ``{"params": …, "batch_stats": …}`` (nested dicts of arrays) to a
@@ -94,18 +119,7 @@ def flax_to_state_dict(variables: Mapping[str, Any],
     source: Dict[str, str] = {}
     bn_modules = set()
     for collection in ("params", "batch_stats"):
-        for path, value in _leaves(variables.get(collection, {})):
-            key, transform = _map_leaf(collection, path)
-            where = f"{collection}/{'/'.join(path)}"
-            if key in state:
-                raise KeyError(f"{where} and {source[key]} both map to {key}")
-            array = np.asarray(value, dtype=np.float32)
-            if transform is not None:
-                array = transform(array)
-            state[key] = torch.tensor(np.array(array, order="C"))  # keeps 0-d leaves 0-d
-            source[key] = where
-            if _kind(path[-2]) == "BatchNorm":
-                bn_modules.add(key.rsplit(".", 1)[0])
+        bn_modules |= _convert(collection, variables.get(collection, {}), state, source)
     for stem in sorted(bn_modules):
         for name in ("weight", "bias", "running_mean", "running_var"):
             if f"{stem}.{name}" not in state:
@@ -127,3 +141,51 @@ def _check_against(state: Mapping[str, torch.Tensor], model: torch.nn.Module):
         if tuple(tensor.shape) != tuple(expected[key].shape):
             raise ValueError(f"{key}: flax shape {tuple(tensor.shape)} vs "
                              f"torch {tuple(expected[key].shape)}")
+
+
+def _find_adam(opt_state):
+    """(ScaleByAdamState-like node, learning rate or None) inside an optax state."""
+    lr = None
+    hyper = getattr(opt_state, "hyperparams", None)
+    if isinstance(hyper, Mapping) and "learning_rate" in hyper:
+        lr = float(np.asarray(hyper["learning_rate"]))
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state, lr
+    children = (opt_state.inner_state,) if hasattr(opt_state, "inner_state") else opt_state
+    if isinstance(children, (tuple, list)):
+        for child in children:
+            found, inner_lr = _find_adam(child)
+            if found is not None:
+                return found, lr if lr is not None else inner_lr
+    return None, lr
+
+
+def optax_adam_state_dict(opt_state, model: torch.nn.Module,
+                          optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """A ``state_dict`` for ``optimizer`` (a ``torch.optim.Adam`` over
+    ``model``'s parameters) holding the optax Adam state ``opt_state``: the
+    step count, the moments mapped onto each parameter, and the live learning
+    rate of an ``inject_hyperparams`` state. Raises where a moment has no
+    parameter or a parameter no moment."""
+    adam, lr = _find_adam(opt_state)
+    if adam is None:
+        raise KeyError("no optax ScaleByAdamState (count, mu, nu) in the optimizer state")
+    moments = {}
+    for name, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+        mapped: Dict[str, torch.Tensor] = {}
+        _convert("params", tree, mapped, {})
+        moments[name] = mapped
+    names = {id(p): n for n, p in model.named_parameters()}
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    if sorted(names[id(p)] for p in params) != sorted(moments["exp_avg"]):
+        raise KeyError("the optax moments and the optimizer's parameters differ")
+    out = optimizer.state_dict()
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    out["state"] = {
+        i: {"step": step.clone(), "exp_avg": moments["exp_avg"][names[id(p)]].to(p.dtype),
+            "exp_avg_sq": moments["exp_avg_sq"][names[id(p)]].to(p.dtype)}
+        for i, p in enumerate(params)}
+    if lr is not None:
+        for group in out["param_groups"]:
+            group["lr"] = lr
+    return out

@@ -1,0 +1,120 @@
+"""Numbered step checkpoints with latest-step resume, written by ``torch.save``.
+
+Port of ``tmv_tpu/core/checkpoint.py::CheckpointManager`` (orbax there). A
+checkpoint ``<directory>/<step>.pt`` holds the module's ``state_dict``
+(parameters and BatchNorm buffers), the optimizer's ``state_dict``, the step,
+the shadow loss and the EMA tensors when present. It is written to a temporary
+name and renamed, so a process killed mid-save leaves the last complete
+checkpoint. ``save(wait=False)`` copies the state to host memory at once and
+writes the file on a background thread; ``wait_until_finished`` and ``close``
+drain the writes. A save at a step already saved is skipped, and only the newest
+``max_to_keep`` checkpoints stay.
+"""
+
+import os
+import re
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import List, Optional
+
+import torch
+
+_NAME = re.compile(r"(\d+)\.pt")
+
+
+def _to_host(obj):
+    """A copy of ``obj`` (nested dicts/lists of tensors) in host memory."""
+    if torch.is_tensor(obj):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, max_to_keep: int = 5):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.max_to_keep = max_to_keep
+        self._last_saved_step: Optional[int] = None
+        self._writer = ThreadPoolExecutor(1)
+        self._pending: List[Future] = []
+
+    def all_steps(self) -> List[int]:
+        return sorted(int(m.group(1)) for m in map(_NAME.fullmatch, os.listdir(self.directory))
+                      if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"{step}.pt")
+
+    def _write(self, step: int, payload):
+        tmp = self.path(step) + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, self.path(step))
+        for old in self.all_steps()[:-self.max_to_keep]:
+            os.remove(self.path(old))
+
+    def save(self, step: int, state, wait: bool = True):
+        """Save ``state`` (a ``TrainState``) at ``step``; with ``wait=False`` the
+        file is written in the background."""
+        if step != self._last_saved_step and step not in self.all_steps():
+            payload = _to_host({
+                "model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "step": int(state.step),
+                "shadow_loss": state.shadow_loss,
+                "ema_params": state.ema_params,
+                "ema_batch_stats": state.ema_batch_stats,
+            })
+            self._pending.append(self._writer.submit(self._write, step, payload))
+            self._last_saved_step = step
+        if wait:
+            self.wait_until_finished()
+
+    def wait_until_finished(self):
+        pending, self._pending = self._pending, []
+        for future in pending:
+            future.result()
+
+    def _load(self, step: Optional[int]):
+        self.wait_until_finished()
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None
+        return torch.load(self.path(step), map_location="cpu", weights_only=True)
+
+    def restore(self, state, step: Optional[int] = None):
+        """Load the checkpoint at ``step`` (default: the latest) into ``state``'s
+        module and optimizer and set its step, shadow loss and EMA. Returns
+        ``state``, unchanged where there is no checkpoint."""
+        raw = self._load(step)
+        if raw is None:
+            return state
+        device = next(state.model.parameters()).device
+        state.model.load_state_dict(raw["model"], strict=True)
+        state.optimizer.load_state_dict(raw["optimizer"])
+        state.step = int(raw["step"])
+        state.shadow_loss = raw["shadow_loss"].to(device)
+        for name in ("ema_params", "ema_batch_stats"):
+            if raw.get(name) is not None:
+                setattr(state, name, {k: v.to(device) for k, v in raw[name].items()})
+        return state
+
+    def restore_weights(self, model: torch.nn.Module, step: Optional[int] = None) -> Optional[int]:
+        """Load only the module's weights (parameters and BatchNorm statistics)
+        of the checkpoint at ``step`` (default: the latest), for the inference
+        CLIs. Returns the checkpoint's step, or None where there is none."""
+        raw = self._load(step)
+        if raw is None:
+            return None
+        model.load_state_dict(raw["model"], strict=True)
+        return int(raw["step"])
+
+    def close(self):
+        self.wait_until_finished()
+        self._writer.shutdown()

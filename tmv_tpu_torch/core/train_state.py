@@ -1,0 +1,138 @@
+"""Train state and the train step.
+
+Port of ``tmv_tpu/core/train_state.py::TrainState`` and ``make_train_step``. The
+JAX package threads a functional state through a jitted step; here the state
+holds the live module (its parameters and BatchNorm buffers) and its
+``torch.optim`` optimizer, and the step updates them in place:
+
+- the *shadow loss* (`yolo_v3/model.py:205-210`): after ``step > 1`` the
+  gradients are scaled by ``1 − decay`` and the reported loss is the blend
+  ``scale·loss + decay·shadow``; the raw loss is reported beside it;
+- an optional global-norm clip (``optax.clip_by_global_norm`` semantics);
+- an optional weight EMA (tfa ``MovingAverage``), with an optional EMA of the
+  BatchNorm statistics;
+- gradient accumulation: the batch splits into ``accum_steps`` micro-batches
+  whose gradients are averaged before one update, the BatchNorm statistics
+  threaded through the micro-batches in order.
+
+``torch.optim.Adam(betas=(0.9, 0.999), eps=1e-8)`` is ``optax.adam``'s update.
+The line-search step waits for the EfficientDet-D0 training slice.
+"""
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import torch
+
+from tmv_tpu_torch.core.schedules import shadow_loss_decay
+
+
+@dataclass
+class TrainState:
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+    shadow_loss: Optional[torch.Tensor] = None
+    ema_params: Optional[Dict[str, torch.Tensor]] = None
+    ema_batch_stats: Optional[Dict[str, torch.Tensor]] = None
+
+    @classmethod
+    def create(cls, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+               ema_decay: Optional[float] = None, ema_batch_stats: bool = False):
+        """``ema_batch_stats=True`` also shadows the BatchNorm statistics."""
+        device = next(model.parameters()).device
+        ema_params = ema_stats = None
+        if ema_decay:
+            ema_params = {n: p.detach().clone() for n, p in model.named_parameters()}
+            if ema_batch_stats:     # the running statistics, not the step counters
+                ema_stats = {n: b.detach().clone() for n, b in model.named_buffers()
+                             if b.is_floating_point()}
+        return cls(model, optimizer, 0, torch.zeros((), dtype=torch.float32, device=device),
+                   ema_params, ema_stats)
+
+
+def _split(batch, parts: int):
+    """``parts`` micro-batches of a nested dict/tuple batch along axis 0."""
+    if isinstance(batch, dict):
+        chunks = {k: _split(v, parts) for k, v in batch.items()}
+        return [{k: c[i] for k, c in chunks.items()} for i in range(parts)]
+    if isinstance(batch, (tuple, list)):
+        chunks = [_split(v, parts) for v in batch]
+        return [type(batch)(c[i] for c in chunks) for i in range(parts)]
+    if batch.shape[0] % parts:
+        raise ValueError(f"batch of {batch.shape[0]} does not split into {parts} micro-batches")
+    return list(torch.chunk(batch, parts))
+
+
+def make_train_step(loss_fn: Callable, clip_global_norm: Optional[float] = None,
+                    shadow_loss: bool = False, loss_decay: float = 0.9,
+                    ema_decay: Optional[float] = None, accum_steps: int = 1):
+    """Build ``train_step(state, batch) -> metrics``, which updates ``state``.
+
+    Args:
+        loss_fn: ``(model, batch) -> (loss, aux_metrics)``; the step runs the
+            model in train mode, so its BatchNorms update their statistics.
+        clip_global_norm: optional global-norm gradient clip.
+        shadow_loss: the YOLO-family loss-EMA gradient damping.
+        ema_decay: optional weight-EMA decay.
+        accum_steps: micro-batches per update (the batch's leading dim divides).
+
+    The metrics are device tensors (``loss``, ``raw_loss``, ``gnorm`` with a
+    clip, and ``loss_fn``'s aux); nothing in the step waits for the device.
+    """
+
+    def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        model, optimizer = state.model, state.optimizer
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        micro = _split(batch, accum_steps) if accum_steps > 1 else [batch]
+        losses, auxs = [], []
+        for mb in micro:
+            loss, aux = loss_fn(model, mb)
+            loss.backward()
+            losses.append(loss.detach())
+            auxs.append(aux)
+        params = [p for p in model.parameters() if p.grad is not None]
+        grads = [p.grad for p in params]
+        loss = losses[0] if accum_steps == 1 else torch.stack(losses).mean()
+        aux = {k: torch.stack([torch.as_tensor(a[k]) for a in auxs]).mean(0) for k in auxs[0]}
+        if accum_steps > 1:
+            torch._foreach_div_(grads, float(accum_steps))
+
+        if shadow_loss:
+            decay = float(shadow_loss_decay(state.step, loss_decay))
+            use = 1.0 if state.step > 1 else 0.0
+            # rounded to float32, as the JAX step computes it on the device
+            scale = float(torch.tensor(use * (1.0 - decay) + (1.0 - use)))
+            torch._foreach_mul_(grads, scale)
+            blended = scale * loss + use * decay * state.shadow_loss
+            state.shadow_loss = blended
+            loss_report = blended
+        else:
+            loss_report = loss
+
+        metrics = {"loss": loss_report, "raw_loss": loss, **aux}
+        if clip_global_norm is not None:
+            gnorm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+            clip = torch.clamp(torch.full_like(gnorm, clip_global_norm) / (gnorm + 1e-12),
+                               max=1.0)
+            torch._foreach_mul_(grads, clip)
+            metrics["gnorm"] = gnorm
+
+        optimizer.step()
+        if state.ema_params is not None:
+            live = dict(model.named_parameters())
+            names = list(state.ema_params)
+            ema = [state.ema_params[n] for n in names]
+            torch._foreach_mul_(ema, ema_decay)
+            torch._foreach_add_(ema, [live[n].detach() for n in names], alpha=1.0 - ema_decay)
+            if state.ema_batch_stats is not None:
+                buffers = dict(model.named_buffers())
+                names = list(state.ema_batch_stats)
+                ema = [state.ema_batch_stats[n] for n in names]
+                torch._foreach_mul_(ema, ema_decay)
+                torch._foreach_add_(ema, [buffers[n] for n in names], alpha=1.0 - ema_decay)
+        state.step += 1
+        return metrics
+
+    return train_step

@@ -1,11 +1,13 @@
-"""YOLO-family prediction harness: forward + decode + class-aware NMS.
+"""YOLO-family harness: the training loss, the predictors and the mAP step.
 
 Port of ``tmv_tpu/models/detector_harness.py::build_yolo_model``,
-``make_yolo_predict`` and ``make_yolo_predict_batched`` with the same thresholds
-and the same padded ``(boxes, classes_id, scores, valid)`` contract. Results come
-back as host numpy arrays, as ``tmv_tpu.serving.app`` reads them. There is no
-``jit``: the predictors run eagerly under ``torch.inference_mode()``. The batched
-form replaces ``jax.vmap`` with a batch axis and one NMS launch.
+``make_yolo_loss_fn``, ``make_yolo_predict``, ``make_yolo_predict_batched``,
+``ground_truth_from_targets`` and ``eval_map_step``. The predictors keep the
+thresholds and the padded ``(boxes, classes_id, scores, valid)`` contract;
+results come back as host numpy arrays, as ``serving.app`` reads them. There is
+no ``jit``: the predictors run eagerly under ``torch.inference_mode()``. The
+batched form replaces ``jax.vmap`` with a batch axis and one NMS launch.
+``freeze_mask``/``masked_optimizer`` wait for the darknet warm start.
 
 A predictor keeps the JAX package's signature ``predict(variables, images)`` so
 that ``DetectionService`` and ``MicroBatcher`` drive it unchanged; the weights
@@ -17,17 +19,47 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from tmv_tpu_torch.ops.yolo import nms_boxes_batched
+from tmv_tpu_torch.ops.map_eval import get_map_one
+from tmv_tpu_torch.ops.yolo import nms_boxes_batched, yolo_loss
+
+
+def check_device(device) -> torch.device:
+    """``torch.device(device)``; raises for a CUDA device where there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: no CUDA device is available "
+                           "(pass device='cpu' to run on the CPU)")
+    return device
 
 
 def build_yolo_model(version: str, classes_num: int, anchors_per_scale: int = 3,
-                     dtype: torch.dtype = torch.float32, device=None):
-    """Detector factory → ``(model, iou_type)``. Only 'v4' is ported so far."""
+                     dtype: torch.dtype = torch.float32, device="cuda", param_dtype=None):
+    """Detector factory → ``(model, iou_type)``, on the card unless ``device``
+    says otherwise. ``param_dtype`` holds the weights in another type than the
+    compute ``dtype`` (training: float32 weights, bf16 activations). Only 'v4'
+    is ported so far."""
     if version == "v4":
         from tmv_tpu_torch.models.yolo_v4 import YoloV4
 
-        return YoloV4(classes_num, anchors_per_scale, dtype=dtype, device=device), "diou"
+        return YoloV4(classes_num, anchors_per_scale, dtype=dtype, device=check_device(device),
+                      param_dtype=param_dtype), "diou"
     raise ValueError(f"yolo-family version {version!r} is not ported to tmv_tpu_torch yet")
+
+
+def make_yolo_loss_fn(image_wh: Tuple[int, int], anchors_wh, iou_thresh: float = 0.5,
+                      iou_type: str = "iou"):
+    """Loss for ``core.train_state.make_train_step``: ``(model, batch) -> (loss,
+    {})``, the model run on ``batch["image"]`` (in train mode, as the step sets
+    it) and ``yolo_loss`` against ``batch["targets"]``; v4 trains with
+    ``iou_type='ciou'``."""
+    anchors = np.asarray(anchors_wh, np.float32)
+
+    def loss_fn(model, batch):
+        y_pred = model(batch["image"])
+        return yolo_loss(batch["targets"], y_pred, image_wh, anchors, iou_thresh=iou_thresh,
+                         iou_type=iou_type), {}
+
+    return loss_fn
 
 
 def images_to_device(images, model: torch.nn.Module) -> torch.Tensor:
@@ -68,3 +100,33 @@ def make_yolo_predict(model, image_wh: Tuple[int, int], anchors_wh, classes_num:
         return tuple(o[0] for o in batched(variables, image))
 
     return predict
+
+
+def ground_truth_from_targets(y_true, classes_num: int) -> np.ndarray:
+    """``[x1, y1, x2, y2, class_id]`` rows of one image's per-scale
+    ``(h, w, A, 5+C)`` grid targets (``GetGroudTruth``, `yolo_v3/model.py:260-279`)."""
+    rows = []
+    for t in y_true:
+        t = t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+        obj = t[..., 4] > 0
+        if not obj.any():
+            continue
+        sel = t[obj]
+        xy, wh = sel[:, 0:2], sel[:, 2:4]
+        cid = sel[:, 5:5 + classes_num].argmax(-1)
+        rows.append(np.concatenate([xy - wh / 2, xy + wh / 2, cid[:, None]], axis=-1))
+    if not rows:
+        return np.zeros((0, 5))
+    return np.concatenate(rows, axis=0)
+
+
+def eval_map_step(predict_fn, variables, batch, classes_num: int, thresh: float = 0.5) -> float:
+    """Per-batch mAP as the reference ``test_step`` (`yolo_v3/model.py:229-258`):
+    predict the batch's one image, compare with its ground truth through the
+    quirky evaluator."""
+    boxes, ids, scores, valid = predict_fn(variables, batch["image"])
+    v = np.asarray(valid)
+    pred = np.concatenate([np.asarray(boxes)[v], np.asarray(ids)[v][:, None].astype(np.float64),
+                           np.asarray(scores)[v][:, None]], axis=-1)
+    gt = ground_truth_from_targets([t[0] for t in batch["targets"]], classes_num)
+    return get_map_one(gt.tolist(), pred.tolist(), classes_num, thresh)

@@ -13,7 +13,7 @@ per batch. ``variables`` is not read (pass None): the weights live in the module
 
 import torch
 
-from tmv_tpu_torch.models.detector_harness import images_to_device
+from tmv_tpu_torch.models.detector_harness import check_device, images_to_device
 from tmv_tpu_torch.models.efficientdet.config import get_efficientdet_config
 from tmv_tpu_torch.models.efficientdet.net import EfficientDetNet
 from tmv_tpu_torch.ops.anchors import Anchors
@@ -32,8 +32,10 @@ def efficientdet_config(model_name: str, num_classes: int, image_size: int):
 
 
 def build_efficientdet(model_name: str, num_classes: int, image_size: int,
-                       dtype: torch.dtype = torch.float32, device=None):
-    """``(model, anchors)`` for a D-config at ``image_size``."""
+                       dtype: torch.dtype = torch.float32, device="cuda"):
+    """``(model, anchors)`` for a D-config at ``image_size``, on the card unless
+    ``device`` says otherwise."""
+    device = check_device(device)
     cfg = efficientdet_config(model_name, num_classes, image_size)
     anchors = Anchors(cfg.min_level, cfg.max_level, (image_size, image_size), cfg.num_scales,
                       cfg.aspect_ratios, cfg.anchor_scale)

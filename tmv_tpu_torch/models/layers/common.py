@@ -9,8 +9,13 @@ a flax tree onto them by path.
 - Every other conv pads TF-SAME explicitly (torch's ``padding='same'`` refuses
   stride 2); the SPP max-pool pads SAME with -inf.
 - BatchNorm is Keras's: epsilon 1e-3, momentum 0.99 (torch ``momentum=0.01``).
-- ``dtype`` is the compute type. Conv weights are held in it, BatchNorm
-  parameters and statistics stay float32, as in the JAX package's policy.
+  In train mode it normalizes by the batch statistics and updates its running
+  statistics as flax does, with the *biased* batch variance (``BatchNorm``).
+- ``dtype`` is the type the conv weights are held in; a conv computes in the
+  type of its input and casts its weights to it (a no-op where they agree, as
+  in the bf16 predictors). So a model with float32 weights fed bf16 activations
+  trains on float32 master weights, as flax's ``param_dtype`` float32 with
+  ``dtype`` bf16 does. BatchNorm parameters and statistics stay float32.
 """
 
 import math
@@ -62,10 +67,36 @@ class DarknetConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.Conv_0
+        weight = conv.weight.to(x.dtype)
+        bias = None if conv.bias is None else conv.bias.to(x.dtype)
         if self.strides == (2, 2):
             # Darknet downsampling: top-left zero pad + VALID
-            return F.conv2d(F.pad(x, (1, 0, 1, 0)), conv.weight, conv.bias, self.strides)
-        return conv2d_same(x, conv.weight, conv.bias, self.strides)
+            return F.conv2d(F.pad(x, (1, 0, 1, 0)), weight, bias, self.strides)
+        return conv2d_same(x, weight, bias, self.strides)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode updates the running statistics as flax's
+    ``nn.BatchNorm`` does: ``ra = m·ra + (1−m)·batch`` with the biased batch
+    variance ``mean((x−μ)²)``, where torch would blend in the unbiased one. One
+    fused ``F.batch_norm`` normalizes (biased variance in both) and, with momentum
+    1 into scratch buffers, hands back the batch mean and unbiased variance,
+    reduced in float32 also for bf16 inputs; the update rescales the variance by
+    (n−1)/n. Eval mode is ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        # ra + (1-m)·(batch − ra) = m·ra + (1-m)·batch, with m flax's momentum
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 class ConvBN(nn.Module):
@@ -80,8 +111,8 @@ class ConvBN(nn.Module):
         self.act = ACTIVATIONS[act]
         self.DarknetConv_0 = DarknetConv(in_features, filters, kernel_size, strides,
                                          use_bias=False, dtype=dtype, device=device)
-        self.BatchNorm_0 = nn.BatchNorm2d(filters, eps=bn_epsilon,
-                                          momentum=1.0 - bn_momentum, device=device)
+        self.BatchNorm_0 = BatchNorm(filters, eps=bn_epsilon, momentum=1.0 - bn_momentum,
+                                     device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.act(self.BatchNorm_0(self.DarknetConv_0(x)))

@@ -6,8 +6,12 @@ counts 1/2/8/8/4). Submodules carry the flax auto-names (``ConvBN_0``,
 ``<Class>_k`` in call order), so that a flax variable tree maps onto the
 ``state_dict`` path by path. The stages take and return NCHW tensors; ``YoloV4``
 itself takes NHWC images and returns NHWC heads, the JAX package's layout, and
-runs NCHW in ``channels_last`` memory inside (the permutes are views). ``remat``
-is a training lever and is not ported.
+runs NCHW in ``channels_last`` memory inside (the permutes are views). ``dtype``
+is the compute type; ``param_dtype`` (default: ``dtype``) the type the conv
+weights are held in. Serving holds bf16 weights; training with bf16 activations
+holds float32 weights (``param_dtype=torch.float32``), as flax does. In train
+mode the BatchNorms use and update batch statistics (``layers.common.BatchNorm``).
+``remat`` is not ported.
 """
 
 from typing import Tuple
@@ -146,10 +150,10 @@ class YoloV4(nn.Module):
     """Forward network: NHWC image → (z1, z2, z3) NHWC raw heads (strides 32/16/8)."""
 
     def __init__(self, classes_num: int, anchors_num: int = 3,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, param_dtype=None):
         super().__init__()
         self.dtype = dtype
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=param_dtype or dtype, device=device)
         out_filters = anchors_num * (5 + classes_num)
         self.ConvBN_0 = ConvBN(3, 32, 3, act="mish", **kw)
         self.BlocksLayer_0 = BlocksLayer(32, 64, **kw)

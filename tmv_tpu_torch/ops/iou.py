@@ -1,15 +1,21 @@
-"""IoU families in both of the reference's coordinate conventions (forward only).
+"""IoU families in both of the reference's coordinate conventions.
 
 Port of ``tmv_tpu/ops/iou.py``, quirks included, in the same operation order so
 that the NMS kernel (``csrc/nms_sweep.cu``) and this plain version round alike:
 
 - ``iou_xyxy``: corner boxes ``(x1, y1, x2, y2)``; no zero guard on the IoU
-  division; DIoU is ``iou - (u/c)**0.6`` with the IoU kept where ``c == 0``.
+  division; DIoU is ``iou - (u/c)**0.6`` with the IoU kept where ``c == 0``;
+  CIoU is ``iou - (u/c + alpha·v)`` (plain ``u/c`` there) with the unguarded
+  ``atan(w/h)``, differentiated by plain autograd (the YOLO loss's ignore mask).
 - ``iou_yxyx``: corner boxes ``(y1, x1, y2, x2)``; clamped widths and heights,
   ``divide_no_nan``; standard DIoU ``iou - u/c``.
 
-CIoU, GIoU and the CIoU custom gradient wait for the training slice.
+The max/min use ``torch.maximum``/``torch.minimum``, which split the gradient at
+ties as ``jnp.maximum`` does. GIoU and the yxyx CIoU with its custom gradient
+(EfficientDet's ``_ciou_v``) wait for the EfficientDet-D0 training slice.
 """
+
+import math
 
 import torch
 
@@ -21,12 +27,13 @@ def _div_no_nan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def iou_xyxy(b1: torch.Tensor, b2: torch.Tensor, iou_type: str = "iou") -> torch.Tensor:
-    """Broadcasted IoU/DIoU over corner boxes ``(..., 4)`` in xyxy order."""
-    if iou_type not in ("iou", "diou"):
+    """Broadcasted IoU/DIoU/CIoU over corner boxes ``(..., 4)`` in xyxy order."""
+    if iou_type not in ("iou", "diou", "ciou"):
         raise ValueError(f"iou_xyxy: unsupported iou_type {iou_type!r}")
     inter_mins = torch.maximum(b1[..., 0:2], b2[..., 0:2])
     inter_maxes = torch.minimum(b1[..., 2:4], b2[..., 2:4])
-    inter_wh = torch.clamp_min(inter_maxes - inter_mins, 0.0)
+    inter_wh = inter_maxes - inter_mins
+    inter_wh = torch.maximum(inter_wh, torch.zeros_like(inter_wh))
     inter_area = inter_wh[..., 0] * inter_wh[..., 1]
     b1_wh = b1[..., 2:4] - b1[..., 0:2]
     b2_wh = b2[..., 2:4] - b2[..., 0:2]
@@ -41,8 +48,15 @@ def iou_xyxy(b1: torch.Tensor, b2: torch.Tensor, iou_type: str = "iou") -> torch
     delta = (b1[..., 2:4] + b1[..., 0:2]) / 2 - (b2[..., 2:4] + b2[..., 0:2]) / 2
     u = delta[..., 0] * delta[..., 0] + delta[..., 1] * delta[..., 1]
     d = u / c
-    # Reference quirk: the distance term is d**0.6 (tf_iou_utils.py:50), not d.
-    return torch.where(c == 0.0, iou, iou - d**0.6)
+    if iou_type == "diou":
+        # Reference quirk: the distance term is d**0.6 (tf_iou_utils.py:50), not d.
+        return torch.where(c == 0.0, iou, iou - d**0.6)
+
+    atan = torch.atan(b1_wh[..., 0] / b1_wh[..., 1]) - torch.atan(b2_wh[..., 0] / b2_wh[..., 1])
+    v = 4 / math.pi**2 * (atan * atan)
+    alpha = v / (1 - iou + v + 1e-8)
+    # Reference quirk: CIoU uses plain d (tf_iou_utils.py:60), not d**0.6.
+    return torch.where(c == 0.0, iou, iou - (d + alpha * v))
 
 
 def iou_yxyx(boxes1: torch.Tensor, boxes2: torch.Tensor, iou_type: str = "iou") -> torch.Tensor:

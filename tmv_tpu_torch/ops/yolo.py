@@ -1,10 +1,10 @@
-"""YOLO head math for prediction: grid decode and the predict/NMS orchestration.
+"""YOLO head math: loss, grid decode and the predict/NMS orchestration.
 
-Port of ``tmv_tpu/ops/yolo.py::decode_boxes`` and ``nms_boxes`` (``GetBoxes`` and
-``GetNMSBoxes`` of the reference). Shapes stay static: candidates failing the
-thresholds are masked, the top ``pre_nms_size`` by class score enter class-aware
-NMS. ``nms_boxes_batched`` takes a leading image axis and sends the B images'
-candidates to one NMS kernel launch. ``yolo_loss`` waits for the training slice.
+Port of ``tmv_tpu/ops/yolo.py::yolo_loss``, ``decode_boxes`` and ``nms_boxes``
+(``GetLoss``, ``GetBoxes`` and ``GetNMSBoxes`` of the reference). Shapes stay
+static: candidates failing the thresholds are masked, the top ``pre_nms_size`` by
+class score enter class-aware NMS. ``nms_boxes_batched`` takes a leading image
+axis and sends the B images' candidates to one NMS kernel launch.
 
 Heads are decoded in float32 whatever the forward's dtype. This departs from the
 JAX package on purpose: it decodes bf16 heads in bf16, where XLA rounds each of
@@ -18,6 +18,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from tmv_tpu_torch.ops.iou import iou_xyxy
+from tmv_tpu_torch.ops.losses import sigmoid_cross_entropy
 from tmv_tpu_torch.ops.nms import nms_by_classes
 
 
@@ -27,6 +29,97 @@ def _grid_xy(grid_h: int, grid_w: int, device=None) -> torch.Tensor:
                             torch.arange(grid_w, dtype=torch.float32, device=device),
                             indexing="ij")
     return torch.stack([gx, gy], dim=-1)[:, :, None, :]
+
+
+def _ignore_mask(y_true_object, y_true_boxes, y_pred_boxes, iou_thresh, iou_type, k):
+    """1 where a prediction's best IoU against the image's GT boxes is below
+    ``iou_thresh`` (-inf, so 1, for an image without GT). The GT boxes are
+    compacted by cumsum into ``k`` slots, a scatter into a ``(k+1)``-row buffer
+    whose last row takes the boxes past the capacity and is dropped. A
+    comparison has no gradient, so this runs without autograd."""
+    batch = y_true_object.shape[0]
+    with torch.no_grad():
+        is_gt = y_true_object[..., 0].reshape(batch, -1) > 0                  # (B, hwA)
+        slots = torch.where(is_gt, torch.cumsum(is_gt, 1) - 1, k).clamp_max(k)
+        boxes = y_true_boxes.reshape(batch, -1, 4)
+        gt_boxes = boxes.new_zeros((batch, k + 1, 4)).scatter_(
+            1, slots[..., None].expand(-1, -1, 4), boxes)[:, :k]
+        gt_valid = is_gt.new_zeros((batch, k + 1)).scatter_(1, slots, is_gt)[:, :k]
+        iou = iou_xyxy(y_pred_boxes.detach().reshape(batch, -1, 1, 4), gt_boxes[:, None],
+                       iou_type)                                               # (B, hwA, k)
+        iou = torch.where(gt_valid[:, None, :], iou, torch.full_like(iou, float("-inf")))
+        best_iou = torch.amax(iou, dim=-1)
+        return (best_iou < iou_thresh).to(y_true_object.dtype).reshape(y_true_object.shape)
+
+
+def yolo_loss(y_true: Sequence[torch.Tensor], y_pred: Sequence[torch.Tensor],
+              image_wh: Tuple[int, int], anchors_wh, iou_thresh: float = 0.5,
+              iou_type: str = "iou", max_true_boxes: int = 100) -> torch.Tensor:
+    """YOLO multi-scale detection loss (``GetLoss`` semantics), in float32 for
+    bf16 or float32 heads (float64 heads stay float64).
+
+    Args:
+        y_true: per scale ``(B, h, w, A, 5+C)`` targets; xy/wh normalized to [0, 1]
+            image coordinates, slot 4 objectness.
+        y_pred: per scale raw head outputs, ``(B, h, w, A*(5+C))`` or the same shape.
+        image_wh: (W, H) of the input image.
+        anchors_wh: ``(scales, A, 2)`` anchor (w, h) in pixels.
+        max_true_boxes: capacity of per-image GT boxes of one scale in the
+            ignore mask; boxes past it are left out, as in the JAX package.
+
+    Returns the scalar loss: the sum over scales, divided by the batch size.
+    """
+    device = y_true[0].device
+    dtype = torch.promote_types(y_pred[0].dtype, torch.float32)
+    image_wh_f = torch.tensor(image_wh, dtype=dtype, device=device)
+    anchors_wh_f = torch.as_tensor(anchors_wh, dtype=torch.float32).to(device, dtype)
+    batch = y_true[0].shape[0]
+
+    loss = torch.zeros((), dtype=dtype, device=device)
+    for layer_index, (y_true_read, y_pred_layer) in enumerate(zip(y_true, y_pred)):
+        y_true_read = y_true_read.to(dtype)
+        y_pred_raw = y_pred_layer.to(dtype).reshape(y_true_read.shape)
+        grid_h, grid_w = y_pred_raw.shape[1], y_pred_raw.shape[2]
+        grid_xy = _grid_xy(grid_h, grid_w, device).to(dtype)
+        grid_wh_f = torch.tensor([grid_w, grid_h], dtype=dtype, device=device)
+        anchors = anchors_wh_f[layer_index]
+
+        y_true_object = y_true_read[..., 4:5]
+        y_true_classes = y_true_read[..., 5:]
+        y_true_read_xy = y_true_read[..., 0:2]
+        y_true_raw_xy = y_true_object * (y_true_read_xy * grid_wh_f - grid_xy)
+        y_true_read_wh = y_true_read[..., 2:4]
+        y_true_raw_wh = torch.log((y_true_read_wh * image_wh_f + 1e-8) / anchors)
+        y_true_raw_wh = torch.where(y_true_object > 0, y_true_raw_wh,
+                                    torch.zeros_like(y_true_raw_wh))
+
+        y_pred_object = y_pred_raw[..., 4:5]
+        y_pred_classes = y_pred_raw[..., 5:]
+        y_pred_raw_xy = y_pred_raw[..., 0:2]
+        y_pred_read_xy = (torch.sigmoid(y_pred_raw_xy) + grid_xy) / grid_wh_f
+        y_pred_raw_wh = y_pred_raw[..., 2:4]
+        y_pred_read_wh = torch.exp(y_pred_raw_wh) * anchors / image_wh_f
+
+        t_half = y_true_read_wh / 2
+        y_true_boxes = torch.cat([y_true_read_xy - t_half, y_true_read_xy + t_half], dim=-1)
+        p_half = y_pred_read_wh / 2
+        y_pred_boxes = torch.cat([y_pred_read_xy - p_half, y_pred_read_xy + p_half], dim=-1)
+        k = min(max_true_boxes, grid_h * grid_w * y_true_read.shape[3])
+        ignore_mask = _ignore_mask(y_true_object, y_true_boxes, y_pred_boxes, iou_thresh,
+                                   iou_type, k)
+
+        boxes_loss_scale = 2 - y_true_read_wh[..., 0:1] * y_true_read_wh[..., 1:2]
+        xy_loss = (y_true_object * boxes_loss_scale
+                   * sigmoid_cross_entropy(y_true_raw_xy, y_pred_raw_xy))
+        wh_diff = y_true_raw_wh - y_pred_raw_wh
+        wh_loss = y_true_object * boxes_loss_scale * 0.5 * (wh_diff * wh_diff)
+        object_loss_bc = sigmoid_cross_entropy(y_true_object, y_pred_object)
+        object_loss = (y_true_object * object_loss_bc
+                       + (1 - y_true_object) * object_loss_bc * ignore_mask)
+        classes_loss = y_true_object * sigmoid_cross_entropy(y_true_classes, y_pred_classes)
+        loss = loss + (xy_loss.sum() + wh_loss.sum() + object_loss.sum()
+                       + classes_loss.sum()) / batch
+    return loss
 
 
 def decode_boxes(y: torch.Tensor, anchors_wh: torch.Tensor, classes_num: int):

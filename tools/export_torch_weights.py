@@ -47,7 +47,7 @@ def export(model_path: str, classes_num: int, out: str, anchors_per_scale: int =
     state = mgr.restore_weights(state, step)
     variables = jax.tree.map(np.asarray, {"params": state.params,
                                           "batch_stats": state.batch_stats})
-    net, _ = build_torch("v4", classes_num, anchors_per_scale)
+    net, _ = build_torch("v4", classes_num, anchors_per_scale, device="cpu")
     net.load_state_dict(flax_to_state_dict(variables, net), strict=True)
     torch.save(net.state_dict(), out)
     return int(state.step)
