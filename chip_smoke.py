@@ -6,7 +6,8 @@
 Drives the port's two main paths through their entry points, through the two
 hand-written CUDA kernels: YOLOv4 @640 (80 classes, full width) and
 EfficientDet-D0 @512 (81 classes, full width and depth), each predicting and
-served at ``POST /ai_api/object_detection/predict``, on seeded random weights.
+served at ``POST /ai_api/object_detection/predict``, on seeded random weights;
+then each model's trainer and eval CLI.
 Phases, each printing its own lines:
 
 1. environment: torch/CUDA/nvcc versions and the card (nvidia-smi);
@@ -63,7 +64,25 @@ Phases, each printing its own lines:
     (the set's labels) and on a ``.pt`` of the seeded serving weights (labels
     made from their own detections: mAP strictly between 0 and 1), with the NMS
     kernel and again with the plain sweep patched in: equal mAPs and identical
-    kept sets, and the kernel's launches counted.
+    kept sets, and the kernel's launches counted;
+13. EfficientDet-D0 training (81 classes @512 b16, bf16 activations on float32
+    master weights) on the same 64 JPEGs: ``tmv_tpu_torch.cli.train_efficientdet
+    --deviceAug`` takes two epochs of 20 steps with checkpoints (no hand-written
+    kernel launches in training); then the step's time by CUDA events, its parts
+    (forward, loss, backward, SGD with the clip, EMA), one step alone, its
+    kernels' device time (torch.profiler) and busy share, the pipeline's host
+    and device time and the peak memory; an overfit of one fixed batch (30 steps
+    at lr 0.05 must halve the raw loss); one float32 step (TF32 off,
+    ``survival_prob`` 1) on the card and on the CPU against the CPU's float64
+    step, by phase 11's rule; and a resume (step, SGD momentum and EMA continue);
+14. D0 eval: ``tmv_tpu_torch.cli.eval_map --family efficientdet`` in both modes,
+    f32 with TF32 off, on phase 13's checkpoint and on phase 8's seeded weights
+    (foreground predict biases spread over [0.5, 1.5), so that scores do not tie)
+    against labels made from their own detections (mAP strictly between 0 and
+    1), through both kernels (16 depthwise launches per forward, one sweep per
+    batch, counted), then with the plain sweep (identical kept rows, equal mAPs)
+    and with the plain sweep and the plain depthwise (kept rows of the same count
+    and classes, boxes within 1e-3 px, scores within 1e-5, equal mAPs).
 
 The serving weights are seeded (``--randomInit --seed 0`` of each family), adjusted so
 that NMS has real work: YOLOv4's three output convs' box rows are scaled by
@@ -103,6 +122,8 @@ TRAIN_STEPS_PER_EPOCH = 20
 TRAIN_SET = 64
 VAL_SET = 16
 OVERFIT_STEPS = 30
+D0_TRAIN_BATCH = 16
+D0_OVERFIT_LR = 0.05
 NMS_SOURCE = "tmv_tpu_torch/csrc/nms_sweep.cu"
 NMS_REPLACES = "tmv_tpu/kernels/nms_pallas.py:90"
 DW_SOURCE = "tmv_tpu_torch/csrc/dwconv_bn_swish.cu"
@@ -1091,11 +1112,15 @@ def phase_train(card, files):
 
 
 def rel_l2(got, want):
-    """(relative L2 error over all tensors, worst tensor's) of two gradient dicts."""
+    """(relative L2 error over all tensors, worst tensor's) of two gradient dicts;
+    the worst is taken over the tensors whose norm is above 1e-12 of the largest
+    (a zero gradient, as D0's box levels without positives have, has none)."""
     num = sum(float((got[k].double() - want[k].double()).norm() ** 2) for k in want)
     den = sum(float(want[k].double().norm() ** 2) for k in want)
-    worst = max(float((got[k].double() - want[k].double()).norm()
-                      / want[k].double().norm().clamp_min(1e-300)) for k in want)
+    norms = {k: float(want[k].double().norm()) for k in want}
+    floor = 1e-12 * max(norms.values())
+    worst = max(float((got[k].double() - want[k].double()).norm()) / norms[k]
+                for k in want if norms[k] > floor)
     return (num / den) ** 0.5, worst
 
 
@@ -1284,6 +1309,374 @@ def phase_eval(card, files, ckpt):
           f"kept); nms_sweep.launches {launches} on [{card}]", flush=True)
     return launches
 
+# ---------------------------------------------------------------- D0 training
+
+def d0_train_setup(files, dtype, device, seed=0, survival_prob=None, lr=None):
+    """The D0 trainer's model (81 classes @512, float32 master weights), SGD on
+    the CLI's cosine schedule at b16 (or a constant ``lr``), train state with
+    the weight EMA, generator, loss and step."""
+    import torch
+
+    from tmv_tpu_torch.core.schedules import cosine_lr_schedule, scaled_lr
+    from tmv_tpu_torch.core.train_state import TrainState, make_train_step
+    from tmv_tpu_torch.models.efficientdet.harness import build_efficientdet
+    from tmv_tpu_torch.models.efficientdet.net import init_weights, make_efficientdet_loss_fn
+
+    model, anchors = build_efficientdet("efficientdet-d0", 81, D0_IMAGE, dtype=dtype,
+                                        device=device, param_dtype=torch.float32)
+    if survival_prob is not None:
+        for net in (model.class_net.net, model.box_net.net):
+            net.survival_prob = survival_prob
+    init_weights(model, seed)
+    model = model.to(memory_format=torch.channels_last)
+    schedule = (cosine_lr_schedule(scaled_lr(0.08, D0_TRAIN_BATCH), 0.008,
+                                   TRAIN_STEPS_PER_EPOCH, 2 * TRAIN_STEPS_PER_EPOCH)
+                if lr is None else (lambda step: lr))
+    optimizer = torch.optim.SGD(model.parameters(), lr=float(schedule(0)), momentum=0.9)
+    state = TrainState.create(model, optimizer, ema_decay=0.9998)
+    generator = torch.Generator(device).manual_seed(seed)
+    loss_fn = make_efficientdet_loss_fn(generator=generator)
+    step = make_train_step(loss_fn, clip_global_norm=10.0, ema_decay=0.9998,
+                           lr_schedule=schedule)
+    return state, loss_fn, step, anchors, generator
+
+
+def d0_batches(files, anchors, batch_size, device, device_aug=True, prefetch=2):
+    from tmv_tpu_torch.data.efficientdet_pipeline import EfficientDetPipeline
+
+    return EfficientDetPipeline(files["images"], files["labels"], files["classes"], batch_size,
+                                anchors, 81, image_size=D0_IMAGE, device_aug=device_aug,
+                                prefetch=prefetch, device=device)
+
+
+def phase_d0_train(card, files):
+    """The D0 trainer CLI, then its step's time and parts, an overfit, the
+    float32 step against float64 and a resume."""
+    import torch
+
+    from tmv_tpu_torch.cli import train_efficientdet
+    from tmv_tpu_torch.kernels import dwconv, nms_sweep
+    from tmv_tpu_torch.models.efficientdet.net import efficientdet_loss
+
+    ckpt = os.path.join(WORK, "d0_train")
+    argv = ["--modelName", "efficientdet-d0", "--trainData", files["labels"],
+            "--trainImagePath", files["images"], "--classesFile", files["classes"],
+            "--imageSize", str(D0_IMAGE), "--batchSize", str(D0_TRAIN_BATCH), "--bf16",
+            "--deviceAug", "--stepsPerEpoch", str(TRAIN_STEPS_PER_EPOCH), "--epochs", "2",
+            "--modelPath", ckpt, "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    dwconv.launches = nms_sweep.launches = 0
+    t0 = time.perf_counter()
+    out = train_efficientdet.main(argv)
+    wall = time.perf_counter() - t0
+    check(dwconv.launches == 0 and nms_sweep.launches == 0,
+          "the D0 train step launched a hand-written kernel")
+    cli_peak = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = 2 * TRAIN_STEPS_PER_EPOCH
+    check(out["step"] == steps and len(records) == steps, f"the D0 CLI took {out['step']} steps")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["gnorm"]) for r in records),
+          "a non-finite D0 training loss")
+    host_step = statistics.median(r["step_time_s"] for r in records[max(1, steps // 4):]) * 1e3
+    print(f"phase 13 D0 train CLI: EfficientDet-D0 81 classes @{D0_IMAGE} b{D0_TRAIN_BATCH} bf16 "
+          f"(float32 master weights) --deviceAug, {steps} steps in {wall:.1f} s with three "
+          f"checkpoints; loss first {records[0]['loss']:.3f}, last {records[-1]['loss']:.3f}; "
+          f"host step time p50 {host_step:.2f} ms; dwconv and nms launches in training 0; "
+          f"peak memory {cli_peak:.2f} GiB on [{card}]", flush=True)
+
+    state, _, step, anchors, generator = d0_train_setup(files, torch.bfloat16, "cuda")
+    pipeline = d0_batches(files, anchors, D0_TRAIN_BATCH, "cuda", prefetch=0)
+    batches = iter(pipeline)
+    batch = next(batches)
+    batches.close()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        step(state, batch)
+    reps = 10
+    step_ms = cuda_ms(lambda: step(state, batch), reps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    parts = {"forward": [], "loss": [], "backward": [], "SGD (clip + update)": [], "EMA": []}
+    model, optimizer = state.model, state.optimizer
+    ema_names = list(state.ema_params)
+    live = dict(model.named_parameters())
+    for _ in range(5):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        optimizer.zero_grad(set_to_none=True)
+        events[0].record()
+        outputs = model(batch["image"], generator=generator)
+        events[1].record()
+        loss = efficientdet_loss(model, outputs, batch)
+        events[2].record()
+        loss.backward()
+        events[3].record()
+        grads = [p.grad for p in model.parameters()]
+        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        torch._foreach_mul_(grads, torch.clamp(10.0 / (gnorm + 1e-12), max=1.0))
+        optimizer.step()
+        events[4].record()
+        ema = [state.ema_params[n] for n in ema_names]
+        torch._foreach_mul_(ema, 0.9998)
+        torch._foreach_add_(ema, [live[n].detach() for n in ema_names], alpha=1.0 - 0.9998)
+        events[5].record()
+        torch.cuda.synchronize()
+        for k, (a, b) in zip(parts, zip(events, events[1:])):
+            parts[k].append(a.elapsed_time(b))
+    parts = {k: statistics.median(v) for k, v in parts.items()}
+    kernel_ms = step_kernel_ms(lambda: step(state, batch), 3)
+    alone_ms = host_ms(lambda: step(state, batch), 5)
+    labels = [next(iter(pipeline.sampler)) for _ in range(D0_TRAIN_BATCH)]
+    with ThreadPoolExecutor(8) as pool:
+        stage_host = host_ms(lambda: pipeline.stage_batch(labels, pool), 5)
+        staged = pipeline.stage_batch(labels, pool)
+    stage_device = cuda_ms(lambda: pipeline.device_batch(staged), 5)
+    print(f"phase 13 D0 train step on [{card}]: EfficientDet-D0 81 classes @{D0_IMAGE} "
+          f"b{D0_TRAIN_BATCH} bf16: {step_ms:.2f} ms per step by CUDA events over {reps} steps "
+          f"after 3 of warm-up = {D0_TRAIN_BATCH * 1e3 / step_ms:.1f} images/s; parts (CUDA "
+          f"events, median of 5): " + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
+          + f"; one step between synchronisations (host clock, median of 5) {alone_ms:.2f} ms"
+          + "; kernels' device time per step (torch.profiler, 3 steps) "
+          + (f"{kernel_ms:.2f} ms, busy share {kernel_ms / step_ms:.3f}" if kernel_ms else
+             "not measured (the profiler traced no kernel)")
+          + f"; data pipeline (--deviceAug) per batch of {D0_TRAIN_BATCH}: host decode + "
+          f"letterbox {stage_host:.2f} ms on 8 threads, device H2D + augmentation + targets "
+          f"{stage_device:.2f} ms; peak memory {peak:.2f} GiB", flush=True)
+    del state, model, optimizer, live, outputs, loss, grads
+
+    state, _, step, _, _ = d0_train_setup(files, torch.bfloat16, "cuda", seed=1,
+                                          lr=D0_OVERFIT_LR)
+    overfit = [float(step(state, batch)["raw_loss"]) for _ in range(OVERFIT_STEPS)]
+    check(all(np.isfinite(overfit)), "non-finite loss in the D0 overfit")
+    tail = statistics.mean(overfit[-3:])
+    check(tail <= overfit[0] / 2, f"overfitting one D0 batch: raw loss {overfit[0]:.2f} -> "
+          f"{tail:.2f} (mean of the last 3)")
+    print(f"phase 13 D0 overfit of one fixed batch, {OVERFIT_STEPS} steps bf16 SGD lr "
+          f"{D0_OVERFIT_LR} (momentum 0.9, clip 10): raw loss {overfit[0]:.2f} -> {tail:.2f} "
+          f"(mean of the last 3; {overfit[0] / tail:.1f}x lower, required >= 2x) on [{card}]",
+          flush=True)
+    del state, batch
+    f32 = phase_d0_train_f32(card, files)
+    resume = phase_d0_resume(card, files, ckpt, steps)
+    return {"ckpt": ckpt, "step_ms": step_ms, "parts": parts, "kernel_ms": kernel_ms,
+            "alone_ms": alone_ms, "peak": peak, "f32": f32, "resume": resume}
+
+
+def phase_d0_train_f32(card, files):
+    """One float32 D0 step (TF32 off) on the card and on the CPU from one
+    state_dict and one batch at 512, B = 2, ``survival_prob`` 1 (no dropout
+    draws to differ), beside the same step in float64 on the CPU: phase 11's
+    rule, the card as close to float64 as the CPU's float32 (within 2x, plus
+    1e-4), the losses within 1e-3."""
+    import torch
+
+    from tmv_tpu_torch.models.detector_harness import check_device
+
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 must stay off for the float32 comparison")
+    state, _, _, anchors, _ = d0_train_setup(files, torch.float32, "cpu", seed=2)
+    batches = iter(d0_batches(files, anchors, 2, "cpu", device_aug=False, prefetch=0))
+    batch = next(batches)
+    batches.close()
+    results = {}
+    for name, device, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                                ("cpu f64", "cpu", torch.float64)):
+        state, loss_fn, _, _, _ = d0_train_setup(files, torch.float32, device, seed=2,
+                                                 survival_prob=1.0)
+        model = state.model.to(dtype).train()
+        model.dtype = dtype
+        dev = check_device(device)
+        on = {"image": batch["image"].to(dev, dtype),
+              "boxes": tuple(t.to(dev, dtype) for t in batch["boxes"]),
+              "classes": tuple(t.to(dev, dtype) for t in batch["classes"]),
+              "masks": tuple(t.to(dev) for t in batch["masks"])}
+        loss, _ = loss_fn(model, on)
+        loss.backward()
+        results[name] = (loss.item(), grads_of(model))
+        del state, model
+    (card_loss, card_g), (cpu_loss, cpu_g), (ref_loss, ref_g) = (
+        results[k] for k in ("card", "cpu", "cpu f64"))
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    card_err, cpu_err = rel_l2(card_g, ref_g), rel_l2(cpu_g, ref_g)
+    check(loss_rel <= 1e-3, f"D0 f32 loss card {card_loss} vs CPU {cpu_loss}")
+    check(card_err[0] <= 2 * cpu_err[0] + 1e-4 and card_err[1] <= 2 * cpu_err[1] + 1e-4,
+          f"D0 f32 gradients: card vs float64 {card_err}, CPU vs float64 {cpu_err}")
+    print(f"phase 13 D0 f32 step card vs CPU (TF32 off, EfficientDet-D0 81 classes @{D0_IMAGE} "
+          f"B=2, one state_dict and batch, train mode): loss card {card_loss:.6f}, CPU "
+          f"{cpu_loss:.6f} (relative {loss_rel:.3g}, tolerance 1e-3), CPU float64 "
+          f"{ref_loss:.6f}; gradients' relative L2 error (overall, worst of {len(ref_g)} "
+          f"tensors) against the CPU float64 step: card {card_err[0]:.3g}, {card_err[1]:.3g}; "
+          f"CPU float32 {cpu_err[0]:.3g}, {cpu_err[1]:.3g} (tolerance: the card within 2x the "
+          f"CPU's + 1e-4) on [{card}]", flush=True)
+    return {"loss_rel": loss_rel, "card_err": card_err, "cpu_err": cpu_err}
+
+
+def phase_d0_resume(card, files, ckpt, steps):
+    """Restore the D0 CLI's last checkpoint into a fresh state: the step, the
+    SGD momentum and the EMA come back; one more step moves them on."""
+    import torch
+
+    from tmv_tpu_torch.core.checkpoint import CheckpointManager
+
+    state, _, step, anchors, _ = d0_train_setup(files, torch.bfloat16, "cuda", seed=3)
+    mgr = CheckpointManager(ckpt)
+    saved = torch.load(mgr.path(mgr.latest_step()), map_location="cpu", weights_only=True)
+    mgr.restore(state)
+    mgr.close()
+    check(state.step == steps == saved["step"], f"restored D0 step {state.step}, expected {steps}")
+    sgd = state.optimizer.state_dict()["state"]
+    first = next(iter(saved["optimizer"]["state"]))
+    saved_buf = saved["optimizer"]["state"][first]["momentum_buffer"]
+    check(torch.equal(sgd[first]["momentum_buffer"].cpu(), saved_buf), "restored SGD momentum")
+    name = next(iter(saved["ema_params"]))
+    check(torch.equal(state.ema_params[name].cpu(), saved["ema_params"][name]), "restored EMA")
+    batches = iter(d0_batches(files, anchors, D0_TRAIN_BATCH, "cuda", prefetch=0))
+    metrics = step(state, next(batches))
+    batches.close()
+    sgd = state.optimizer.state_dict()["state"]
+    check(state.step == steps + 1, "the D0 step count did not continue after the resume")
+    check(np.isfinite(float(metrics["loss"])), "non-finite D0 loss after the resume")
+    check(not torch.equal(sgd[first]["momentum_buffer"].cpu(), saved_buf),
+          "the SGD momentum did not move after the resume")
+    print(f"phase 13 D0 resume: checkpoint step {saved['step']} restored (SGD momentum of "
+          f"{len(sgd)} tensors, the EMA of {len(saved['ema_params'])}), one more step -> step "
+          f"{state.step}, loss {float(metrics['loss']):.3f}, lr "
+          f"{state.optimizer.param_groups[0]['lr']:.5f} on [{card}]", flush=True)
+    return state.step
+
+
+def write_d0_own_labels(files, records):
+    """A label file of the seeded D0's own detections (``records`` of the eval
+    CLI, yxyx pixels at 512, 1-based ids): per image its 4 best kept boxes that
+    lie inside the image and span more than 2 px, mapped back to the 416 px
+    images, each corner moved by up to 2 px, plus one box the model did not
+    find. Returns the file's path and the number of the model's boxes in it."""
+    from tmv_tpu_torch.data.loaders import load_classes, load_labels
+    from tmv_tpu_torch.data.samplers import ClassBalancedSampler
+
+    names, _ = load_classes(files["classes"])
+    labels, _ = load_labels(files["labels"], files["images"], names)
+    order = iter(ClassBalancedSampler(labels, label_mean=False, seed=0))
+    rng = np.random.default_rng(14)
+    scale = TRAIN_IMAGE / D0_IMAGE
+    entries, count = {}, 0
+    for i, record in enumerate(records):
+        inside = [row for row in record["prediction"]
+                  if 0 <= row[0] and 0 <= row[1] and row[2] <= D0_IMAGE and row[3] <= D0_IMAGE
+                  and min(row[2] - row[0], row[3] - row[1]) * scale > 2]
+        own = []
+        for y1, x1, y2, x2, cls, _score in sorted(inside, key=lambda row: -row[5])[:4]:
+            x1, y1, x2, y2 = np.clip(np.array([x1, y1, x2, y2]) * scale
+                                     + rng.uniform(-2, 2, 4), 0, TRAIN_IMAGE)
+            own.append(f"{names[int(cls) - 1]},{x1:.1f},{y1:.1f},{x2:.1f},{y2:.1f}")
+        count += len(own)
+        own.append(f"{names[i % 4]},3,3,40,36")
+        entries[next(order)["image_path"]] = own
+    path = os.path.join(os.path.dirname(files["labels"]), "d0_own_labels.txt")
+    with open(path, "w") as f:
+        for label in labels:
+            f.write(f"{os.path.basename(label['image_path'])}|"
+                    f"{'|'.join(entries[label['image_path']])}|\n")
+    return path, count
+
+
+def phase_d0_eval(card, files, ckpt, seeded_pt):
+    """The eval CLI with ``--family efficientdet`` through both kernels, in
+    float32 with TF32 off: on the trained checkpoint against the set's labels
+    and on the seeded serving weights (foreground predict biases spread over
+    [0.5, 1.5), so that no two scores tie within rounding) against labels made
+    from their own detections (mAP strictly between 0 and 1); then with the
+    plain sweep (kept rows and mAPs identical), and with the plain sweep and the
+    plain depthwise (kept rows of the same count and classes, boxes within 1e-3
+    px, scores within 1e-5, equal mAPs)."""
+    from tmv_tpu_torch.cli import eval_map
+    from tmv_tpu_torch.kernels import dwconv, nms_sweep
+    from tmv_tpu_torch.kernels.dwconv import dw_bn_swish_reference
+    from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep_reference
+
+    import torch
+
+    # the seeded serving load with its foreground predict biases spread over
+    # [0.5, 1.5): at +1.0 the scores tie to ~1e-7, where the plain depthwise's
+    # other summation order reorders them
+    state = torch.load(seeded_pt, map_location="cpu", weights_only=True)
+    bias = state["class_net.net.predict.pointwise.bias"].view(9, 81)
+    bias[:, 1:] = torch.from_numpy(np.random.default_rng(15).uniform(0.5, 1.5, (9, 80)))
+    spread_pt = os.path.join(WORK, "efficientdet_d0_seed0_spread.pt")
+    torch.save(state, spread_pt)
+    common = ["--family", "efficientdet", "--modelName", "efficientdet-d0", "--imagePath",
+              files["images"], "--classesFile", files["classes"], "--imageSize",
+              str(D0_IMAGE), "--batchSize", str(D0_TRAIN_BATCH), "--device", "cuda"]
+    trained = common + ["--modelPath", ckpt, "--labelFile", files["labels"]]
+    seeded = common + ["--modelPath", spread_pt]
+    modes = ("batch", "global")
+
+    def evaluate(own_labels=None):
+        records, _ = eval_map.efficientdet_records(eval_map.parse_args(trained))
+        seeded_records, _ = eval_map.efficientdet_records(
+            eval_map.parse_args(seeded + ["--labelFile", files["labels"]]))
+        own_labels = own_labels or write_d0_own_labels(files, seeded_records)
+        own = {mode: eval_map.main(seeded + ["--mode", mode, "--labelFile", own_labels[0]])
+               for mode in modes}
+        maps = {mode: eval_map.main(trained + ["--mode", mode]) for mode in modes}
+        return maps, records + seeded_records, own, own_labels
+
+    dwconv.launches = nms_sweep.launches = 0
+    maps, records, own, own_labels = evaluate()
+    launches = {"dwconv_bn_swish": dwconv.launches, "nms_sweep": nms_sweep.launches}
+    batches = 6 * TRAIN_SET // D0_TRAIN_BATCH
+    check(launches["nms_sweep"] == batches,
+          f"{launches['nms_sweep']} NMS launches for {batches} eval batches")
+    check(launches["dwconv_bn_swish"] == 16 * batches,
+          f"{launches['dwconv_bn_swish']} depthwise launches for {batches} eval forwards")
+    with mock.patch("tmv_tpu_torch.ops.nms.greedy_sweep", greedy_sweep_reference):
+        plain, plain_records, plain_own, _ = evaluate(own_labels)
+        with mock.patch("tmv_tpu_torch.models.efficientdet.backbone.fused_dw_bn_swish",
+                        dw_bn_swish_reference):
+            both, both_records, both_own, _ = evaluate(own_labels)
+    check(nms_sweep.launches == launches["nms_sweep"]
+          and dwconv.launches == 2 * launches["dwconv_bn_swish"],
+          "the plain runs launched a kernel they replace")
+    for name, got, want in (("trained", maps, plain), ("seeded", own, plain_own),
+                            ("trained, plain depthwise", maps, both),
+                            ("seeded, plain depthwise", own, both_own)):
+        for mode in modes:
+            check(got[mode]["mAP"] == want[mode]["mAP"] and got[mode]["images"] == TRAIN_SET,
+                  f"D0 eval {mode} of the {name} model: kernels' mAP {got[mode]['mAP']} vs "
+                  f"plain {want[mode]['mAP']}")
+    check(all(a["prediction"] == b["prediction"] for a, b in zip(records, plain_records)),
+          "D0 kept rows differ between the NMS kernel and the plain sweep")
+    worst_box = worst_score = 0.0
+    for a, b in zip(records, both_records):
+        pa = np.asarray(a["prediction"]).reshape(-1, 6)
+        pb = np.asarray(b["prediction"]).reshape(-1, 6)
+        check(pa.shape == pb.shape and np.array_equal(pa[:, 4], pb[:, 4]),
+              "D0 kept rows differ in count or class with the plain depthwise")
+        if len(pa):
+            worst_box = max(worst_box, float(np.abs(pa[:, :4] - pb[:, :4]).max()))
+            worst_score = max(worst_score, float(np.abs(pa[:, 5] - pb[:, 5]).max()))
+    check(worst_box <= 1e-3 and worst_score <= 1e-5,
+          f"D0 kept rows with the plain depthwise: boxes {worst_box:.3g} px, scores "
+          f"{worst_score:.3g} apart")
+    check(own_labels[1] > 0 and all(0 < own[mode]["mAP"] < 1 for mode in modes),
+          f"D0 eval on the seeded model's own labels ({own_labels[1]} boxes): mAP "
+          f"{[own[m]['mAP'] for m in modes]} not in (0, 1)")
+    kept = [sum(len(r["prediction"]) for r in part)
+            for part in (records[:TRAIN_SET], records[TRAIN_SET:])]
+    check(kept[1] > 0, f"the seeded D0 kept no box: {kept}")
+    print(f"phase 14 D0 eval: tmv_tpu_torch.cli.eval_map --family efficientdet, {TRAIN_SET} "
+          f"images @{D0_IMAGE} f32 (TF32 off) b{D0_TRAIN_BATCH}: the trained checkpoint on the "
+          f"set's labels mAP batch {maps['batch']['mAP']:.4f}, global {maps['global']['mAP']:.4f}"
+          f" ({kept[0]} boxes kept); the seeded weights on their own labels ({own_labels[1]} of "
+          f"their kept boxes moved by up to 2 px, plus one missed box per image) batch "
+          f"{own['batch']['mAP']:.4f}, global {own['global']['mAP']:.4f} ({kept[1]} boxes kept); "
+          f"each equal with the plain sweep (kept rows identical) and with the plain sweep and "
+          f"plain depthwise (kept rows of the same count and classes, boxes within "
+          f"{worst_box:.3g} px, scores within {worst_score:.3g}); dwconv.launches "
+          f"{launches['dwconv_bn_swish']} (16 x {batches} forwards), nms_sweep.launches "
+          f"{launches['nms_sweep']} on [{card}]", flush=True)
+    return launches
+
+
 
 def main():
     import torch
@@ -1308,23 +1701,28 @@ def main():
     files = write_train_set(os.path.join(WORK, "train_set"))
     train = phase_train(card, files)
     eval_launches = phase_eval(card, files, train["ckpt"])
+    d0_train = phase_d0_train(card, files)
+    d0_eval = phase_d0_eval(card, files, d0_train["ckpt"], d0_weights)
     nms_launches = (yolo_launches["nms_sweep"] + d0_launches["nms_sweep"]
-                    + train["val_launches"] + eval_launches)
+                    + train["val_launches"] + eval_launches + d0_eval["nms_sweep"])
+    dw_launches = d0_launches["dwconv_bn_swish"] + d0_eval["dwconv_bn_swish"]
     dw = dw_sums[64]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s on [{card}]; kernels "
           f"line: nms_sweep at N=1024 B=1 (ms: device time by CUDA graph, mask + scan "
           f"kernels), launches over both served paths (YOLOv4 "
           f"{yolo_launches['nms_sweep']}, D0 {d0_launches['nms_sweep']}), the trainer's val "
-          f"passes ({train['val_launches']}) and the eval CLI ({eval_launches}); dwconv_bn_swish "
-          f"summed over the 16 launches of one D0 bf16 forward at B=64, launches from the D0 "
-          f"served path", flush=True)
+          f"passes ({train['val_launches']}), the YOLOv4 eval CLI ({eval_launches}) and the D0 "
+          f"eval CLI ({d0_eval['nms_sweep']}); dwconv_bn_swish summed over the 16 launches of "
+          f"one D0 bf16 forward at B=64, launches over the D0 served path "
+          f"({d0_launches['dwconv_bn_swish']}) and the D0 eval CLI "
+          f"({d0_eval['dwconv_bn_swish']})", flush=True)
     print(json.dumps({"kernels": [
         {"name": "nms_sweep", "route": "cuda", "source": NMS_SOURCE, "replaces": NMS_REPLACES,
          "launches": nms_launches,
          "max_abs_err": nms_err, "ms": nms_device[1]["sweep"], "plain_ms": nms_times[1][1],
          "bound_ms": nms_bound[0], "bound_by": nms_bound[1], "library_ms": None},
         {"name": "dwconv_bn_swish", "route": "cuda", "source": DW_SOURCE,
-         "replaces": DW_REPLACES, "launches": d0_launches["dwconv_bn_swish"],
+         "replaces": DW_REPLACES, "launches": dw_launches,
          "max_abs_err": dw_err, "ms": dw["ms"], "plain_ms": dw["plain_ms"],
          "bound_ms": dw["bound_ms"], "bound_by": max(dw["by"], key=dw["by"].get),
          "library_ms": dw["library_ms"]},

@@ -47,8 +47,9 @@ from tmv_tpu_torch.models.efficientdet import backbone
 from tmv_tpu_torch.models.efficientdet.backbone import MBConvBlock
 from tmv_tpu_torch.models.efficientdet.bifpn import WEIGHT_METHODS, BiFPN, ResampleFeatureMap
 from tmv_tpu_torch.models.efficientdet.harness import build_efficientdet, efficientdet_config
-from tmv_tpu_torch.models.efficientdet.heads import BoxNet, ClassNet, drop_connect
-from torch_port_cases import flax_leaf_count, seeded_variables
+from tmv_tpu_torch.models.efficientdet.heads import BoxNet, ClassNet, draw_uniform, drop_connect
+from tmv_tpu_torch.models.efficientdet.net import EfficientDetNet
+from torch_port_cases import flax_leaf_count, one_torch_thread, seeded_variables  # noqa: F401
 
 LEVELS_80 = (10, 5, 3, 2, 1)
 
@@ -80,6 +81,19 @@ def nchw(x):
 
 def nhwc(t):
     return t.permute(0, 2, 3, 1).detach().numpy()
+
+
+def running_stats(params, batch_stats):
+    """The ``running_mean`` / ``running_var`` entries of the bridged flax tree."""
+    state = flax_to_state_dict(jax.tree.map(np.asarray, {"params": params,
+                                                         "batch_stats": batch_stats}))
+    return {k: v for k, v in state.items() if k.endswith(("running_mean", "running_var"))}
+
+
+def assert_stats_close(got, want, key):
+    """A running statistic within 1e-6 of the tensor's largest entry (relative)."""
+    got, want = got.numpy(), want.numpy()
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max(), (key, np.abs(got - want).max())
 
 
 def assert_close(got, want):
@@ -119,12 +133,51 @@ def test_mbconv_train_mode_uses_batch_statistics_without_the_kernel(rng, monkeyp
     x = rng.normal(size=(3, 12, 12, args.input_filters)).astype(np.float32)
     flax_block = FlaxMBConvBlock(args)
     variables = seeded(flax_block, jnp.asarray(x), False)
-    want, _ = flax_block.apply(variables, jnp.asarray(x), True, mutable=["batch_stats"])
+    want, mutated = flax_block.apply(variables, jnp.asarray(x), True, mutable=["batch_stats"])
     monkeypatch.setattr(backbone, "fused_dw_bn_swish", None)   # must not be called
     block_t = bridged(MBConvBlock(args), variables).train()
     with torch.no_grad():
         got = block_t(nchw(x))
     assert_close(nhwc(got), want)
+    # the running statistics move as flax's do (biased batch variance)
+    stats = running_stats(variables["params"], mutated["batch_stats"])
+    state = block_t.state_dict()
+    assert len(stats) == 3 * 2
+    for key, value in stats.items():
+        assert_stats_close(state[key], value, key)
+
+
+def test_d0_train_forward_updates_batch_statistics_as_flax(one_torch_thread):
+    """One train-mode forward of the whole D0 at 64 px, B = 2, in float64 on both
+    sides (the forward's float32 rounding, amplified by batch statistics over as
+    few as 2 values, would hide the update's arithmetic): every BatchNorm's
+    running mean and variance (backbone, resamples, BiFPN, the heads' per-level
+    ones) equals flax's mutated ``batch_stats`` within 1e-6 of its largest entry.
+    ``nn.BatchNorm2d`` would blend in the unbiased batch variance: n/(n−1) off,
+    twice the value at the 1 × 1 P7 level. ``survival_prob`` is 1, so that the
+    heads' statistics do not depend on the two packages' drop_connect draws."""
+    cfg = efficientdet_config("efficientdet-d0", 81, 64)
+    cfg.fused_dw_eval = False
+    cfg.survival_prob = 1.0
+    variables = seeded(FlaxEfficientDetNet(config=cfg), jnp.zeros((1, 64, 64, 3)),
+                       train=False, seed=64)
+    images = np.random.default_rng(5).uniform(0, 1, (2, 64, 64, 3))
+    with jax.enable_x64(True):
+        flax_model = FlaxEfficientDetNet(config=cfg, dtype=jnp.float64)
+        cast = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
+        _, mutated = jax.jit(lambda v, x: flax_model.apply(
+            v, x, train=True, mutable=["batch_stats"], rngs={"dropout": jax.random.key(0)}))(
+            cast, jnp.asarray(images))
+        mutated = jax.tree.map(np.asarray, mutated)
+    net = bridged(EfficientDetNet(cfg, dtype=torch.float64, device="cpu"), variables)
+    net = net.to(torch.float64).train()
+    with torch.no_grad():
+        net(torch.from_numpy(images), generator=torch.Generator().manual_seed(0))
+    want = running_stats(variables["params"], mutated["batch_stats"])
+    state = net.state_dict()
+    assert len(want) == 2 * sum(isinstance(m, torch.nn.BatchNorm2d) for m in net.modules())
+    for key, value in want.items():
+        assert_stats_close(state[key], value, key)
 
 
 def test_resample_hazards_match_flax(rng):
@@ -178,14 +231,18 @@ def test_drop_connect_only_in_training(rng):
     inputs = [torch.from_numpy(rng.normal(size=(8, 16, s, s)).astype(np.float32))
               for s in LEVELS_80]
     net = BoxNet(num_anchors=9, num_filters=16, num_levels=5, repeats=2, survival_prob=0.5)
-    torch.manual_seed(0)
-    keep = drop_connect(torch.ones(64, 3, 2, 2), 0.5)
+    ones = torch.ones(64, 3, 2, 2)
+    keep = drop_connect(ones, 0.5, draw_uniform(ones, torch.Generator().manual_seed(0)))
     assert set(keep.unique().tolist()) == {0.0, 2.0}   # whole samples dropped or x 1/0.5
     with torch.no_grad():
         eval_out = net.eval()(inputs)
         assert all(torch.equal(a, b) for a, b in zip(eval_out, net(inputs)))
-        train_out = net.train()(inputs)
+        train_out = net.train()(inputs, torch.Generator().manual_seed(1))
+        again = net(inputs, torch.Generator().manual_seed(1))
+        with pytest.raises(ValueError, match="Generator"):
+            net(inputs)
     assert not all(torch.allclose(a, b) for a, b in zip(eval_out, train_out))
+    assert all(torch.equal(a, b) for a, b in zip(train_out, again))   # the generator decides
 
 
 def _d0_pair(size):

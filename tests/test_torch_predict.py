@@ -156,8 +156,9 @@ def test_device_cuda_without_a_card_raises(tmp_path):
 
 def test_port_imports_no_jax(tmp_path):
     """Every module of the package, a whole server build of each family, and the
-    trainer's and eval CLI's arguments, pipeline and train state at a tiny size
-    leave ``tmv_tpu`` (and jax, flax, jaxlib) out of ``sys.modules``."""
+    trainers' and eval CLI's arguments, pipelines (EfficientDet's host and device
+    augmentation), train states and D0's loss at a tiny size leave ``tmv_tpu``
+    (and jax, flax, jaxlib) out of ``sys.modules``."""
     yolo = _write_inputs(tmp_path) + ["--randomInit", "--imageSize", "32", "--device", "cpu",
                                       "--batch", "2"]
     det = _write_inputs(tmp_path)[:2] + ["--family", "efficientdet", "--randomInit",
@@ -169,6 +170,12 @@ def test_port_imports_no_jax(tmp_path):
                      str(tmp_path), "--imageSize", "32", "--batchSize", "2", "--device", "cpu"]
     evaluate = files + ["--imagePath", str(tmp_path), "--labelFile",
                         str(tmp_path / "labels.txt"), "--imageSize", "32", "--device", "cpu"]
+    train_d0 = files[:2] + ["--trainData", str(tmp_path / "labels.txt"), "--trainImagePath",
+                            str(tmp_path), "--modelName", "efficientdet-d0", "--imageSize",
+                            "64", "--batchSize", "2", "--deviceAug", "--device", "cpu"]
+    evaluate_d0 = files[:2] + ["--family", "efficientdet", "--imagePath", str(tmp_path),
+                               "--labelFile", str(tmp_path / "labels.txt"), "--imageSize", "64",
+                               "--device", "cpu"]
     code = ("import sys, pkgutil, importlib, tmv_tpu_torch\n"
             "for m in pkgutil.walk_packages(tmv_tpu_torch.__path__, 'tmv_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
@@ -190,6 +197,23 @@ def test_port_imports_no_jax(tmp_path):
             "model, _ = build_yolo_model('v4', p.classes_num, device='cpu')\n"
             "state = TrainState.create(model, torch.optim.Adam(model.parameters()))\n"
             "assert batch['image'].shape == (2, 32, 32, 3) and state.step == 0\n"
+            "torch.set_num_threads(1)   # D0 at 64 px: no OpenMP spinning under test workers\n"
+            "from tmv_tpu_torch.cli import train_efficientdet\n"
+            "from tmv_tpu_torch.core.train_state import make_line_search_train_step\n"
+            "from tmv_tpu_torch.data.efficientdet_pipeline import EfficientDetPipeline\n"
+            "from tmv_tpu_torch.models.efficientdet.harness import build_efficientdet\n"
+            "from tmv_tpu_torch.models.efficientdet.net import make_efficientdet_loss_fn\n"
+            f"d = train_efficientdet.parse_args({train_d0!r})\n"
+            f"eval_map.parse_args({evaluate_d0!r})\n"
+            "net, anchors = build_efficientdet('efficientdet-d0', 4, 64, device='cpu')\n"
+            "for aug in (False, True):\n"
+            "    b = next(iter(EfficientDetPipeline(d.trainImagePath, d.trainData,\n"
+            "        d.classesFile, 2, anchors, 4, image_size=64, device_aug=aug, prefetch=0,\n"
+            "        device=d.device)))\n"
+            "gen = torch.Generator().manual_seed(0)\n"
+            "loss, _ = make_efficientdet_loss_fn(generator=gen)(net.train(), b)\n"
+            "make_line_search_train_step(make_efficientdet_loss_fn(generator=gen))\n"
+            "assert b['image'].shape == (2, 64, 64, 3) and bool(torch.isfinite(loss))\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('tmv_tpu', 'jax', 'flax', 'jaxlib'))\n"
             "assert not bad, bad\n"

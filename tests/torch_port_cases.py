@@ -7,6 +7,7 @@ dependencies.
 """
 
 import numpy as np
+import pytest
 
 
 def cluster_boxes(rng, n, coord="xyxy"):
@@ -58,3 +59,18 @@ def flax_leaf_count(tree):
     import jax
 
     return len(jax.tree_util.tree_leaves(tree))
+
+
+@pytest.fixture()
+def one_torch_thread():
+    """Run the test's torch ops on one thread. Under the parallel test workers,
+    torch's OpenMP threads oversubscribe the cores and spin at every barrier,
+    which slows a whole-D0 float64 forward by orders of magnitude."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)

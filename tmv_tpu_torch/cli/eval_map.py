@@ -1,6 +1,7 @@
-"""Dataset mAP evaluation CLI for a trained YOLOv4 of the port.
+"""Dataset mAP evaluation CLI for a trained YOLOv4 or EfficientDet of the port.
 
-Port of ``tmv_tpu/cli/eval_map.py`` for ``--family yolo --version v4``:
+Port of ``tmv_tpu/cli/eval_map.py`` for ``--family yolo --version v4`` and
+``--family efficientdet``:
 
 - ``--mode batch`` (default): per-image mAP averaged over the set, the
   reference's ``test_step`` semantics; ``--mode global`` pools all images into
@@ -8,16 +9,22 @@ Port of ``tmv_tpu/cli/eval_map.py`` for ``--family yolo --version v4``:
 - ``--variant reference|voc|coco`` picks the AP integrator
   (``ops/map_eval.py::get_ap{,_voc,_coco}``).
 
-``--modelPath`` is a port checkpoint directory (``cli/train_yolo.py``; the
-latest step) or a ``.pt`` state_dict (``tools/export_torch_weights.py``);
-omitted, the model is seeded random weights (a smoke run only). The images go
-through the batched predictor, and so through the NMS kernel on the card.
-``--device cuda`` (the default) raises where there is no GPU.
+``--modelPath`` is a port checkpoint directory (``cli/train_yolo.py``,
+``cli/train_efficientdet.py``; the latest step) or a ``.pt`` state_dict;
+omitted, the model is seeded random weights (a smoke run only). YOLO images go
+through the batched predictor; EfficientDet batches through one eval-mode
+forward (the depthwise kernel on the card) and one NMS sweep, scored in the JAX
+eval's space (yxyx letterbox pixels, 1-based ids, ``num_classes`` = the
+dataset's classes + background). ``--device cuda`` (the default) raises where
+there is no GPU.
 
 Usage:
     python -m tmv_tpu_torch.cli.eval_map --family yolo --version v4 \\
         --imagePath imgs/ --labelFile labels.txt --classesFile classes.txt \\
         --anchorsFile anchors.txt --modelPath ./weights --imageSize 416
+    python -m tmv_tpu_torch.cli.eval_map --family efficientdet \\
+        --modelName efficientdet-d0 --imagePath imgs/ --labelFile labels.txt \\
+        --classesFile classes.txt --modelPath ./weights --imageSize 512
 """
 
 import argparse
@@ -26,10 +33,8 @@ import json
 import numpy as np
 
 _NOT_PORTED = {
-    "--family efficientdet": (
-        lambda a: a.family != "yolo",
-        "ROADMAP.md queue 1: the EfficientDet-D0 training slice and its eval"),
-    "--version v3/resnet": (lambda a: a.version != "v4", "ROADMAP.md queue 1: the YOLOv3 family"),
+    "--version v3/resnet": (lambda a: a.family == "yolo" and a.version != "v4",
+                            "ROADMAP.md queue 1: the YOLOv3 family"),
     "--cacheDir": (lambda a: a.cacheDir is not None, "ROADMAP.md queue 1: data/stage_cache.py"),
     "--int8Static": (lambda a: a.int8Static, "ROADMAP.md queue 1: int8"),
     "--int8Margin": (lambda a: a.int8Margin is not None, "ROADMAP.md queue 1: int8"),
@@ -71,7 +76,7 @@ def parse_args(argv=None):
                if given(args)]
     if refused:
         p.error(f"not yet ported to tmv_tpu_torch: {'; '.join(refused)}")
-    if args.anchorsFile is None:
+    if args.family == "yolo" and args.anchorsFile is None:
         p.error("--anchorsFile is required for --family yolo")
     return args
 
@@ -92,20 +97,20 @@ def score_dataset(data, classes_num: int, mode: str, variant: str, thresh: float
     return float(np.mean(per_image)) if per_image else 0.0
 
 
-def load_model(args, classes_num: int, anchors_per_scale: int, device):
-    """The YOLOv4 of ``--modelPath`` on ``device`` in eval mode → (model, iou_type)."""
+def load_weights(args, model):
+    """``--modelPath`` into ``model`` (seeded random weights where omitted) →
+    the model in ``channels_last`` and eval mode."""
     import os
 
     import torch
 
     from tmv_tpu_torch.core.checkpoint import CheckpointManager
-    from tmv_tpu_torch.models.detector_harness import build_yolo_model
-    from tmv_tpu_torch.models.layers.common import init_weights
 
-    dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model, iou_type = build_yolo_model(args.version, classes_num, anchors_per_scale,
-                                       dtype=dtype, device=device)
     if args.modelPath is None:
+        if args.family == "yolo":
+            from tmv_tpu_torch.models.layers.common import init_weights
+        else:
+            from tmv_tpu_torch.models.efficientdet.net import init_weights
         init_weights(model, 0)
     elif os.path.isdir(args.modelPath):
         mgr = CheckpointManager(args.modelPath)
@@ -117,7 +122,19 @@ def load_model(args, classes_num: int, anchors_per_scale: int, device):
     else:
         model.load_state_dict(torch.load(args.modelPath, map_location="cpu", weights_only=True),
                               strict=True)
-    return model.to(memory_format=torch.channels_last).eval(), iou_type
+    return model.to(memory_format=torch.channels_last).eval()
+
+
+def load_model(args, classes_num: int, anchors_per_scale: int, device):
+    """The YOLOv4 of ``--modelPath`` on ``device`` in eval mode → (model, iou_type)."""
+    import torch
+
+    from tmv_tpu_torch.models.detector_harness import build_yolo_model
+
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    model, iou_type = build_yolo_model(args.version, classes_num, anchors_per_scale,
+                                       dtype=dtype, device=device)
+    return load_weights(args, model), iou_type
 
 
 def predict_records(args):
@@ -166,9 +183,57 @@ def eval_yolo(args):
             "images": len(data)}
 
 
+def efficientdet_records(args):
+    """Predict every image of the set with the EfficientDet of ``--modelPath`` →
+    (per-image records in the reference evaluator's format, num_classes with
+    the background)."""
+    import torch
+
+    from tmv_tpu_torch.data.efficientdet_pipeline import EfficientDetPipeline
+    from tmv_tpu_torch.data.loaders import load_classes
+    from tmv_tpu_torch.models.detector_harness import check_device
+    from tmv_tpu_torch.models.efficientdet.config import get_efficientdet_config
+    from tmv_tpu_torch.models.efficientdet.harness import (
+        build_efficientdet, make_efficientdet_pred_gt,
+    )
+
+    device = check_device(args.device)
+    _, names_num = load_classes(args.classesFile)
+    size = args.imageSize or get_efficientdet_config(args.modelName).image_size
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    model, anchors = build_efficientdet(args.modelName, names_num + 1, size, dtype=dtype,
+                                        device=device)
+    num_classes = model.config.num_classes
+    model = load_weights(args, model)
+    pipeline = EfficientDetPipeline(args.imagePath, args.labelFile, args.classesFile,
+                                    args.batchSize, anchors, num_classes, image_size=size,
+                                    augment=False, label_mean=False, with_raw_boxes=True,
+                                    device=device)
+    collect = make_efficientdet_pred_gt(model, anchors)
+    n = args.maxImages or pipeline.labels_num
+    data = []
+    batches = iter(pipeline)
+    try:
+        for bi in range((n + args.batchSize - 1) // args.batchSize):
+            for j, (pred, gt) in enumerate(collect(next(batches))):
+                if bi * args.batchSize + j >= n:
+                    break
+                data.append({"image_path": f"{bi * args.batchSize + j}.jpg",
+                             "groud_truth": gt.tolist(), "prediction": pred.tolist()})
+    finally:
+        batches.close()
+    return data, num_classes
+
+
+def eval_efficientdet(args):
+    data, num_classes = efficientdet_records(args)
+    return {"mAP": score_dataset(data, num_classes, args.mode, args.variant, args.thresh),
+            "images": len(data)}
+
+
 def main(argv=None):
     args = parse_args(argv)
-    result = eval_yolo(args)
+    result = eval_yolo(args) if args.family == "yolo" else eval_efficientdet(args)
     result.update({"family": args.family, "mode": args.mode, "variant": args.variant,
                    "quant": "off"})
     print(json.dumps(result), flush=True)

@@ -1,0 +1,193 @@
+"""EfficientDet training CLI on one GPU.
+
+Port of ``tmv_tpu/cli/train_efficientdet.py`` on one device: the model config by
+name (``--imageSize`` overrides its size), a head of the dataset's classes + 1
+(background), the class prior bias, the train pipeline (host augmentation, or
+``--deviceAug``), SGD with momentum 0.9 on the cosine schedule with one epoch of
+linear warmup from 0.008, its peak ``0.08 · batch / 64``, a global-norm clip of
+10, a weight EMA of 0.9998 (parameters only), ``--accumSteps``, checkpoint
+resume with the step, a per-epoch asynchronous save, EarlyStopping on the epoch
+loss, GracefulShutdown, ``metrics.jsonl`` and a final save. ``--bf16`` trains
+bf16 activations on float32 master weights and float32 momentum. The heads'
+``drop_connect`` draws from a ``torch.Generator`` on the device seeded with the
+step's number, as the JAX CLI's draws come from ``jax.random.key(step)``, so a
+resumed run draws what the uninterrupted one would.
+``--device cuda`` (the default) raises where there is no GPU; ``--device cpu``
+is for tests.
+
+Usage:
+    python -m tmv_tpu_torch.cli.train_efficientdet --modelName efficientdet-d0 \\
+        --trainData ./data/train_labels.txt --trainImagePath ./imgs \\
+        --classesFile ./data/classes.txt --imageSize 512 --batchSize 16 --deviceAug
+
+Checkpoints are ``<modelPath>/<step>.pt`` (``core/checkpoint.py``), with
+``metrics.jsonl`` beside them; ``cli/eval_map.py --family efficientdet`` scores
+them.
+"""
+
+import argparse
+import os
+
+import numpy as np
+
+# Flags of the JAX CLI the port does not run yet → the later ROADMAP.md item.
+_NOT_PORTED = {
+    "--cacheDir": (lambda a: a.cacheDir is not None, "ROADMAP.md queue 1: data/stage_cache.py"),
+    "--remat": (lambda a: a.remat, "ROADMAP.md queue 1: --remat"),
+    "--dp": (lambda a: a.dp, "ROADMAP.md queue 1: multi-GPU training"),
+    "--sp": (lambda a: a.sp > 1, "ROADMAP.md queue 1: multi-GPU training"),
+    "--tp": (lambda a: a.tp > 1, "ROADMAP.md queue 1: multi-GPU training"),
+    "--fsdp": (lambda a: a.fsdp, "ROADMAP.md queue 1: multi-GPU training"),
+}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--modelName", default="efficientdet-d1")
+    p.add_argument("--trainData", required=True)
+    p.add_argument("--trainImagePath", required=True)
+    p.add_argument("--classesFile", required=True)
+    p.add_argument("--batchSize", type=int, default=8)
+    p.add_argument("--stepsPerEpoch", type=int, default=1000)
+    p.add_argument("--epochs", type=int, default=300)
+    p.add_argument("--modelPath", default="./data/efficientdet_weights")
+    p.add_argument("--maxBoxes", type=int, default=100)
+    p.add_argument("--imageSize", type=int, default=0,
+                   help="override the config's image size (0 = config)")
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--accumSteps", type=int, default=1,
+                   help="gradient accumulation micro-steps (batchSize must divide)")
+    p.add_argument("--remat", action="store_true")
+    p.add_argument("--dp", action="store_true")
+    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--fsdp", action="store_true")
+    p.add_argument("--earlyStopPatience", type=int, default=10,
+                   help="epochs without train-loss improvement before stopping (0 disables)")
+    p.add_argument("--deviceAug", action="store_true",
+                   help="blur/affine/noise augmentation batched on the device "
+                        "(data/device_aug.py); the host only decodes and letterboxes")
+    p.add_argument("--cacheDir", default=None)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    refused = [f"{flag} ({where})" for flag, (given, where) in _NOT_PORTED.items()
+               if given(args)]
+    if refused:
+        p.error(f"not yet ported to tmv_tpu_torch: {'; '.join(refused)}")
+    if args.batchSize % args.accumSteps:
+        p.error("--accumSteps must divide --batchSize")
+    return args
+
+
+def main(argv=None):
+    """Train; returns ``{"step", "epochs"}``."""
+    import torch
+
+    from tmv_tpu_torch.core.callbacks import EarlyStopping, GracefulShutdown
+    from tmv_tpu_torch.core.checkpoint import CheckpointManager
+    from tmv_tpu_torch.core.metrics import MetricsLogger, StepTimer
+    from tmv_tpu_torch.core.schedules import cosine_lr_schedule, scaled_lr
+    from tmv_tpu_torch.core.train_state import TrainState, make_train_step
+    from tmv_tpu_torch.data.efficientdet_pipeline import EfficientDetPipeline
+    from tmv_tpu_torch.data.loaders import load_classes
+    from tmv_tpu_torch.models.detector_harness import check_device
+    from tmv_tpu_torch.models.efficientdet.config import get_efficientdet_config
+    from tmv_tpu_torch.models.efficientdet.harness import build_efficientdet
+    from tmv_tpu_torch.models.efficientdet.net import init_weights, make_efficientdet_loss_fn
+
+    args = parse_args(argv)
+    device = check_device(args.device)
+    size = args.imageSize or get_efficientdet_config(args.modelName).image_size
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    # head size follows the dataset: its classes + background id 0
+    _, names_num = load_classes(args.classesFile)
+    model, anchors = build_efficientdet(args.modelName, names_num + 1, size, dtype=dtype,
+                                        device=device, param_dtype=torch.float32)
+    cfg = model.config
+    pipeline = EfficientDetPipeline(args.trainImagePath, args.trainData, args.classesFile,
+                                    args.batchSize, anchors, cfg.num_classes, image_size=size,
+                                    max_boxes=args.maxBoxes, device_aug=args.deviceAug,
+                                    device=device)
+    init_weights(model, 0)
+    model = model.to(memory_format=torch.channels_last)
+
+    schedule = cosine_lr_schedule(scaled_lr(0.08, args.batchSize), 0.008, args.stepsPerEpoch,
+                                  args.epochs * args.stepsPerEpoch)
+    optimizer = torch.optim.SGD(model.parameters(), lr=float(schedule(0)), momentum=0.9)
+    state = TrainState.create(model, optimizer, ema_decay=0.9998)
+    mgr = CheckpointManager(args.modelPath)
+    state = mgr.restore(state)
+    if state.step:
+        print(f"resumed from step {state.step}", flush=True)
+
+    generator = torch.Generator(device)
+    loss_fn = make_efficientdet_loss_fn(generator=generator)
+    step_fn = make_train_step(loss_fn, clip_global_norm=10.0, ema_decay=0.9998,
+                              accum_steps=args.accumSteps, lr_schedule=schedule)
+    logger = MetricsLogger(os.path.join(args.modelPath, "metrics.jsonl"), print_every=20)
+    timer = StepTimer(batch_size=args.batchSize)
+    early = EarlyStopping(patience=args.earlyStopPatience) if args.earlyStopPatience else None
+    shutdown = GracefulShutdown()
+
+    total = args.epochs * args.stepsPerEpoch
+    epoch_losses, pending = [], []
+    warned_fg = False
+
+    def record():
+        # a step's metrics are read after the next step is queued, so the host
+        # does not wait for the card at every step
+        for i, m in pending:
+            logger.log(i, m)
+            epoch_losses.append(float(m["loss"]))
+        pending.clear()
+
+    it = iter(pipeline)
+    try:
+        for step_i in range(state.step, total):
+            batch = next(it)
+            if not warned_fg:
+                warn_zero_foreground(batch, cfg)
+                warned_fg = True
+            generator.manual_seed(step_i)
+            metrics = step_fn(state, batch)
+            metrics.update(timer.tick())
+            record()
+            pending.append((step_i, metrics))
+            if shutdown.requested or (step_i + 1) % args.stepsPerEpoch == 0:
+                record()
+            if shutdown.requested:
+                print(f"preemption signal: checkpointing at step {state.step} and exiting",
+                      flush=True)
+                break
+            if (step_i + 1) % args.stepsPerEpoch == 0:
+                mgr.save(state.step, state, wait=False)
+                epoch_loss = float(np.mean(epoch_losses))
+                epoch_losses = []
+                if early is not None and early.update(epoch_loss):
+                    print(f"early stopping: no improvement for {args.earlyStopPatience} "
+                          "epochs", flush=True)
+                    break
+        record()
+    finally:
+        it.close()
+        shutdown.uninstall()
+    mgr.save(state.step, state)
+    mgr.close()
+    logger.close()
+    return {"step": state.step, "epochs": state.step // args.stepsPerEpoch}
+
+
+def warn_zero_foreground(batch, cfg):
+    """Warn where the first batch assigns no anchor to any box: with no anchor at
+    IoU ≥ 0.5 every target is background, the classifier learns to predict
+    nothing and the mAP is exactly 0."""
+    if sum(float(m.sum()) for m in batch["masks"]) == 0:
+        print("WARNING: first batch assigned ZERO foreground anchors — the ground-truth "
+              "boxes are likely far from every anchor size (anchor_scale "
+              f"{cfg.anchor_scale}, levels {cfg.min_level}-{cfg.max_level} at "
+              f"{cfg.image_size} px).  Training will converge to background-only output; "
+              "adjust image size or the config's anchor_scale.", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -26,6 +26,10 @@ shapes match.
 also inside ``inject_hyperparams``) into a ``torch.optim.Adam`` state dict: its
 moments ``mu``/``nu`` walk the same paths with the same layout transposes as
 the parameters, so a JAX ``TrainState`` resumes in the port.
+``optax_sgd_state_dict`` does the same for ``optax.sgd(…, momentum=…)``: the
+``TraceState`` momentum ``trace`` becomes each parameter's ``momentum_buffer``
+of a ``torch.optim.SGD`` (the step count lives in the train state, the learning
+rate in its schedule).
 """
 
 import re
@@ -160,6 +164,47 @@ def _find_adam(opt_state):
     return None, lr
 
 
+def _find_field(opt_state, field: str):
+    """The first state node (a NamedTuple) of an optax state (nested tuples,
+    ``inner_state``) with the field ``field``, or None."""
+    if field in getattr(opt_state, "_fields", ()):
+        return opt_state
+    children = (opt_state.inner_state,) if hasattr(opt_state, "inner_state") else opt_state
+    if isinstance(children, (tuple, list)):
+        for child in children:
+            found = _find_field(child, field)
+            if found is not None:
+                return found
+    return None
+
+
+def _moments_by_param(tree, model: torch.nn.Module, optimizer: torch.optim.Optimizer):
+    """``[(index, parameter, moment)]`` of a params-shaped optax tree mapped onto
+    the optimizer's parameters; raises where the two sets differ."""
+    mapped: Dict[str, torch.Tensor] = {}
+    _convert("params", tree, mapped, {})
+    names = {id(p): n for n, p in model.named_parameters()}
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    if sorted(names[id(p)] for p in params) != sorted(mapped):
+        raise KeyError("the optax moments and the optimizer's parameters differ")
+    return [(i, p, mapped[names[id(p)]].to(p.dtype)) for i, p in enumerate(params)]
+
+
+def optax_sgd_state_dict(opt_state, model: torch.nn.Module,
+                         optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """A ``state_dict`` for ``optimizer`` (a ``torch.optim.SGD`` with momentum
+    over ``model``'s parameters) holding the optax SGD state ``opt_state``: the
+    momentum ``trace`` as each parameter's ``momentum_buffer``. Raises where a
+    buffer has no parameter or a parameter no buffer."""
+    trace = _find_field(opt_state, "trace")
+    if trace is None:
+        raise KeyError("no optax TraceState (momentum trace) in the optimizer state")
+    out = optimizer.state_dict()
+    out["state"] = {i: {"momentum_buffer": m}
+                    for i, _, m in _moments_by_param(trace.trace, model, optimizer)}
+    return out
+
+
 def optax_adam_state_dict(opt_state, model: torch.nn.Module,
                           optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
     """A ``state_dict`` for ``optimizer`` (a ``torch.optim.Adam`` over
@@ -170,21 +215,12 @@ def optax_adam_state_dict(opt_state, model: torch.nn.Module,
     adam, lr = _find_adam(opt_state)
     if adam is None:
         raise KeyError("no optax ScaleByAdamState (count, mu, nu) in the optimizer state")
-    moments = {}
-    for name, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
-        mapped: Dict[str, torch.Tensor] = {}
-        _convert("params", tree, mapped, {})
-        moments[name] = mapped
-    names = {id(p): n for n, p in model.named_parameters()}
-    params = [p for group in optimizer.param_groups for p in group["params"]]
-    if sorted(names[id(p)] for p in params) != sorted(moments["exp_avg"]):
-        raise KeyError("the optax moments and the optimizer's parameters differ")
+    mu = _moments_by_param(adam.mu, model, optimizer)
+    nu = _moments_by_param(adam.nu, model, optimizer)
     out = optimizer.state_dict()
     step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
-    out["state"] = {
-        i: {"step": step.clone(), "exp_avg": moments["exp_avg"][names[id(p)]].to(p.dtype),
-            "exp_avg_sq": moments["exp_avg_sq"][names[id(p)]].to(p.dtype)}
-        for i, p in enumerate(params)}
+    out["state"] = {i: {"step": step.clone(), "exp_avg": m, "exp_avg_sq": v}
+                    for (i, _, m), (_, _, v) in zip(mu, nu)}
     if lr is not None:
         for group in out["param_groups"]:
             group["lr"] = lr

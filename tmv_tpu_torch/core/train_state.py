@@ -15,13 +15,21 @@ holds the live module (its parameters and BatchNorm buffers) and its
   whose gradients are averaged before one update, the BatchNorm statistics
   threaded through the micro-batches in order.
 
-``torch.optim.Adam(betas=(0.9, 0.999), eps=1e-8)`` is ``optax.adam``'s update.
-The line-search step waits for the EfficientDet-D0 training slice.
+``torch.optim.Adam(betas=(0.9, 0.999), eps=1e-8)`` is ``optax.adam``'s update
+and ``torch.optim.SGD(momentum=0.9)`` (no dampening, no Nesterov) is
+``optax.sgd(schedule, momentum=0.9)``'s; a ``lr_schedule`` is read at the step
+count before the update, as optax reads its schedule, and set into the
+optimizer's ``param_groups`` before it steps.
+
+``make_line_search_train_step`` is the reference's experimental "dynamic
+learning rate" step (off by default there): plain SGD along the clipped
+gradient, the learning rate shrunk until the loss improves.
 """
 
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from tmv_tpu_torch.core.schedules import shadow_loss_decay
@@ -64,9 +72,20 @@ def _split(batch, parts: int):
     return list(torch.chunk(batch, parts))
 
 
+def _global_norm(grads) -> torch.Tensor:
+    """``optax.global_norm``: the L2 norm over every gradient, in float32."""
+    return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+
+
+def _clip_scale(gnorm: torch.Tensor, clip_global_norm: float) -> torch.Tensor:
+    """``min(1, clip / (‖g‖ + 1e-12))``, ``optax.clip_by_global_norm``'s factor."""
+    return torch.clamp(torch.full_like(gnorm, clip_global_norm) / (gnorm + 1e-12), max=1.0)
+
+
 def make_train_step(loss_fn: Callable, clip_global_norm: Optional[float] = None,
                     shadow_loss: bool = False, loss_decay: float = 0.9,
-                    ema_decay: Optional[float] = None, accum_steps: int = 1):
+                    ema_decay: Optional[float] = None, accum_steps: int = 1,
+                    lr_schedule: Optional[Callable] = None):
     """Build ``train_step(state, batch) -> metrics``, which updates ``state``.
 
     Args:
@@ -76,6 +95,8 @@ def make_train_step(loss_fn: Callable, clip_global_norm: Optional[float] = None,
         shadow_loss: the YOLO-family loss-EMA gradient damping.
         ema_decay: optional weight-EMA decay.
         accum_steps: micro-batches per update (the batch's leading dim divides).
+        lr_schedule: optional ``step -> lr``, read at ``state.step`` and set into
+            every param group before the optimizer steps.
 
     The metrics are device tensors (``loss``, ``raw_loss``, ``gnorm`` with a
     clip, and ``loss_fn``'s aux); nothing in the step waits for the device.
@@ -113,12 +134,13 @@ def make_train_step(loss_fn: Callable, clip_global_norm: Optional[float] = None,
 
         metrics = {"loss": loss_report, "raw_loss": loss, **aux}
         if clip_global_norm is not None:
-            gnorm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
-            clip = torch.clamp(torch.full_like(gnorm, clip_global_norm) / (gnorm + 1e-12),
-                               max=1.0)
-            torch._foreach_mul_(grads, clip)
+            gnorm = _global_norm(grads)
+            torch._foreach_mul_(grads, _clip_scale(gnorm, clip_global_norm))
             metrics["gnorm"] = gnorm
 
+        if lr_schedule is not None:
+            for group in optimizer.param_groups:
+                group["lr"] = float(lr_schedule(state.step))
         optimizer.step()
         if state.ema_params is not None:
             live = dict(model.named_parameters())
@@ -134,5 +156,72 @@ def make_train_step(loss_fn: Callable, clip_global_norm: Optional[float] = None,
                 torch._foreach_add_(ema, [buffers[n] for n in names], alpha=1.0 - ema_decay)
         state.step += 1
         return metrics
+
+    return train_step
+
+
+def make_line_search_train_step(loss_fn: Callable, init_lr: float = 0.05, shrink: float = 0.3,
+                                min_lr: float = 1e-6, clip_global_norm: float = 10.0,
+                                generator: Optional[torch.Generator] = None):
+    """Build the line-search step ``train_step(state, batch) -> metrics``
+    (``tmv_tpu/core/train_state.py::make_line_search_train_step``).
+
+    The loss and its gradient are taken once; the gradient is clipped to a
+    global norm of ``clip_global_norm``; then the parameters become ``p − lr·g``
+    for ``lr = init_lr, init_lr·shrink, …`` (float32, as JAX carries it) until
+    the re-evaluated loss is below the first one or ``lr`` reaches ``min_lr``.
+    The last candidate is kept; the optimizer and the EMA are not touched.
+
+    Each re-evaluation runs in train mode on the same batch, as the JAX step
+    applies the model with the step's old statistics: the BatchNorm buffers are
+    put back to what the first forward left after every try (torch's train mode
+    would update them each time), and ``generator`` (the one ``loss_fn`` feeds
+    ``drop_connect``) is rewound, so every try draws the first forward's masks.
+
+    Metrics: ``loss`` (the first), ``new_loss`` (the kept candidate's) and
+    ``gnorm``; the loss function's aux.
+    """
+    shrink32, min32 = np.float32(shrink), np.float32(min_lr)
+
+    def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        model = state.model
+        model.train()
+        rng_state = generator.get_state() if generator is not None else None
+        for p in model.parameters():
+            p.grad = None
+        loss0, aux = loss_fn(model, batch)
+        loss0.backward()
+        rng_after = generator.get_state() if generator is not None else None
+        params = [p for p in model.parameters() if p.grad is not None]
+        grads = [p.grad for p in params]
+        gnorm = _global_norm(grads)
+        torch._foreach_mul_(grads, _clip_scale(gnorm, clip_global_norm))
+        base = [p.detach().clone() for p in params]
+        stats = {n: b.detach().clone() for n, b in model.named_buffers()}
+        buffers = dict(model.named_buffers())
+
+        @torch.no_grad()
+        def try_lr(lr: np.float32) -> torch.Tensor:
+            for p, b, g in zip(params, base, grads):
+                p.copy_(b - float(lr) * g)
+            if generator is not None:
+                generator.set_state(rng_state)
+            loss, _ = loss_fn(model, batch)
+            for n, b in stats.items():
+                buffers[n].copy_(b)
+            return loss.detach()
+
+        lr = np.float32(init_lr)
+        new_loss = try_lr(lr)
+        loss0 = loss0.detach()
+        while bool(loss0 <= new_loss) and lr > min32:
+            lr = np.float32(lr * shrink32)
+            new_loss = try_lr(lr)
+        if generator is not None:
+            generator.set_state(rng_after)
+        for p in params:
+            p.grad = None
+        state.step += 1
+        return {"loss": loss0, "new_loss": new_loss, "gnorm": gnorm, **aux}
 
     return train_step

@@ -15,8 +15,6 @@ the same numbers, the geometry and the HSV shift are the JAX package's. Mosaic,
 the staging cache and the native JPEG decoder are not ported.
 """
 
-import queue
-import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, Tuple
 
@@ -25,6 +23,7 @@ import torch
 
 from tmv_tpu_torch.data.image_ops import flip_boxes_lr, hsv_shift, load_image
 from tmv_tpu_torch.data.loaders import load_classes, load_labels
+from tmv_tpu_torch.data.prefetch import prefetch_batches
 from tmv_tpu_torch.data.samplers import ClassBalancedSampler
 from tmv_tpu_torch.data.yolo_targets import make_yolo_targets, pad_labels
 from tmv_tpu_torch.models.detector_harness import check_device
@@ -196,38 +195,7 @@ class YoloDataPipeline:
             return self.device_batch(self.stage_batch(labels, pool))
 
         try:
-            if self.prefetch <= 0:
-                while True:
-                    yield next_batch()
-            q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
-            stop = threading.Event()
-
-            def put(item):
-                while not stop.is_set():
-                    try:
-                        q.put(item, timeout=0.1)
-                        return
-                    except queue.Full:
-                        continue
-
-            def produce():
-                try:
-                    while not stop.is_set():
-                        put(next_batch())
-                except BaseException as e:  # surfaced in the consumer
-                    put(e)
-
-            thread = threading.Thread(target=produce, daemon=True)
-            thread.start()
-            try:
-                while True:
-                    item = q.get()
-                    if isinstance(item, BaseException):
-                        raise item
-                    yield item
-            finally:
-                stop.set()
-                thread.join(timeout=60)
+            yield from prefetch_batches(next_batch, self.prefetch)
         finally:
             if pool is not None:
                 pool.shutdown()

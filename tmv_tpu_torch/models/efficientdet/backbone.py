@@ -14,9 +14,13 @@ that ``convert.flax_bridge`` maps a flax tree onto them by path.
   ``scale = γ / sqrt(var + eps)`` and ``offset = β − mean · scale``. In train
   mode the block runs conv → BatchNorm (batch statistics) → swish in plain torch.
 - TF-SAME padding; stride 2 pads asymmetrically, explicitly.
-- ``dtype`` is the activations' type: 1×1 and stem conv weights are held in it,
-  the depthwise taps and BatchNorm parameters and statistics in float32 (the
+- ``dtype`` is the type the 1×1 and stem conv weights are held in; each conv
+  casts its weight to its input's type (``layers.common.conv_as_input``), so a
+  float32 model fed bf16 activations trains on float32 master weights. The
+  depthwise taps and BatchNorm parameters and statistics are float32 (the
   kernel takes float32 taps, as the Pallas kernel did).
+- The BatchNorms are ``layers.common.BatchNorm``: in train mode they update
+  their running statistics as flax does (biased batch variance).
 """
 
 from typing import List, Sequence
@@ -30,13 +34,14 @@ from tmv_tpu_torch.models.efficientdet.config import (
     round_filters,
     round_repeats,
 )
-from tmv_tpu_torch.models.layers.common import conv2d_same
+from tmv_tpu_torch.models.layers.common import BatchNorm, conv2d_same, conv_as_input
 from tmv_tpu_torch.ops.activations import swish
 
 
-def batch_norm(features: int, momentum: float, epsilon: float, device=None) -> nn.BatchNorm2d:
-    """Keras BatchNorm (momentum 0.99 is torch's 0.01), float32 parameters."""
-    return nn.BatchNorm2d(features, eps=epsilon, momentum=1.0 - momentum, device=device)
+def batch_norm(features: int, momentum: float, epsilon: float, device=None) -> BatchNorm:
+    """Keras BatchNorm (momentum 0.99 is torch's 0.01), float32 parameters, with
+    flax's running-statistics update in train mode."""
+    return BatchNorm(features, eps=epsilon, momentum=1.0 - momentum, device=device)
 
 
 class SE(nn.Module):
@@ -50,7 +55,7 @@ class SE(nn.Module):
 
     def forward(self, x):
         se = x.mean(dim=(2, 3), keepdim=True)
-        se = self.Conv_1(swish(self.Conv_0(se)))
+        se = conv_as_input(self.Conv_1, swish(conv_as_input(self.Conv_0, se)))
         return torch.sigmoid(se) * x
 
 
@@ -66,7 +71,7 @@ class Stem(nn.Module):
         self.BatchNorm_0 = batch_norm(filters, bn_momentum, bn_epsilon, device)
 
     def forward(self, x):
-        return swish(self.BatchNorm_0(conv2d_same(x, self.Conv_0.weight, None, 2)))
+        return swish(self.BatchNorm_0(conv2d_same(x, self.Conv_0.weight.to(x.dtype), None, 2)))
 
 
 class MBConvBlock(nn.Module):
@@ -99,7 +104,7 @@ class MBConvBlock(nn.Module):
     def forward(self, x):
         ci = self.dw_index
         if self.expand:
-            x = swish(self.BatchNorm_0(self.Conv_0(x)))
+            x = swish(self.BatchNorm_0(conv_as_input(self.Conv_0, x)))
         conv, bn = getattr(self, f"Conv_{ci}"), getattr(self, f"BatchNorm_{ci}")
         if self.training:
             x = conv2d_same(x, conv.weight.to(x.dtype), None, self.stride, groups=conv.groups)
@@ -111,7 +116,8 @@ class MBConvBlock(nn.Module):
             taps = conv.weight.view(c, k * k).t().contiguous().view(k, k, c)
             x = fused_dw_bn_swish(x, taps, scale, offset, self.stride)
         x = self.SE_0(x)
-        return getattr(self, f"BatchNorm_{ci + 1}")(getattr(self, f"Conv_{ci + 1}")(x))
+        return getattr(self, f"BatchNorm_{ci + 1}")(
+            conv_as_input(getattr(self, f"Conv_{ci + 1}"), x))
 
 
 class BackboneModel(nn.Module):

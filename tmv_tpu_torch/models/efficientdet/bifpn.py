@@ -28,7 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tmv_tpu_torch.models.efficientdet.backbone import batch_norm
-from tmv_tpu_torch.models.layers.common import conv2d_same, max_pool_same
+from tmv_tpu_torch.models.layers.common import conv2d_same, conv_as_input, max_pool_same
 from tmv_tpu_torch.ops.activations import swish
 
 WEIGHT_METHODS = ("fastattn", "sum", "attn", "channel_attn", "channel_fastattn")
@@ -46,8 +46,9 @@ class SeparableConv(nn.Module):
         self.pointwise = nn.Conv2d(in_features, filters, 1, bias=use_bias, **kw)
 
     def forward(self, x):
-        x = conv2d_same(x, self.depthwise.weight, None, 1, groups=self.depthwise.groups)
-        return self.pointwise(x)
+        x = conv2d_same(x, self.depthwise.weight.to(x.dtype), None, 1,
+                        groups=self.depthwise.groups)
+        return conv_as_input(self.pointwise, x)
 
 
 class ResampleFeatureMap(nn.Module):
@@ -65,7 +66,7 @@ class ResampleFeatureMap(nn.Module):
     def forward(self, x):
         h = x.shape[2]
         if self.project:
-            x = self.bn(self.conv2d(x))
+            x = self.bn(conv_as_input(self.conv2d, x))
         if h > self.level_size:
             x = max_pool_same(x, 3, 2)
         elif h < self.level_size:

@@ -1,7 +1,11 @@
-"""EfficientDet prediction harness: forward + decode + background filter + DIoU-NMS.
+"""EfficientDet harness: the predictors and the eval's predictions and ground truth.
 
-Port of ``tmv_tpu/models/efficientdet/harness.py::make_efficientdet_predict`` and
-``make_efficientdet_predict_batched`` with the contract of the YOLO predictors
+Port of ``tmv_tpu/models/efficientdet/harness.py``. ``make_efficientdet_pred_gt``
+and ``make_efficientdet_eval`` compare in the JAX eval's space: yxyx letterbox
+pixels, the 1-based class ids ``convert_outputs_one`` returns (0 is background)
+and ``num_classes`` with the background; one batched forward and one NMS launch
+per batch, where the JAX harness runs NMS per image. The predictors
+(``make_efficientdet_predict(_batched)``) keep the contract of the YOLO predictors
 (``models/detector_harness.py``): ``(variables, (B, H, W, 3) float [0, 1]
 images)`` → padded ``(boxes, classes_id, scores, valid)`` host numpy arrays,
 boxes as **normalized xyxy** (the yxyx letterbox pixels divided by
@@ -11,12 +15,14 @@ decoded in float32. The batched form replaces ``jax.vmap`` with one NMS launch
 per batch. ``variables`` is not read (pass None): the weights live in the module.
 """
 
+import numpy as np
 import torch
 
 from tmv_tpu_torch.models.detector_harness import check_device, images_to_device
 from tmv_tpu_torch.models.efficientdet.config import get_efficientdet_config
 from tmv_tpu_torch.models.efficientdet.net import EfficientDetNet
 from tmv_tpu_torch.ops.anchors import Anchors
+from tmv_tpu_torch.ops.map_eval import get_map_one
 
 
 def efficientdet_config(model_name: str, num_classes: int, image_size: int):
@@ -32,14 +38,15 @@ def efficientdet_config(model_name: str, num_classes: int, image_size: int):
 
 
 def build_efficientdet(model_name: str, num_classes: int, image_size: int,
-                       dtype: torch.dtype = torch.float32, device="cuda"):
+                       dtype: torch.dtype = torch.float32, device="cuda", param_dtype=None):
     """``(model, anchors)`` for a D-config at ``image_size``, on the card unless
-    ``device`` says otherwise."""
+    ``device`` says otherwise; ``param_dtype`` holds the weights in another type
+    than the activations' ``dtype`` (training: float32 weights, bf16 activations)."""
     device = check_device(device)
     cfg = efficientdet_config(model_name, num_classes, image_size)
     anchors = Anchors(cfg.min_level, cfg.max_level, (image_size, image_size), cfg.num_scales,
                       cfg.aspect_ratios, cfg.anchor_scale)
-    return EfficientDetNet(cfg, dtype=dtype, device=device), anchors
+    return EfficientDetNet(cfg, dtype=dtype, device=device, param_dtype=param_dtype), anchors
 
 
 def make_efficientdet_predict_batched(model, anchors: Anchors, image_size: int,
@@ -76,3 +83,41 @@ def make_efficientdet_predict(model, anchors: Anchors, image_size: int, **kwargs
         return tuple(o[0] for o in batched(variables, image))
 
     return predict
+
+
+def make_efficientdet_pred_gt(model, anchors: Anchors):
+    """``collect(batch) -> [(pred, gt), ...]`` per image of ``batch``, the model
+    in eval mode: ``pred`` rows ``[y1, x1, y2, x2, class_id, score]`` after decode,
+    background filter and DIoU-NMS; ``gt`` rows ``[y1, x1, y2, x2, class_id]``
+    from ``batch["raw"]`` (``EfficientDetPipeline(with_raw_boxes=True)``)."""
+
+    def collect(batch):
+        with torch.inference_mode():
+            boxes_out, classes_out = model(images_to_device(batch["image"], model))
+            decoded = anchors.convert_outputs_boxes([b.float() for b in boxes_out])
+            outs = anchors.convert_outputs_one(decoded, [c.float() for c in classes_out])
+            boxes, ids, scores, valid = (t.cpu().numpy() for t in outs)
+        result = []
+        for b, (raw_boxes, raw_classes) in enumerate(batch["raw"]):
+            v = valid[b]
+            pred = np.concatenate([boxes[b][v], ids[b][v][:, None].astype(np.float64),
+                                   scores[b][v][:, None]], axis=-1)
+            gt = np.concatenate([np.asarray(raw_boxes, np.float64).reshape(-1, 4),
+                                 np.asarray(raw_classes, np.float64).reshape(-1, 1)], axis=-1)
+            result.append((pred, gt))
+        return result
+
+    return collect
+
+
+def make_efficientdet_eval(model, anchors: Anchors):
+    """``eval_step(batch) -> {"mAP"}``: the per-image mAP at IoU 0.5 over
+    ``model.config.num_classes`` (background included), averaged over the batch."""
+    collect = make_efficientdet_pred_gt(model, anchors)
+
+    def eval_step(batch):
+        maps = [get_map_one(gt.tolist(), pred.tolist(), model.config.num_classes, 0.5)
+                for pred, gt in collect(batch)]
+        return {"mAP": float(np.mean(maps))}
+
+    return eval_step

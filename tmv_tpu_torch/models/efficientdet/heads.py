@@ -7,7 +7,10 @@ after each, and a final separable ``predict`` conv; outputs reshaped to
 
 With a ``survival_prob`` (0.8 in every D-config) the residual ``image +
 original`` for ``i > 0`` is added in eval too; only ``drop_connect`` (stochastic
-depth) is train-only. The class prior bias ``−log((1 − 0.01) / 0.01)`` of the
+depth) is train-only. Its uniform draws come from the ``torch.Generator`` the
+caller passes to ``forward`` (on the activations' device), as flax draws them
+from the ``dropout`` rng; train mode with a ``survival_prob`` below 1 and no
+generator raises. The class prior bias ``−log((1 − 0.01) / 0.01)`` of the
 ClassNet predict conv is set by ``net.init_weights``, as the JAX package sets it
 after ``init`` (``init_class_prior_bias``).
 """
@@ -22,14 +25,22 @@ from tmv_tpu_torch.models.efficientdet.bifpn import SeparableConv
 from tmv_tpu_torch.ops.activations import swish
 
 
-def drop_connect(x: torch.Tensor, survival_prob: float) -> torch.Tensor:
-    """Stochastic depth: drop the whole branch per sample, divide the kept ones
-    by ``survival_prob`` (train time only)."""
+def drop_connect(x: torch.Tensor, survival_prob: float, uniform: torch.Tensor) -> torch.Tensor:
+    """Stochastic depth (``tmv_tpu/ops/regularizers.py::drop_connect``, train
+    time only): ``x / p · floor(p + u)`` with ``u`` the ``(B, 1, …)`` uniform
+    [0, 1) draws and ``p = survival_prob`` rounded to x's dtype, as JAX rounds
+    the Python scalar, so each sample's branch is dropped or divided by ``p``."""
     if survival_prob >= 1.0:
         return x
+    p = uniform.new_full((), survival_prob)
+    return x / p * torch.floor(p + uniform)
+
+
+def draw_uniform(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One uniform [0, 1) draw per sample of ``x``, shaped ``(B, 1, …)``, in x's
+    dtype, from ``generator``."""
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    keep = torch.floor(survival_prob + torch.rand(shape, dtype=x.dtype, device=x.device))
-    return x / survival_prob * keep
+    return torch.rand(shape, generator=generator, dtype=x.dtype, device=x.device)
 
 
 class PredictionNet(nn.Module):
@@ -53,7 +64,11 @@ class PredictionNet(nn.Module):
                 self.add_module(f"bn_{i}_level_{level}",
                                 batch_norm(num_filters, bn_momentum, bn_epsilon, device))
 
-    def forward(self, inputs: Sequence[torch.Tensor]):
+    def forward(self, inputs: Sequence[torch.Tensor], generator: Optional[torch.Generator] = None):
+        drop = self.training and self.survival_prob and self.survival_prob < 1.0
+        if drop and generator is None:
+            raise ValueError("train mode with survival_prob < 1 needs a torch.Generator "
+                             "for drop_connect")
         outputs = []
         for level in range(self.num_levels):
             image = inputs[level]
@@ -62,8 +77,9 @@ class PredictionNet(nn.Module):
                 image = getattr(self, f"conv_{i}")(image)
                 image = swish(getattr(self, f"bn_{i}_level_{level}")(image))
                 if i > 0 and self.survival_prob:
-                    if self.training:
-                        image = drop_connect(image, self.survival_prob)
+                    if drop:
+                        image = drop_connect(image, self.survival_prob,
+                                             draw_uniform(image, generator))
                     image = image + original
             out = self.predict(image)
             b, _, h, w = out.shape
@@ -80,8 +96,8 @@ class ClassNet(nn.Module):
         self.net = PredictionNet(num_classes, num_anchors, num_filters, num_levels, repeats,
                                  survival_prob, dtype=dtype, device=device)
 
-    def forward(self, inputs):
-        return self.net(inputs)
+    def forward(self, inputs, generator: Optional[torch.Generator] = None):
+        return self.net(inputs, generator)
 
 
 class BoxNet(nn.Module):
@@ -92,5 +108,5 @@ class BoxNet(nn.Module):
         self.net = PredictionNet(4, num_anchors, num_filters, num_levels, repeats,
                                  survival_prob, dtype=dtype, device=device)
 
-    def forward(self, inputs):
-        return self.net(inputs)
+    def forward(self, inputs, generator: Optional[torch.Generator] = None):
+        return self.net(inputs, generator)

@@ -52,6 +52,14 @@ def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias=None,
     return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, bias, stride, groups=groups)
 
 
+def conv_as_input(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` with the weight and bias cast to x's type (a no-op where they
+    agree); the conv's own padding, stride and groups."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride, conv.padding,
+                    conv.dilation, conv.groups)
+
+
 class DarknetConv(nn.Module):
     """Conv2D with Darknet padding semantics (no BN, optional bias)."""
 
@@ -82,19 +90,23 @@ class BatchNorm(nn.BatchNorm2d):
     fused ``F.batch_norm`` normalizes (biased variance in both) and, with momentum
     1 into scratch buffers, hands back the batch mean and unbiased variance,
     reduced in float32 also for bf16 inputs; the update rescales the variance by
-    (n−1)/n. Eval mode is ``nn.BatchNorm2d``'s."""
+    (n−1)/n. One value per channel (a 1 × 1 map of one image) normalizes to the
+    bias with a batch variance of 0, as flax does, where ``F.batch_norm`` would
+    refuse it. Eval mode is ``nn.BatchNorm2d``'s."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         mean = torch.zeros_like(self.running_mean)
         var = torch.ones_like(self.running_var)
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        y = torch.batch_norm(x, self.weight, self.bias, mean, var, True, 1.0, self.eps,
+                             torch.backends.cudnn.enabled)
         n = x.numel() // x.shape[1]
+        biased = var * ((n - 1) / n) if n > 1 else torch.zeros_like(var)
         # ra + (1-m)·(batch − ra) = m·ra + (1-m)·batch, with m flax's momentum
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
+            self.running_var.lerp_(biased, self.momentum)
             self.num_batches_tracked.add_(1)
         return y
 

@@ -1,10 +1,13 @@
-"""EfficientDet multiscale anchors: generation and the predict-side decode.
+"""EfficientDet multiscale anchors: generation, training targets and the decode.
 
-Port of the decode half of ``tmv_tpu/ops/anchors.py``: ``get_feat_sizes``, the
-``Anchors`` boxes (numpy, yxyx pixels), ``convert_outputs_boxes`` /
-``_boxes_decoder`` and ``convert_outputs_one``, which here takes a leading image
-axis in place of the JAX function's ``batch_index``: the B images' candidates go
-to one NMS launch. The semantics are the reference's:
+Port of ``tmv_tpu/ops/anchors.py``: ``get_feat_sizes``, the ``Anchors`` boxes
+(numpy, yxyx pixels), ``generate_targets`` / ``_boxes_encoder``,
+``convert_outputs_boxes`` / ``_boxes_decoder`` and ``convert_outputs_one``.
+Both batched functions take a leading image axis where the JAX functions are
+vmapped or take a ``batch_index``: ``generate_targets`` scores every anchor of a
+level against every padded GT box of every image at once (IoU ``(B, h·w·A,
+max_boxes)``), and the B images' candidates go to one NMS launch. The semantics
+are the reference's:
 
 - anchors whose argmax class is 0 (background) get a score of -inf;
 - the top ``pre_nms_size`` (1024) candidates by raw class logit enter NMS;
@@ -14,8 +17,8 @@ to one NMS launch. The semantics are the reference's:
 
 The top-k is a stable descending sort, so ties keep the lower index first as
 ``jax.lax.top_k`` does, and ``torch.argmax`` takes the first maximum as
-``jnp.argmax`` does. Training targets (``generate_targets``) wait for the
-training slice.
+``jnp.argmax`` does (the targets' GT assignment too). A target anchor is
+positive where its best IoU is ≥ 0.5; padded GTs score −1.
 """
 
 from typing import Dict, List, Sequence, Tuple, Union
@@ -23,8 +26,11 @@ from typing import Dict, List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from tmv_tpu_torch.ops.iou import iou_yxyx
 from tmv_tpu_torch.ops.nms import nms
 from tmv_tpu_torch.ops.yolo import gather_rows
+
+EPSILON = 1e-8
 
 
 def get_feat_sizes(image_size: Tuple[int, int], max_level: int) -> List[Tuple[int, int]]:
@@ -101,6 +107,42 @@ class Anchors:
             self._on_device[device] = [torch.from_numpy(b).to(device) for b in self.boxes]
         return self._on_device[device]
 
+    # ------------------------------------------------------------------ targets
+    def generate_targets(self, boxes: torch.Tensor, classes: torch.Tensor, classes_num: int,
+                         valid: torch.Tensor, iou_threshold: float = 0.5):
+        """Assign padded GT boxes to anchors, per level, for a batch of images.
+
+        Args:
+            boxes: ``(B, max_boxes, 4)`` float32 yxyx pixel GT boxes.
+            classes: ``(B, max_boxes)`` int class ids (0 = background).
+            valid: ``(B, max_boxes)`` bool padding mask.
+
+        Returns ``(boxes_t, classes_t, masks_t)``: tuples over levels of ``(B, h,
+        w, A, 4)`` encoded float32 targets (0 on negatives), ``(B, h, w, A,
+        classes_num)`` float32 one-hot classes (background on negatives) and
+        ``(B, h, w, A, 1)`` bool positive masks, on the boxes' device.
+        """
+        b = boxes.shape[0]
+        out_boxes, out_classes, out_mask = [], [], []
+        for anchor_level in self.boxes_on(boxes.device):
+            shape = anchor_level.shape[:-1]
+            anchors = anchor_level.reshape(-1, 4)                                 # (N, 4)
+            iou = iou_yxyx(anchors[None, :, None, :], boxes[:, None, :, :])       # (B, N, M)
+            iou = torch.where(valid[:, None, :], iou, torch.full_like(iou, -1.0))
+            iou_max = torch.amax(iou, dim=-1)
+            iou_index = torch.argmax(iou, dim=-1)                       # the first maximum
+            mask = (iou_max >= iou_threshold)[..., None]                          # (B, N, 1)
+            boxes_level = self._boxes_encoder(anchors, gather_rows(boxes, iou_index))
+            boxes_level = torch.where(mask, boxes_level, torch.zeros_like(boxes_level))
+            classes_level = torch.gather(classes.long(), 1, iou_index)
+            classes_level = torch.where(mask[..., 0], classes_level,
+                                        torch.zeros_like(classes_level))
+            onehot = torch.nn.functional.one_hot(classes_level, classes_num).to(torch.float32)
+            out_boxes.append(boxes_level.reshape(b, *shape, 4))
+            out_classes.append(onehot.reshape(b, *shape, classes_num))
+            out_mask.append(mask.reshape(b, *shape, 1))
+        return tuple(out_boxes), tuple(out_classes), tuple(out_mask)
+
     # ------------------------------------------------------------------ decode
     def convert_outputs_boxes(self, outputs_boxes):
         """Decode per-level ``(B, h, w, A, 4)`` regressions to yxyx boxes."""
@@ -165,6 +207,20 @@ class Anchors:
         h = boxes[..., 2] - boxes[..., 0]
         w = boxes[..., 3] - boxes[..., 1]
         return ycenter, xcenter, h, w
+
+    def _boxes_encoder(self, anchors, boxes):
+        """yxyx boxes → (ty, tx, th, tw) relative to anchors."""
+        ycenter_a, xcenter_a, ha, wa = self._center_sizes(anchors)
+        ycenter, xcenter, h, w = self._center_sizes(boxes)
+        ha = torch.clamp_min(ha, EPSILON)
+        wa = torch.clamp_min(wa, EPSILON)
+        h = torch.clamp_min(h, EPSILON)
+        w = torch.clamp_min(w, EPSILON)
+        tx = (xcenter - xcenter_a) / wa
+        ty = (ycenter - ycenter_a) / ha
+        tw = torch.log(w / wa)
+        th = torch.log(h / ha)
+        return torch.stack([ty, tx, th, tw], dim=-1)
 
     def _boxes_decoder(self, anchors, rel_codes):
         """(ty, tx, th, tw) → yxyx boxes."""

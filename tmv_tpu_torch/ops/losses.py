@@ -1,11 +1,15 @@
 """Losses of the port's training paths.
 
-Port of ``tmv_tpu/ops/losses.py``, so far only ``sigmoid_cross_entropy`` (the
-YOLO loss's). Focal, Huber and the rest come with the EfficientDet-D0 and
-FaceNet training slices.
+Port of ``tmv_tpu/ops/losses.py``: ``sigmoid_cross_entropy`` (the YOLO loss's)
+and EfficientDet's ``focal_loss``, ``huber``, ``box_loss``, ``class_focal_loss``
+and ``l2_regularization``, in the JAX package's operation order. The other
+families' losses (focus, triplet, InfoNCE) come with their slices.
 """
 
+from typing import Sequence
+
 import torch
+import torch.nn as nn
 
 
 def sigmoid_cross_entropy(labels: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
@@ -17,3 +21,64 @@ def sigmoid_cross_entropy(labels: torch.Tensor, logits: torch.Tensor) -> torch.T
     abs_logits = torch.where(logits >= 0, logits, -logits)
     return (torch.maximum(logits, torch.zeros_like(logits)) - logits * labels
             + torch.log1p(torch.exp(-abs_logits)))
+
+
+def focal_loss(y_true: torch.Tensor, y_pred_logits: torch.Tensor, normalizer,
+               alpha: float = 0.25, gamma: float = 1.5,
+               label_smoothing: float = 0.0) -> torch.Tensor:
+    """Elementwise α/γ sigmoid focal loss divided by ``normalizer``; the
+    modulating factors use the unsmoothed labels. The caller reduces."""
+    pred_prob = torch.sigmoid(y_pred_logits)
+    p_t = y_true * pred_prob + (1 - y_true) * (1 - pred_prob)
+    alpha_factor = y_true * alpha + (1 - y_true) * (1 - alpha)
+    modulating_factor = (1.0 - p_t) ** gamma
+    y_smooth = y_true * (1.0 - label_smoothing) + 0.5 * label_smoothing
+    ce = sigmoid_cross_entropy(y_smooth, y_pred_logits)
+    return alpha_factor * modulating_factor * ce / normalizer
+
+
+def huber(y_true: torch.Tensor, y_pred: torch.Tensor, delta: float) -> torch.Tensor:
+    """Elementwise Huber loss: quadratic below ``delta``, linear above."""
+    err = y_pred - y_true
+    abs_err = torch.abs(err)
+    return torch.where(abs_err <= delta, 0.5 * torch.square(err),
+                       delta * abs_err - 0.5 * delta**2)
+
+
+def box_loss(box_targets: torch.Tensor, box_outputs: torch.Tensor, num_positives,
+             delta: float = 0.1) -> torch.Tensor:
+    """Huber box regression over the nonzero targets / (4 · num_positives). The
+    mask is elementwise ``box_targets != 0``, as in the reference: a positive's
+    coordinate that encodes to exactly 0 drops out too."""
+    normalizer = num_positives * 4.0
+    mask = (box_targets != 0.0).to(box_outputs.dtype)
+    return torch.sum(huber(box_targets, box_outputs, delta) * mask) / normalizer
+
+
+def class_focal_loss(class_targets: Sequence[torch.Tensor],
+                     class_outputs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
+                     alpha: float, gamma: float, label_smoothing: float = 0.0) -> torch.Tensor:
+    """Multi-level focal loss, each level's sum divided by its positives per
+    image (``sum(mask) / batch``), a level without positives adding 0."""
+    total = 0.0
+    for targets, outputs, mask in zip(class_targets, class_outputs, masks):
+        normalizer = torch.sum(mask.to(torch.float32)) / float(mask.shape[0])
+        per_elem = focal_loss(targets, outputs, 1.0, alpha=alpha, gamma=gamma,
+                              label_smoothing=label_smoothing)
+        safe = torch.where(normalizer == 0, torch.ones_like(normalizer), normalizer)
+        total = total + torch.where(normalizer == 0, torch.zeros_like(normalizer),
+                                    torch.sum(per_elem) / safe)
+    return total
+
+
+def regularized_weights(model: nn.Module):
+    """The conv and dense kernels of ``model``: the leaves the JAX package's
+    ``l2_regularization`` selects by name (``kernel``) in the flax tree. In torch
+    a BatchNorm's scale is also named ``weight``, so the selection is by module
+    type: no BatchNorm scale, no bias, no BiFPN ``WSM`` weight."""
+    return [m.weight for m in model.modules() if isinstance(m, (nn.Conv2d, nn.Linear))]
+
+
+def l2_regularization(model: nn.Module, weight_decay: float) -> torch.Tensor:
+    """``weight_decay · Σ w²`` over ``regularized_weights(model)``."""
+    return weight_decay * sum(torch.sum(torch.square(w)) for w in regularized_weights(model))

@@ -1,8 +1,9 @@
-"""Host-side image helpers that serving uses (PIL and numpy).
+"""Host-side image helpers of serving and the EfficientDet pipeline (PIL, numpy).
 
-The port's own copy of the serving half of ``tmv_tpu/utils/image_helper.py``:
-base64/bytes/array conversions, the proportional letterbox resize and box
-drawing. Images are numpy RGB uint8 ``(H, W, 3)``.
+The port's own copy of part of ``tmv_tpu/utils/image_helper.py``: base64/bytes/
+array conversions, the proportional letterbox resize, box drawing, and the
+host augmentation's ``blur`` and ``random_noise``. Images are numpy RGB uint8
+``(H, W, 3)``.
 """
 
 import base64
@@ -10,7 +11,7 @@ import io
 from typing import Sequence, Tuple
 
 import numpy as np
-from PIL import Image, ImageDraw
+from PIL import Image, ImageDraw, ImageFilter
 
 
 # ----------------------------------------------------------------- conversions
@@ -76,6 +77,21 @@ def proportional_resize(
         pts = np.asarray(points, np.float64)
         new_points = pts / ratio + np.asarray([pad_left, pad_top])
     return out, new_points, (pad_top, pad_bottom, pad_left, pad_right)
+
+
+# ----------------------------------------------------------------- augmentation
+def random_noise(img: np.ndarray, rng: np.random.Generator, amount: float = 0.02) -> np.ndarray:
+    """Salt-and-pepper style noise: ``amount`` of the pixels get a random RGB."""
+    out = img.copy()
+    mask = rng.uniform(size=img.shape[:2]) < amount
+    out[mask] = rng.integers(0, 256, size=(mask.sum(), 3), dtype=np.uint8)
+    return out
+
+
+def blur(img: np.ndarray, radius: float = 1.5) -> np.ndarray:
+    """PIL Gaussian blur of ``radius``."""
+    return np.asarray(
+        Image.fromarray(np.asarray(img, np.uint8)).filter(ImageFilter.GaussianBlur(radius)))
 
 
 # --------------------------------------------------------------------- drawing

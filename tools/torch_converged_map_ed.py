@@ -1,0 +1,91 @@
+"""Train EfficientDet-D0 to convergence through the PyTorch port's CLIs and score it.
+
+The recipe of the JAX package's ``converged_map_ed.json`` (written by
+``tools/e2e_converged_map_ed.py``): the synthetic set of ``make_dataset`` (seed 7;
+256 images of 512 x 512 on disk, 4 colour classes, 1-6 boxes each, white
+distractors), EfficientDet-D0 at 512 with the dataset's 4 classes + background,
+batch 16, SGD with momentum 0.9 on the cosine schedule (peak 0.08 · 16 / 64,
+one epoch of warmup), 40 epochs of 100 steps (4,000 steps), ``--deviceAug``,
+float32, no early stop; then ``tmv_tpu_torch.cli.eval_map --family
+efficientdet`` in the four float passes of the JAX artifact. It writes
+``mAP_ref_per_batch``, ``mAP_ref_global``, ``mAP_voc_global``,
+``mAP_coco_global``, the times and the card's name and power limit to
+``converged_map_ed_torch.json`` (or ``--out``).
+
+    python tools/torch_converged_map_ed.py [--out path.json] [--workDir dir]
+
+It runs on the card (``--device cuda``). The JAX run staged through its cache
+(``--cacheDir``), which changes no pixel; the port has no cache and stages
+every batch. The int8 pass of the JAX artifact is not ported.
+"""
+
+import argparse
+import contextlib
+import io
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+# the JAX artifact's recipe (tools/e2e_converged_map.py reads these at import)
+RECIPE = {"TMV_CMAP_N": "256", "TMV_CMAP_SIZE": "512", "TMV_CMAP_HW": "512"}
+EPOCHS, STEPS_PER_EPOCH, BATCH = 40, 100, 16
+PASSES = [("batch", "reference", "mAP_ref_per_batch"), ("global", "reference", "mAP_ref_global"),
+          ("global", "voc", "mAP_voc_global"), ("global", "coco", "mAP_coco_global")]
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--out", default=os.path.join(ROOT, "converged_map_ed_torch.json"))
+    p.add_argument("--workDir", default=None, help="dataset and checkpoints (default: a temp dir)")
+    args = p.parse_args(argv)
+    os.environ.update(RECIPE)
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from e2e_converged_map import HW, N_IMAGES, SIZE, make_dataset
+
+    import torch
+
+    from tmv_tpu_torch.cli import eval_map, train_efficientdet
+
+    t0 = time.time()
+    root = args.workDir or tempfile.mkdtemp(prefix="tmv_torch_converged_ed_")
+    make_dataset(root)
+    ckpt = os.path.join(root, "weights_d0")
+    files = ["--modelName", "efficientdet-d0", "--classesFile", os.path.join(root, "classes.txt"),
+             "--imageSize", str(SIZE)]
+    train = train_efficientdet.main(files + [
+        "--trainData", os.path.join(root, "labels.txt"),
+        "--trainImagePath", os.path.join(root, "imgs"), "--batchSize", str(BATCH),
+        "--stepsPerEpoch", str(STEPS_PER_EPOCH), "--epochs", str(EPOCHS), "--deviceAug",
+        "--modelPath", ckpt, "--earlyStopPatience", "0"])
+    train_sec = time.time() - t0
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    result = {"n_images": N_IMAGES, "train_steps": train["step"], "image_size": SIZE,
+              "image_hw_on_disk": HW, "device_aug": True, "batch_size": BATCH,
+              "model": "efficientdet-d0", "dtype": "float32",
+              "tf32_convolutions": torch.backends.cudnn.allow_tf32, "port": "tmv_tpu_torch",
+              "card": card}
+    for mode, variant, key in PASSES:
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = eval_map.main(files + [
+                "--family", "efficientdet", "--imagePath", os.path.join(root, "imgs"),
+                "--labelFile", os.path.join(root, "labels.txt"), "--modelPath", ckpt,
+                "--mode", mode, "--variant", variant, "--batchSize", str(BATCH)])
+        result[key] = out["mAP"]
+    result["train_sec"] = train_sec
+    result["wall_sec"] = time.time() - t0
+    result["converged"] = bool(result["mAP_ref_global"] > 0.5)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps(result), flush=True)
+
+
+if __name__ == "__main__":
+    main()
