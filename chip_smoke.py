@@ -7,7 +7,8 @@ Drives the port's two main paths through their entry points, through the two
 hand-written CUDA kernels: YOLOv4 @640 (80 classes, full width) and
 EfficientDet-D0 @512 (81 classes, full width and depth), each predicting and
 served at ``POST /ai_api/object_detection/predict``, on seeded random weights;
-then each model's trainer and eval CLI.
+then each model's trainer and eval CLI; then YOLOv3 @416 and the ResNet50V2
+YOLO tower (phases 15-17), whose IoU NMS goes through the same sweep kernel.
 Phases, each printing its own lines:
 
 1. environment: torch/CUDA/nvcc versions and the card (nvidia-smi);
@@ -82,11 +83,33 @@ Phases, each printing its own lines:
     1), through both kernels (16 depthwise launches per forward, one sweep per
     batch, counted), then with the plain sweep (identical kept rows, equal mAPs)
     and with the plain sweep and the plain depthwise (kept rows of the same count
-    and classes, boxes within 1e-3 px, scores within 1e-5, equal mAPs).
+    and classes, boxes within 1e-3 px, scores within 1e-5, equal mAPs);
+15. the YOLOv3 and ResNetYoloV3 slices (80 classes @416, f32 with TF32 off,
+    B = 4, IoU NMS): detections identical with the NMS kernel and with the plain
+    sweep, every image keeping boxes out of more valid candidates, and the card's
+    heads within 1e-4·max|ref| of the CPU forward;
+16. YOLOv3 serving: the port's server with ``--version v3 --bf16 --imageSize
+    416`` answers 10 seeded JPEGs through the NMS kernel; the b1 image→boxes
+    p50, the b16 images/s, the served p50 and the stage times at b1 and b16;
+17. YOLOv3 from Darknet weights: the seeded v3 written as a ``.weights`` stream
+    (``save_darknet_weights``), converted by ``cli/convert_darknet.py`` into a
+    checkpoint directory that loads back to the same state_dict exactly;
+    ``cli/train_yolo.py --version v3 --bf16 --darknetWeights … --warmupSteps
+    10`` for two epochs of 10 steps at b8 @416 (after the warm-up every
+    parameter outside ``DarknetConv_0/1/2`` is bit-equal to the stream, the
+    output convs and every BatchNorm statistic have moved; the main phase starts
+    at step 0 with a fresh Adam); an overfit of one fixed batch (30 steps must
+    halve the raw loss); one float32 step against float64 by phase 11's rule;
+    ``cli/eval_map.py --version v3`` in both modes on the trained and on the
+    converted checkpoint directory (its own labels: mAP strictly between 0 and
+    1), kernel and plain sweep (equal mAPs, identical kept rows); and the port's
+    server on the trained checkpoint directory answering one request.
 
 The serving weights are seeded (``--randomInit --seed 0`` of each family), adjusted so
 that NMS has real work: YOLOv4's three output convs' box rows are scaled by
-1e-4 (unscaled, the heads reach |z| ~ 1e4 at 640 and decode to no valid box);
+1e-4 (unscaled, the heads reach |z| ~ 1e4 at 640 and decode to no valid box),
+YOLOv3's and ResNetYoloV3's by the power of ten that brings a seeded image's
+largest box logit to at most 1 (phase 15 prints it);
 D0's class predict bias is raised from the focal prior −4.6 to +1.0 for the 80
 foreground classes (at −4.6 every raw logit stays below the 1e-4 threshold and
 nothing enters NMS). The card's name and power limit stand beside every number.
@@ -100,6 +123,7 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -123,6 +147,10 @@ TRAIN_SET = 64
 VAL_SET = 16
 OVERFIT_STEPS = 30
 D0_TRAIN_BATCH = 16
+V3_IMAGE = 416
+V3_STEPS_PER_EPOCH = 10
+V3_WARMUP = 10
+V3_PREDICT_KW = dict(confidence_thresh=0.5, scores_thresh=0.2, iou_thresh=0.5, iou_type="iou")
 D0_OVERFIT_LR = 0.05
 NMS_SOURCE = "tmv_tpu_torch/csrc/nms_sweep.cu"
 NMS_REPLACES = "tmv_tpu/kernels/nms_pallas.py:90"
@@ -148,6 +176,7 @@ DW_EDGE_CASES = [(1, 15, 9, 4, 3, 1), (1, 13, 11, 4, 5, 2), (5, 15, 9, 4, 3, 1),
                  (2, 9, 7, 6, 5, 1), (2, 9, 7, 6, 3, 2), (1, 19, 21, 144, 5, 1),
                  (2, 23, 17, 240, 3, 2), (1, 1, 1, 240, 5, 1), (3, 9, 10, 24, 5, 2),
                  (1, 31, 29, 144, 5, 2), (2, 10, 9, 4, 5, 1), (1, 33, 35, 6, 5, 2)]
+YOLO_NAMES = {"v4": "YOLOv4", "v3": "YOLOv3", "resnet": "ResNetYoloV3"}
 COCO_CLASSES = (
     "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train", "truck", "boat",
     "traffic light", "fire hydrant", "stop sign", "parking meter", "bench", "bird", "cat",
@@ -623,34 +652,34 @@ def stage_times(images, predict, forward, post, reps):
                 "whole": host_ms(lambda: predict(None, images), reps)}
 
 
-def yolo_stage_times(model, batch, reps=20):
+def yolo_stage_times(model, batch, reps=20, size=IMAGE, predict_kw=PREDICT_KW):
     from tmv_tpu_torch.models.detector_harness import make_yolo_predict_batched
     from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS
     from tmv_tpu_torch.ops.yolo import nms_boxes_batched
 
-    images = np.random.default_rng(4).uniform(0, 1, (batch, IMAGE, IMAGE, 3)).astype(np.float32)
-    predict = make_yolo_predict_batched(model, (IMAGE, IMAGE), COCO_ANCHORS, 80, **PREDICT_KW)
+    images = np.random.default_rng(4).uniform(0, 1, (batch, size, size, 3)).astype(np.float32)
+    predict = make_yolo_predict_batched(model, (size, size), COCO_ANCHORS, 80, **predict_kw)
 
     def post(heads):
-        out = nms_boxes_batched(heads, COCO_ANCHORS, (IMAGE, IMAGE), 80, **PREDICT_KW)
+        out = nms_boxes_batched(heads, COCO_ANCHORS, (size, size), 80, **predict_kw)
         return [out[i] for i in (0, 1, 2, 5)]
 
     return stage_times(images, predict, model, post, reps)
 
 
-def phase_numbers(card, model, model_f32, served_p50):
-    import torch
-
+def yolo_speed(model, size, predict_kw):
+    """(b1 image→boxes p50 ms over 50 runs, host numpy in and out; b16 batched
+    predictor images/s over 10 batches), bf16 or as the model is."""
     from tmv_tpu_torch.models.detector_harness import (
         make_yolo_predict, make_yolo_predict_batched,
     )
     from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS
 
     rng = np.random.default_rng(3)
-    one = rng.uniform(0, 1, (1, IMAGE, IMAGE, 3)).astype(np.float32)
-    sixteen = rng.uniform(0, 1, (16, IMAGE, IMAGE, 3)).astype(np.float32)
-    predict = make_yolo_predict(model, (IMAGE, IMAGE), COCO_ANCHORS, 80, **PREDICT_KW)
-    batched = make_yolo_predict_batched(model, (IMAGE, IMAGE), COCO_ANCHORS, 80, **PREDICT_KW)
+    one = rng.uniform(0, 1, (1, size, size, 3)).astype(np.float32)
+    sixteen = rng.uniform(0, 1, (16, size, size, 3)).astype(np.float32)
+    predict = make_yolo_predict(model, (size, size), COCO_ANCHORS, 80, **predict_kw)
+    batched = make_yolo_predict_batched(model, (size, size), COCO_ANCHORS, 80, **predict_kw)
     for _ in range(5):
         predict(None, one)
     latencies = []
@@ -664,8 +693,13 @@ def phase_numbers(card, model, model_f32, served_p50):
     reps = 10
     for _ in range(reps):
         batched(None, sixteen)
-    ips = 16 * reps / (time.perf_counter() - t0)
-    b1 = statistics.median(latencies)
+    return statistics.median(latencies), 16 * reps / (time.perf_counter() - t0)
+
+
+def phase_numbers(card, model, model_f32, served_p50):
+    import torch
+
+    b1, ips = yolo_speed(model, IMAGE, PREDICT_KW)
     print(f"phase 6 numbers on [{card}]: YOLOv4 80 classes bf16 @{IMAGE}: "
           f"b1 image->boxes p50 {b1:.2f} ms (host numpy in, host numpy out, 50 runs); "
           f"b16 batched predictor {ips:.1f} images/s; served p50 {served_p50:.2f} ms", flush=True)
@@ -966,8 +1000,9 @@ def write_train_set(root):
         ("classes", "classes.txt"), ("anchors", "anchors.txt"))}
 
 
-def train_setup(files, dtype, device, seed=0):
-    """The CLI's model, optimizer, train state, loss and step at 416."""
+def train_setup(files, dtype, device, seed=0, version="v4"):
+    """The CLI's model, optimizer, train state, loss and step at 416 (v4's
+    loss with CIoU, v3's with IoU)."""
     import torch
 
     from tmv_tpu_torch.core.train_state import TrainState, make_train_step
@@ -976,12 +1011,13 @@ def train_setup(files, dtype, device, seed=0):
     from tmv_tpu_torch.models.layers.common import init_weights
 
     anchors = load_anchors(files["anchors"])
-    model, _ = build_yolo_model("v4", 80, dtype=dtype, device=device,
+    model, _ = build_yolo_model(version, 80, dtype=dtype, device=device,
                                 param_dtype=torch.float32)
     init_weights(model, seed)
     model = model.to(memory_format=torch.channels_last)
     state = TrainState.create(model, torch.optim.Adam(model.parameters(), lr=5e-4))
-    loss_fn = make_yolo_loss_fn((TRAIN_IMAGE, TRAIN_IMAGE), anchors, iou_type="ciou")
+    loss_fn = make_yolo_loss_fn((TRAIN_IMAGE, TRAIN_IMAGE), anchors,
+                                iou_type="ciou" if version == "v4" else "iou")
     return state, loss_fn, make_train_step(loss_fn, shadow_loss=True), anchors
 
 
@@ -1124,10 +1160,10 @@ def rel_l2(got, want):
     return (num / den) ** 0.5, worst
 
 
-def phase_train_f32(card, files, anchors):
+def phase_train_f32(card, files, anchors, version="v4", phase=11):
     """One float32 step (TF32 off) on the card and on the CPU from one state_dict
     and one batch at 416, B = 2, beside the same step in float64 on the CPU.
-    Train-mode BatchNorm at random init amplifies rounding through YOLOv4's 107
+    Train-mode BatchNorm at random init amplifies rounding through the ~75-107
     layers, so float32 gradients (the CPU's too) sit far from the float64 ones;
     the card must be as close to float64 as the CPU's float32 is (within 2x,
     plus 1e-4) and agree with the CPU on the loss within 1e-3."""
@@ -1146,7 +1182,7 @@ def phase_train_f32(card, files, anchors):
     results = {}
     for name, device, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
                                 ("cpu f64", "cpu", torch.float64)):
-        state, loss_fn, _, _ = train_setup(files, torch.float32, device, seed=2)
+        state, loss_fn, _, _ = train_setup(files, torch.float32, device, seed=2, version=version)
         model = state.model.to(dtype).train()
         model.dtype = dtype
         on = {"image": batch["image"].to(check_device(device), dtype),
@@ -1163,7 +1199,8 @@ def phase_train_f32(card, files, anchors):
     check(loss_rel <= 1e-3, f"f32 loss card {card_loss} vs CPU {cpu_loss}")
     check(card_err[0] <= 2 * cpu_err[0] + 1e-4 and card_err[1] <= 2 * cpu_err[1] + 1e-4,
           f"f32 gradients: card vs float64 {card_err}, CPU vs float64 {cpu_err}")
-    print(f"phase 11 f32 step card vs CPU (TF32 off, YOLOv4 80 classes @{TRAIN_IMAGE} B=2, one "
+    print(f"phase {phase} f32 step card vs CPU (TF32 off, {YOLO_NAMES[version]} 80 classes "
+          f"@{TRAIN_IMAGE} B=2, one "
           f"state_dict and batch, train mode): loss card {card_loss:.4f}, CPU {cpu_loss:.4f} "
           f"(relative {loss_rel:.3g}, tolerance 1e-3), CPU float64 {ref_loss:.4f}; gradients' "
           f"relative L2 error (overall, worst of {len(ref_g)} tensors) against the CPU float64 "
@@ -1677,6 +1714,336 @@ def phase_d0_eval(card, files, ckpt, seeded_pt):
     return launches
 
 
+# ---------------------------------------------------------------- YOLOv3 family
+
+def seeded_v3(version, device):
+    """``--randomInit --seed 0`` weights of YOLOv3 or ResNetYoloV3 (80 classes,
+    f32, eval mode) with the output convs' box rows scaled by the power of ten
+    that brings the largest box logit of a seeded 416 image to at most 1:
+    unscaled, the width/height logits overflow ``exp`` and no candidate decodes
+    to a valid box. Returns (model, iou_type, the factor, the unscaled largest
+    box logit)."""
+    import torch
+
+    from tmv_tpu_torch.models.detector_harness import build_yolo_model
+    from tmv_tpu_torch.models.layers.common import init_weights
+
+    model, iou_type = build_yolo_model(version, 80, device=device)
+    init_weights(model, 0)
+    model = model.to(memory_format=torch.channels_last).eval()
+    image = np.random.default_rng(20).uniform(0, 1, (1, V3_IMAGE, V3_IMAGE, 3))
+    heads = [model.DarknetConv_0, model.DarknetConv_1, model.DarknetConv_2]
+    with torch.inference_mode():
+        out = model(torch.from_numpy(image.astype(np.float32)).to(device))
+        box_max = max(float(h.float().reshape(*h.shape[:3], 3, 85)[..., :4].abs().max())
+                      for h in out)
+    factor = 10.0 ** -np.ceil(np.log10(box_max)) if box_max > 1 else 1.0
+    with torch.no_grad():
+        for head in heads:
+            rows = torch.arange(head.Conv_0.out_channels) % 85 < 4
+            head.Conv_0.weight[rows] *= factor
+            head.Conv_0.bias[rows] *= factor
+    return model, iou_type, factor, box_max
+
+
+def phase_v3_slice(card):
+    """Phase 15: the YOLOv3 and ResNetYoloV3 slices at 416, f32 with TF32 off,
+    B = 4: the batched predictor with the NMS kernel (IoU variant) and with the
+    plain sweep give identical detections on a seeded load that gives NMS real
+    work, and the card's heads agree with the CPU forward of the same
+    state_dict. Returns the seeded v3 weights' path."""
+    import torch
+
+    from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep_reference
+    from tmv_tpu_torch.models.detector_harness import (
+        build_yolo_model, make_yolo_predict_batched,
+    )
+    from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS
+    from tmv_tpu_torch.ops.yolo import decode_boxes
+
+    torch.backends.cudnn.deterministic = True
+    paths = {}
+    for version in ("v3", "resnet"):
+        name = YOLO_NAMES[version]
+        model, iou_type, factor, box_max = seeded_v3(version, "cuda")
+        check(iou_type == "iou", f"{name} predicts with IoU NMS")
+        paths[version] = os.path.join(WORK, f"{version}_seed0.pt")
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()}, paths[version])
+        images = np.random.default_rng(21).uniform(0, 1, (4, V3_IMAGE, V3_IMAGE, 3))
+        images = images.astype(np.float32)
+        predict = make_yolo_predict_batched(model, (V3_IMAGE, V3_IMAGE), COCO_ANCHORS, 80,
+                                            **V3_PREDICT_KW)
+        got = predict(None, images)
+        with mock.patch("tmv_tpu_torch.ops.nms.greedy_sweep", greedy_sweep_reference):
+            want = predict(None, images)
+        for g, w, what in zip(got, want, ("boxes", "ids", "scores", "valid")):
+            check(np.array_equal(g, w), f"{name} slice {what} differ between kernel and plain")
+        boxes, ids, scores, valid = got
+        check(boxes.shape == (4, 500, 4) and valid.shape == (4, 500),
+              f"{name} predictor output shapes")
+        check((valid.sum(1) >= 1).all(), f"a {name} image kept no box")
+        check(np.isfinite(boxes[valid]).all() and np.isfinite(scores[valid]).all(),
+              f"non-finite {name} detections")
+        check(((ids[valid] >= 0) & (ids[valid] < 80)).all(), f"{name} class ids out of range")
+        with torch.inference_mode():
+            heads = model(torch.from_numpy(images).cuda())
+            card_heads = [h.float().cpu().numpy() for h in heads]
+            eligible = torch.zeros(4, dtype=torch.long)
+            for h, anchors in zip(heads, COCO_ANCHORS):
+                wh = torch.as_tensor(anchors / V3_IMAGE, dtype=torch.float32, device=h.device)
+                _, conf, probs, ok = decode_boxes(h.float().reshape(*h.shape[:3], 3, 85), wh, 80)
+                ok = ok & (conf > 0.5) & (probs.amax(-1) > 0.2)
+                eligible += ok.reshape(4, -1).sum(1).cpu()
+            eligible = eligible.tolist()
+        kept = valid.sum(1).tolist()
+        check(all(e > k for e, k in zip(eligible, kept)),
+              f"{name}: NMS suppressed nothing ({eligible} candidates, {kept} kept)")
+        print(f"phase 15 slice: {name} 80 classes @{V3_IMAGE} f32 B=4, IoU NMS: kernel and "
+              f"plain sweep give identical detections, kept per image {kept} of "
+              f"{eligible} valid candidates above the thresholds (the pre-NMS top-k takes "
+              f"1024); "
+              f"seeded load: box rows of the three output convs x {factor:g} (largest box "
+              f"logit of a seeded image {box_max:.3g} unscaled) on [{card}]", flush=True)
+        cpu_model, _ = build_yolo_model(version, 80, device="cpu")
+        cpu_model.load_state_dict(torch.load(paths[version], weights_only=True), strict=True)
+        with torch.inference_mode():
+            cpu_heads = [h.numpy() for h in cpu_model.eval()(torch.from_numpy(images[:1]))]
+        rel = max(float(np.abs(g[:1] - w).max() / np.abs(w).max())
+                  for g, w in zip(card_heads, cpu_heads))
+        check(rel <= 1e-4, f"{name} card heads differ from the CPU forward: {rel:.3g}")
+        print(f"phase 15 slice: {name} card heads vs CPU forward of the same state_dict: "
+              f"max |diff| = {rel:.3g}·max|ref| (tolerance 1e-4) on [{card}]", flush=True)
+        del model, cpu_model
+    torch.backends.cudnn.deterministic = False
+    return paths["v3"]
+
+
+def phase_v3_serving(card, weights):
+    """Phase 16: the port's server with ``--version v3 --bf16 --imageSize 416``
+    on the seeded weights answers 10 seeded JPEGs through the NMS kernel; then
+    the b1 image→boxes p50, the b16 images/s and the stage times at b1 and b16."""
+    from tmv_tpu_torch.cli import serve
+    from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS
+
+    classes_file, anchors_file = write_inputs(COCO_CLASSES, COCO_ANCHORS)
+    args = serve.parse_args(["--version", "v3", "--modelPath", weights, "--classesFile",
+                             classes_file, "--anchorsFile", anchors_file, "--imageSize",
+                             str(V3_IMAGE), "--bf16", "--device", "cuda"])
+    app, _, model = serve.build_app(args)
+    check(all(p.device.type == "cuda" for p in model.parameters()), "v3 model is not on cuda")
+    latencies, by_read, boxes_seen, launches = drive_server(app, 10, 5)
+    check(launches["nms_sweep"] >= len(latencies),
+          f"{launches['nms_sweep']} NMS launches for {len(latencies)} v3 requests")
+    p50 = statistics.median(latencies)
+    b1, ips = yolo_speed(model, V3_IMAGE, V3_PREDICT_KW)
+    print(f"phase 16 v3 serving: {len(latencies)} requests -> HTTP 200 with the reference keys, "
+          f"{boxes_seen} boxes; nms_sweep.launches {launches['nms_sweep']}; served p50 "
+          f"{p50:.2f} ms (read=0 {statistics.median(by_read[0]):.2f} ms, read=1 "
+          f"{statistics.median(by_read[1]):.2f} ms); numbers: YOLOv3 80 classes bf16 "
+          f"@{V3_IMAGE}: b1 image->boxes p50 {b1:.2f} ms (50 runs), b16 batched predictor "
+          f"{ips:.1f} images/s on [{card}]", flush=True)
+    for batch in (1, 16):
+        stages = yolo_stage_times(model, batch, size=V3_IMAGE, predict_kw=V3_PREDICT_KW)
+        print(f"phase 16 stages on [{card}]: YOLOv3 80 classes bf16 @{V3_IMAGE} b{batch}: "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()), flush=True)
+    return {"launches": launches["nms_sweep"], "p50": p50, "b1": b1, "ips": ips}
+
+
+def phase_v3_train(card, files, seeded_weights):
+    """Phase 17: the Darknet warm start, training, eval and serving of YOLOv3."""
+    import torch
+
+    from tmv_tpu_torch.cli import convert_darknet, serve, train_yolo
+    from tmv_tpu_torch.convert.darknet import save_darknet_weights
+    from tmv_tpu_torch.core.checkpoint import CheckpointManager, load_weights
+    from tmv_tpu_torch.data.yolo_pipeline import YoloDataPipeline
+    from tmv_tpu_torch.kernels import nms_sweep
+    from tmv_tpu_torch.models.detector_harness import build_yolo_model
+    from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS
+
+    # 1-2: the seeded v3 as a Darknet stream, converted to a checkpoint directory
+    source, _ = build_yolo_model("v3", 80, device="cuda")
+    source.load_state_dict(torch.load(seeded_weights, weights_only=True), strict=True)
+    stream = os.path.join(WORK, "yolov3_seed0.weights")
+    save_darknet_weights(source, stream, input_size=V3_IMAGE)
+    converted = os.path.join(WORK, "yolov3_converted")
+    convert_darknet.main(["--weights", stream, "--version", "v3", "--classesNum", "80",
+                          "--imageSize", str(V3_IMAGE), "--out", converted, "--device", "cuda"])
+    back, _ = build_yolo_model("v3", 80, device="cuda")
+    check(load_weights(back, converted) == 0, "the converted checkpoint is not at step 0")
+    want = {k: v for k, v in source.state_dict().items() if "num_batches" not in k}
+    got = back.state_dict()
+    check(all(torch.equal(got[k], v) for k, v in want.items()),
+          "the converted stream does not load back to the same state_dict")
+    print(f"phase 17 convert: save_darknet_weights wrote {os.path.getsize(stream)} bytes "
+          f"({len(want)} tensors of the seeded v3); cli/convert_darknet.py -> step-0 checkpoint "
+          f"directory; it loads back to the same state_dict exactly on [{card}]", flush=True)
+    del back
+
+    # 3: the CLI with the warm start; the module is read just after the warm-up
+    ckpt = os.path.join(WORK, "yolov3_train")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    warm = {}
+    warm_start = train_yolo.warm_start
+
+    def spy(model, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm_start(model, *args, **kwargs)
+        torch.cuda.synchronize()
+        warm["ms"] = (time.perf_counter() - t0) * 1e3 / V3_WARMUP
+        warm["state"] = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+
+    argv = ["--version", "v3", "--trainData", files["labels"], "--trainImagePath",
+            files["images"], "--valData", files["val"], "--valImagePath", files["images"],
+            "--classesFile", files["classes"], "--anchorsFile", files["anchors"],
+            "--imageSize", str(TRAIN_IMAGE), "--batchSize", str(TRAIN_BATCH), "--bf16",
+            "--stepsPerEpoch", str(V3_STEPS_PER_EPOCH), "--epochs", "2", "--lr", "5e-4",
+            "--darknetWeights", stream, "--warmupSteps", str(V3_WARMUP),
+            "--modelPath", ckpt, "--device", "cuda"]
+    nms_sweep.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(train_yolo, "warm_start", spy):
+        out = train_yolo.main(argv)
+    wall = time.perf_counter() - t0
+    val_launches = nms_sweep.launches
+    steps = 2 * V3_STEPS_PER_EPOCH
+    check(out["step"] == steps, f"the v3 CLI took {out['step']} steps")
+    check(val_launches >= 2 * VAL_SET, f"{val_launches} NMS launches in the v3 val passes")
+    head = ("DarknetConv_0.", "DarknetConv_1.", "DarknetConv_2.")
+    params = {n for n, _ in source.named_parameters()}
+    frozen = [n for n in params if not n.startswith(head)]
+    check(all(torch.equal(warm["state"][n], want[n].cpu()) for n in frozen),
+          "a frozen parameter moved in the warm-up")
+    check(all(not torch.equal(warm["state"][n], want[n].cpu()) for n in params - set(frozen)),
+          "an output conv did not move in the warm-up")
+    stats = [n for n in want if n.endswith(("running_mean", "running_var"))]
+    moved = sum(not torch.equal(warm["state"][n], want[n].cpu()) for n in stats)
+    check(moved == len(stats), f"{len(stats) - moved} BatchNorm statistics did not move")
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    check([r["step"] for r in records] == list(range(steps)), "the main phase did not start at 0")
+    saved = torch.load(CheckpointManager(ckpt).path(steps), map_location="cpu", weights_only=True)
+    adam_steps = {int(v["step"]) for v in saved["optimizer"]["state"].values()}
+    check(adam_steps == {steps}, f"the main Adam state did not start fresh: steps {adam_steps}")
+    host_step = statistics.median(r["step_time_s"] for r in records[steps // 4:]) * 1e3
+    print(f"phase 17 warm start: train_yolo --version v3 --bf16 --darknetWeights (the stream) "
+          f"--warmupSteps {V3_WARMUP}, then {steps} steps b{TRAIN_BATCH} @{TRAIN_IMAGE} in "
+          f"{wall:.1f} s; after the warm-up {len(frozen)} frozen parameters bit-equal to the "
+          f"stream, the {len(params) - len(frozen)} output-conv tensors moved, {moved} of "
+          f"{len(stats)} BatchNorm statistics moved; warm-up {warm['ms']:.2f} ms per step "
+          f"(host clock, pipeline included); main phase from step 0 with a fresh Adam (step "
+          f"count {steps} at the end), raw loss first {records[0]['raw_loss']:.2f}, last "
+          f"{records[-1]['raw_loss']:.2f}, host step p50 {host_step:.2f} ms; val mAP "
+          f"{[round(m, 4) for m in out['val_mAP']]}; nms_sweep.launches {val_launches} on "
+          f"[{card}]", flush=True)
+
+    # 4: an overfit of one fixed batch
+    state, _, step, anchors = train_setup(files, torch.bfloat16, "cuda", seed=1, version="v3")
+    pipeline = YoloDataPipeline(files["images"], files["labels"], files["classes"],
+                                TRAIN_BATCH, anchors, image_wh=(TRAIN_IMAGE, TRAIN_IMAGE),
+                                prefetch=0, device="cuda")
+    batches = iter(pipeline)
+    batch = next(batches)
+    batches.close()
+    for _ in range(3):
+        step(state, batch)
+    step_ms = cuda_ms(lambda: step(state, batch), 5)
+    state, _, step, _ = train_setup(files, torch.bfloat16, "cuda", seed=1, version="v3")
+    overfit = [float(step(state, batch)["raw_loss"]) for _ in range(OVERFIT_STEPS)]
+    check(all(np.isfinite(overfit)), "non-finite loss in the v3 overfit")
+    check(overfit[-1] <= overfit[0] / 2,
+          f"overfitting one batch (v3): raw loss {overfit[0]:.2f} -> {overfit[-1]:.2f}")
+    print(f"phase 17 overfit of one fixed batch, {OVERFIT_STEPS} steps YOLOv3 bf16 lr 5e-4: raw "
+          f"loss {overfit[0]:.2f} -> {overfit[-1]:.2f} ({overfit[0] / overfit[-1]:.1f}x lower; "
+          f"required >= 2x); the step {step_ms:.2f} ms by CUDA events over 5 steps "
+          f"({TRAIN_BATCH * 1e3 / step_ms:.1f} images/s) on [{card}]", flush=True)
+    del state, batch
+
+    # 5: float32 against float64
+    f32 = phase_train_f32(card, files, anchors, version="v3", phase=17)
+
+    # 6: the eval CLI, kernel and plain sweep
+    eval_launches, kept = phase_v3_eval(card, files, ckpt, converted)
+
+    # 7: serve the trained checkpoint directory
+    classes_file, anchors_file = write_inputs(COCO_CLASSES, COCO_ANCHORS)
+    args = serve.parse_args(["--version", "v3", "--modelPath", ckpt, "--classesFile",
+                             classes_file, "--anchorsFile", anchors_file, "--imageSize",
+                             str(V3_IMAGE), "--bf16", "--device", "cuda"])
+    app, _, _ = serve.build_app(args)
+    latencies, _, boxes_seen, launches = drive_server(app, 1, 7)
+    check(launches["nms_sweep"] >= 1, "serving the trained v3 launched no NMS")
+    print(f"phase 17 serve: cli/serve.py --version v3 --modelPath {os.path.basename(ckpt)}/ "
+          f"(the trainer's checkpoint directory, step {steps}) answered 1 request in "
+          f"{latencies[0]:.2f} ms ({boxes_seen} boxes); nms_sweep.launches "
+          f"{launches['nms_sweep']} on [{card}]", flush=True)
+    return {"launches": val_launches + eval_launches + launches["nms_sweep"],
+            "val": val_launches, "eval": eval_launches, "serve": launches["nms_sweep"],
+            "warm_ms": warm["ms"], "step_ms": step_ms, "host_step": host_step, "f32": f32,
+            "kept": kept}
+
+
+def phase_v3_eval(card, files, ckpt, converted):
+    """``cli/eval_map.py --version v3`` in both modes, with the NMS kernel and
+    with the plain sweep: on the trained checkpoint directory against the set's
+    labels, and on the converted checkpoint directory (the seeded load) against
+    labels made from its own detections (mAP strictly between 0 and 1); equal
+    mAPs and identical kept rows."""
+    from tmv_tpu_torch.cli import eval_map
+    from tmv_tpu_torch.kernels import nms_sweep
+    from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep_reference
+
+    common = ["--family", "yolo", "--version", "v3", "--imagePath", files["images"],
+              "--classesFile", files["classes"], "--anchorsFile", files["anchors"],
+              "--imageSize", str(TRAIN_IMAGE), "--confidenceThresh", "0.2",
+              "--scoresThresh", "0.05", "--batchSize", "8", "--bf16", "--device", "cuda"]
+    trained = common + ["--modelPath", ckpt, "--labelFile", files["labels"]]
+    seeded = common + ["--modelPath", converted]
+    modes = ("batch", "global")
+
+    def evaluate(own_labels=None):
+        records, _ = eval_map.predict_records(eval_map.parse_args(trained))
+        seeded_records, _ = eval_map.predict_records(
+            eval_map.parse_args(seeded + ["--labelFile", files["labels"]]))
+        own_labels = own_labels or write_own_labels(files, seeded_records)
+        maps = {mode: eval_map.main(trained + ["--mode", mode]) for mode in modes}
+        own = {mode: eval_map.main(seeded + ["--mode", mode, "--labelFile", own_labels[0]])
+               for mode in modes}
+        return maps, records + seeded_records, own, own_labels
+
+    nms_sweep.launches = 0
+    maps, records, own, own_labels = evaluate()
+    launches = nms_sweep.launches
+    with mock.patch("tmv_tpu_torch.ops.nms.greedy_sweep", greedy_sweep_reference):
+        plain, plain_records, plain_own, _ = evaluate(own_labels)
+    batches = 6 * TRAIN_SET // 8
+    check(launches >= batches, f"{launches} NMS launches for {batches} v3 eval batches")
+    check(nms_sweep.launches == launches, "the plain sweep launched the kernel")
+    for name, got, want in (("trained", maps, plain), ("converted", own, plain_own)):
+        for mode in modes:
+            check(got[mode]["mAP"] == want[mode]["mAP"] and got[mode]["images"] == TRAIN_SET,
+                  f"v3 eval {mode} of the {name} model: kernel mAP {got[mode]['mAP']} vs "
+                  f"plain {want[mode]['mAP']}")
+    check(own_labels[1] > 0 and all(0 < own[mode]["mAP"] < 1 for mode in modes),
+          f"v3 eval on the converted model's own labels ({own_labels[1]} boxes): mAP "
+          f"{[own[m]['mAP'] for m in modes]} not in (0, 1)")
+    kept = [sum(len(r["prediction"]) for r in part)
+            for part in (records[:TRAIN_SET], records[TRAIN_SET:])]
+    check(kept[1] > 0, f"the converted v3 kept no box: {kept}")
+    check(all(a["prediction"] == b["prediction"] for a, b in zip(records, plain_records)),
+          "v3 kept rows differ between the kernel and the plain sweep")
+    print(f"phase 17 eval: tmv_tpu_torch.cli.eval_map --version v3, {TRAIN_SET} images "
+          f"@{TRAIN_IMAGE} bf16 b8: the trained checkpoint on the set's labels mAP batch "
+          f"{maps['batch']['mAP']:.4f}, global {maps['global']['mAP']:.4f} ({kept[0]} boxes "
+          f"kept); the converted checkpoint on its own labels ({own_labels[1]} of its kept "
+          f"boxes moved by up to 2 px, plus one missed box per image) batch "
+          f"{own['batch']['mAP']:.4f}, global {own['global']['mAP']:.4f} ({kept[1]} boxes "
+          f"kept); each equal with the plain sweep, kept rows identical; nms_sweep.launches "
+          f"{launches} on [{card}]", flush=True)
+    return launches, kept
+
+
 
 def main():
     import torch
@@ -1703,16 +2070,23 @@ def main():
     eval_launches = phase_eval(card, files, train["ckpt"])
     d0_train = phase_d0_train(card, files)
     d0_eval = phase_d0_eval(card, files, d0_train["ckpt"], d0_weights)
+    v3_weights = phase_v3_slice(card)
+    v3_serving = phase_v3_serving(card, v3_weights)
+    v3_train = phase_v3_train(card, files, v3_weights)
     nms_launches = (yolo_launches["nms_sweep"] + d0_launches["nms_sweep"]
-                    + train["val_launches"] + eval_launches + d0_eval["nms_sweep"])
+                    + train["val_launches"] + eval_launches + d0_eval["nms_sweep"]
+                    + v3_serving["launches"] + v3_train["launches"])
     dw_launches = d0_launches["dwconv_bn_swish"] + d0_eval["dwconv_bn_swish"]
     dw = dw_sums[64]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s on [{card}]; kernels "
           f"line: nms_sweep at N=1024 B=1 (ms: device time by CUDA graph, mask + scan "
-          f"kernels), launches over both served paths (YOLOv4 "
-          f"{yolo_launches['nms_sweep']}, D0 {d0_launches['nms_sweep']}), the trainer's val "
-          f"passes ({train['val_launches']}), the YOLOv4 eval CLI ({eval_launches}) and the D0 "
-          f"eval CLI ({d0_eval['nms_sweep']}); dwconv_bn_swish summed over the 16 launches of "
+          f"kernels), launches over the served paths (YOLOv4 "
+          f"{yolo_launches['nms_sweep']}, D0 {d0_launches['nms_sweep']}, YOLOv3 "
+          f"{v3_serving['launches']}), the YOLOv4 trainer's val passes "
+          f"({train['val_launches']}), the YOLOv4 eval CLI ({eval_launches}), the D0 eval CLI "
+          f"({d0_eval['nms_sweep']}), the YOLOv3 trainer's val passes ({v3_train['val']}), the "
+          f"YOLOv3 eval CLI ({v3_train['eval']}) and the YOLOv3 server on the trained "
+          f"checkpoint ({v3_train['serve']}); dwconv_bn_swish summed over the 16 launches of "
           f"one D0 bf16 forward at B=64, launches over the D0 served path "
           f"({d0_launches['dwconv_bn_swish']}) and the D0 eval CLI "
           f"({d0_eval['dwconv_bn_swish']})", flush=True)

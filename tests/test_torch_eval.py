@@ -202,19 +202,23 @@ def test_clis_refuse_unported_flags_and_need_a_card(tiny_set, capsys):
     root = tiny_set[0]
     train = ["--trainData", "l.txt", "--trainImagePath", "i", "--classesFile", "c.txt",
              "--anchorsFile", "a.txt"]
-    for extra in (["--version", "v3"], ["--darknetWeights", "x.weights"], ["--mosaic", "0.5"],
-                  ["--cacheDir", "c"], ["--remat"], ["--dp"], ["--sp", "2"], ["--tp", "2"],
-                  ["--fsdp"]):
+    for extra in (["--mosaic", "0.5"], ["--cacheDir", "c"], ["--remat"], ["--dp"],
+                  ["--sp", "2"], ["--tp", "2"], ["--fsdp"]):
         with pytest.raises(SystemExit):
             train_yolo.parse_args(train + extra)
         err = capsys.readouterr().err
         assert "not yet ported" in err and "ROADMAP" in err and extra[0] in err
     assert train_yolo.parse_args(train).device == "cuda"
-    for extra in (["--version", "v3"], ["--cacheDir", "c"], ["--int8Static"],
-                  ["--int8PerChannel"], ["--int8Margin", "0.5"]):
+    ported = train_yolo.parse_args(train + ["--version", "v3", "--darknetWeights", "x.weights",
+                                            "--warmupSteps", "5"])
+    assert (ported.version, ported.darknetWeights, ported.warmupSteps) == ("v3", "x.weights", 5)
+    for extra in (["--cacheDir", "c"], ["--int8Static"], ["--int8PerChannel"],
+                  ["--int8Margin", "0.5"]):
         with pytest.raises(SystemExit):
             eval_map.parse_args(cli_files(root) + extra)
         assert "not yet ported" in capsys.readouterr().err
+    for version in ("v3", "resnet"):
+        assert eval_map.parse_args(cli_files(root) + ["--version", version]).version == version
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             eval_map.main(cli_files(root))

@@ -9,6 +9,7 @@ equal the checkpoint's, transposed where the layouts differ.
 
 import importlib.util
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -70,3 +71,57 @@ def test_checkpoint_round_trips_into_the_port(tmp_path, rng):
     _, model = serve.build_service(args)
     served = model.state_dict()
     assert all(torch.equal(served[k], v) for k, v in exported.items())
+
+
+def _jax_checkpoint(path, flax_model, x0, rng, step=3):
+    shapes = jax.eval_shape(flax_model.init, jax.random.key(0), x0)
+    variables = jax.tree.map(np.asarray, seeded_variables(shapes, rng))
+    state = TrainState.create(variables["params"], variables["batch_stats"], optax.adam(1e-3))
+    mgr = CheckpointManager(str(path))
+    mgr.save(step, state.replace(step=jnp.asarray(step, jnp.int32)))
+    mgr.close()
+    return variables
+
+
+def test_efficientdet_and_v3_resnet_checkpoints_export_and_serve(tmp_path, rng):
+    """``--family efficientdet`` (D0 at 64 px, 2 classes + background, an Adam
+    checkpoint: ``restore_weights`` ignores the optimizer) and ``--version
+    v3``/``resnet``: every exported tensor equals the bridged checkpoint, and
+    ``cli/serve.py --modelPath`` loads the ``.pt`` strictly."""
+    from tmv_tpu.models.efficientdet import EfficientDetNet
+    from tmv_tpu.models.moco import ResNetYoloV3 as FlaxResNetYoloV3
+    from tmv_tpu.models.yolo_v3 import YoloV3 as FlaxYoloV3
+    from tmv_tpu_torch.convert.flax_bridge import flax_to_state_dict
+    from tmv_tpu_torch.models.efficientdet.harness import efficientdet_config
+
+    classes_file = tmp_path / "classes.txt"
+    classes_file.write_text("cat\ndog\n")
+    anchors_file = tmp_path / "anchors.txt"
+    anchors_file.write_text(",".join(str(int(v)) for v in COCO_ANCHORS[::-1].reshape(-1)))
+    x0 = jnp.zeros((1, 64, 64, 3))
+    cases = {
+        "efficientdet": (EfficientDetNet(config=efficientdet_config("efficientdet-d0", 3, 64)),
+                         ["--family", "efficientdet", "--modelName", "efficientdet-d0",
+                          "--imageSize", "64"],
+                         ["--family", "efficientdet", "--imageSize", "64"]),
+        "v3": (FlaxYoloV3(classes_num=2), ["--version", "v3"],
+               ["--version", "v3", "--anchorsFile", str(anchors_file), "--imageSize", "64"]),
+        "resnet": (FlaxResNetYoloV3(out_filters=21), ["--version", "resnet"],
+                   ["--version", "resnet", "--anchorsFile", str(anchors_file),
+                    "--imageSize", "64"]),
+    }
+    for name, (flax_model, export_args, serve_args) in cases.items():
+        variables = _jax_checkpoint(tmp_path / f"ckpt_{name}", flax_model, x0, rng)
+        out = tmp_path / f"{name}.pt"
+        load_tool().main(["--modelPath", str(tmp_path / f"ckpt_{name}"), "--classesFile",
+                          str(classes_file), "--out", str(out)] + export_args)
+        exported = torch.load(out, weights_only=True)
+        for key, value in flax_to_state_dict(variables).items():
+            assert torch.equal(exported[key], value), (name, key)
+        _, model = serve.build_service(serve.parse_args(
+            ["--modelPath", str(out), "--classesFile", str(classes_file), "--device", "cpu"]
+            + serve_args))
+        served = model.state_dict()
+        assert all(torch.equal(served[k], v) for k, v in exported.items()), name
+        shutil.rmtree(tmp_path / f"ckpt_{name}")     # ~250 MB each for the YOLOs
+        out.unlink()

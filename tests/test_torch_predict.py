@@ -9,7 +9,8 @@
   rtol 1e-5 / atol 1e-5.
 - The port's serve path (``tmv_tpu_torch.cli.serve.build_app``), driven
   in-process with a WSGI ``environ`` on ``--device cpu``.
-- Neither ``import tmv_tpu_torch`` nor building its servers (both families), nor
+- Neither ``import tmv_tpu_torch`` nor building its servers (both families; YOLO
+  v4, v3 and resnet), nor the converters, nor
   the trainer's and eval CLI's arguments, pipeline and train state, pulls in
   ``tmv_tpu``, jax or flax; the model factories default to the card.
 """
@@ -135,10 +136,12 @@ def test_serve_path_answers_the_reference_contract(tmp_path, rng, batch):
 def test_serve_refuses_unported_flags_and_missing_weights(tmp_path, capsys):
     base = _write_inputs(tmp_path)
     for extra in (["--int8"], ["--int8Static", "calib"], ["--dp", "2"], ["--spatial", "2"],
-                  ["--artifact", "a.tmvx"], ["--version", "v3"], ["--version", "resnet"]):
+                  ["--artifact", "a.tmvx"]):
         with pytest.raises(SystemExit):
             serve.parse_args(base + ["--randomInit"] + extra)
         assert "not yet ported" in capsys.readouterr().err
+    for version in ("v3", "resnet"):
+        assert serve.parse_args(base + ["--randomInit", "--version", version]).version == version
     with pytest.raises(SystemExit):
         serve.parse_args(base)                   # neither --modelPath nor --randomInit
     with pytest.raises(SystemExit):
@@ -155,10 +158,12 @@ def test_device_cuda_without_a_card_raises(tmp_path):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Every module of the package, a whole server build of each family, and the
-    trainers' and eval CLI's arguments, pipelines (EfficientDet's host and device
-    augmentation), train states and D0's loss at a tiny size leave ``tmv_tpu``
-    (and jax, flax, jaxlib) out of ``sys.modules``."""
+    """Every module of the package, a whole server build of each family (YOLO v4,
+    v3 and resnet, EfficientDet), the converters' call-order trace, a cfg net,
+    ``freeze_mask``, and the trainers', converter's and eval CLI's arguments,
+    pipelines (EfficientDet's host and device augmentation), train states and
+    D0's loss at a tiny size leave ``tmv_tpu`` (and jax, flax, jaxlib) out of
+    ``sys.modules``; h5py may be loaded."""
     yolo = _write_inputs(tmp_path) + ["--randomInit", "--imageSize", "32", "--device", "cpu",
                                       "--batch", "2"]
     det = _write_inputs(tmp_path)[:2] + ["--family", "efficientdet", "--randomInit",
@@ -187,6 +192,17 @@ def test_port_imports_no_jax(tmp_path):
             "from tmv_tpu_torch.models.detector_harness import build_yolo_model\n"
             f"_, service, _ = serve.build_app(serve.parse_args({yolo!r}))\n"
             "service.batcher.close()\n"
+            "for version in ('v3', 'resnet'):\n"
+            f"    _, service, _ = serve.build_app(serve.parse_args({yolo!r} + ['--version', version]))\n"
+            "    service.batcher.close()\n"
+            "from tmv_tpu_torch.cli import convert_darknet\n"
+            "from tmv_tpu_torch.convert.darknet import conv_call_order\n"
+            "from tmv_tpu_torch.convert.darknet_cfg import build_from_cfg\n"
+            "from tmv_tpu_torch.models.detector_harness import freeze_mask\n"
+            "convert_darknet.parse_args(['--weights', 'w.weights', '--out', 'o'])\n"
+            "m, _ = build_yolo_model('v3', 2, device='cpu')\n"
+            "assert len(conv_call_order(m, 64)) == 147 and sum(freeze_mask(m, ['DarknetConv_0']).values()) == 2\n"
+            "build_from_cfg('[net]\\nheight=32\\nwidth=32\\n[convolutional]\\nfilters=4\\n', device='cpu')\n"
             f"serve.build_app(serve.parse_args({det!r}))\n"
             f"a = train_yolo.parse_args({train!r})\n"
             f"e = eval_map.parse_args({evaluate!r})\n"

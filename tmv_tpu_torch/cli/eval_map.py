@@ -1,7 +1,8 @@
-"""Dataset mAP evaluation CLI for a trained YOLOv4 or EfficientDet of the port.
+"""Dataset mAP evaluation CLI for a trained YOLO or EfficientDet of the port.
 
-Port of ``tmv_tpu/cli/eval_map.py`` for ``--family yolo --version v4`` and
-``--family efficientdet``:
+Port of ``tmv_tpu/cli/eval_map.py`` for ``--family yolo`` (``--version v4``
+with DIoU NMS, ``v3`` and ``resnet`` with IoU NMS) and ``--family
+efficientdet``:
 
 - ``--mode batch`` (default): per-image mAP averaged over the set, the
   reference's ``test_step`` semantics; ``--mode global`` pools all images into
@@ -10,7 +11,8 @@ Port of ``tmv_tpu/cli/eval_map.py`` for ``--family yolo --version v4`` and
   (``ops/map_eval.py::get_ap{,_voc,_coco}``).
 
 ``--modelPath`` is a port checkpoint directory (``cli/train_yolo.py``,
-``cli/train_efficientdet.py``; the latest step) or a ``.pt`` state_dict;
+``cli/train_efficientdet.py``, ``cli/convert_darknet.py``; the latest step) or
+a ``.pt`` state_dict;
 omitted, the model is seeded random weights (a smoke run only). YOLO images go
 through the batched predictor; EfficientDet batches through one eval-mode
 forward (the depthwise kernel on the card) and one NMS sweep, scored in the JAX
@@ -33,8 +35,6 @@ import json
 import numpy as np
 
 _NOT_PORTED = {
-    "--version v3/resnet": (lambda a: a.family == "yolo" and a.version != "v4",
-                            "ROADMAP.md queue 1: the YOLOv3 family"),
     "--cacheDir": (lambda a: a.cacheDir is not None, "ROADMAP.md queue 1: data/stage_cache.py"),
     "--int8Static": (lambda a: a.int8Static, "ROADMAP.md queue 1: int8"),
     "--int8Margin": (lambda a: a.int8Margin is not None, "ROADMAP.md queue 1: int8"),
@@ -100,11 +100,9 @@ def score_dataset(data, classes_num: int, mode: str, variant: str, thresh: float
 def load_weights(args, model):
     """``--modelPath`` into ``model`` (seeded random weights where omitted) →
     the model in ``channels_last`` and eval mode."""
-    import os
-
     import torch
 
-    from tmv_tpu_torch.core.checkpoint import CheckpointManager
+    from tmv_tpu_torch.core import checkpoint
 
     if args.modelPath is None:
         if args.family == "yolo":
@@ -112,21 +110,16 @@ def load_weights(args, model):
         else:
             from tmv_tpu_torch.models.efficientdet.net import init_weights
         init_weights(model, 0)
-    elif os.path.isdir(args.modelPath):
-        mgr = CheckpointManager(args.modelPath)
-        step = mgr.restore_weights(model)
-        mgr.close()
-        if step is None:
-            raise FileNotFoundError(f"{args.modelPath} holds no checkpoint")
-        print(f"checkpoint at step {step}", flush=True)
     else:
-        model.load_state_dict(torch.load(args.modelPath, map_location="cpu", weights_only=True),
-                              strict=True)
+        step = checkpoint.load_weights(model, args.modelPath)
+        if step is not None:
+            print(f"checkpoint at step {step}", flush=True)
     return model.to(memory_format=torch.channels_last).eval()
 
 
 def load_model(args, classes_num: int, anchors_per_scale: int, device):
-    """The YOLOv4 of ``--modelPath`` on ``device`` in eval mode → (model, iou_type)."""
+    """The YOLO (``--version``) of ``--modelPath`` on ``device`` in eval mode →
+    (model, iou_type)."""
     import torch
 
     from tmv_tpu_torch.models.detector_harness import build_yolo_model

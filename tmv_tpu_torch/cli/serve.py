@@ -1,7 +1,7 @@
 """Serving CLI: a warm detector on one GPU behind the reference HTTP contract.
 
-Port of ``tmv_tpu/cli/serve.py`` for the YOLOv4 family and the EfficientDet
-family (``--family efficientdet --modelName efficientdet-d0``, as
+Port of ``tmv_tpu/cli/serve.py`` for the YOLO family (``--version v4``, DIoU
+NMS; ``v3`` and ``resnet``, IoU NMS) and the EfficientDet family (``--family efficientdet --modelName efficientdet-d0``, as
 ``_serve_efficientdet`` there: ``num_classes`` = classes + 1 for the background,
 pyramid levels sized from ``--imageSize``). It serves through the port's own
 ``serving.app`` (``DetectionService``, ``create_app``, ``run_server``) and
@@ -13,8 +13,10 @@ Usage:
     python -m tmv_tpu_torch.cli.serve --family efficientdet --modelName efficientdet-d0 \\
         --classesFile classes.txt --imageSize 512 --bf16 --randomInit --seed 0
 
-``--modelPath`` is a ``.pt`` state_dict of the port's module (for YOLOv4, made by
-``tools/export_torch_weights.py`` through the flax bridge). ``--randomInit --seed
+``--modelPath`` is a checkpoint directory of the port's trainers or of
+``cli/convert_darknet.py`` (the latest step), or a ``.pt`` state_dict of the
+port's module (from a JAX checkpoint: ``tools/export_torch_weights.py`` through
+the flax bridge), loaded by ``core.checkpoint.load_weights``. ``--randomInit --seed
 N`` serves seeded random weights instead, for trying the path without a
 checkpoint. ``--device cuda`` (the default) raises where there is no GPU.
 """
@@ -30,15 +32,14 @@ _NOT_PORTED = {
     "--dp": lambda a: a.dp is not None,
     "--spatial": lambda a: a.spatial is not None,
     "--artifact": lambda a: a.artifact is not None,
-    "--version v3/resnet": lambda a: a.family == "yolo" and a.version != "v4",
 }
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--modelPath", default=None,
-                   help=".pt state_dict of the port's module (YOLOv4: from "
-                        "tools/export_torch_weights.py)")
+                   help="checkpoint directory (latest step) or .pt state_dict of the "
+                        "port's module")
     p.add_argument("--randomInit", action="store_true",
                    help="serve seeded random weights (no checkpoint)")
     p.add_argument("--seed", type=int, default=0, help="seed of --randomInit")
@@ -98,7 +99,7 @@ def _build_model(args, classes_num, dtype):
     from tmv_tpu_torch.models.layers.common import init_weights
 
     anchors = load_anchors(args.anchorsFile)
-    model, iou_type = build_yolo_model("v4", classes_num, anchors.shape[1], dtype=dtype,
+    model, iou_type = build_yolo_model(args.version, classes_num, anchors.shape[1], dtype=dtype,
                                        device=args.device)
     image_wh = (args.imageSize, args.imageSize)
     kw = dict(confidence_thresh=0.5, scores_thresh=0.2, iou_thresh=0.5, iou_type=iou_type)
@@ -113,10 +114,10 @@ def build_service(args):
     import numpy as np
     import torch
 
+    from tmv_tpu_torch.core import checkpoint
     from tmv_tpu_torch.data.loaders import load_classes
-    from tmv_tpu_torch.serving.app import DetectionService
-
     from tmv_tpu_torch.models.detector_harness import check_device
+    from tmv_tpu_torch.serving.app import DetectionService
 
     device = check_device(args.device)
     classes_name, classes_num = load_classes(args.classesFile)
@@ -128,8 +129,9 @@ def build_service(args):
               "the boxes mean nothing", flush=True)
         init_weights(model, args.seed)
     else:
-        state = torch.load(args.modelPath, map_location="cpu", weights_only=True)
-        model.load_state_dict(state, strict=True)
+        step = checkpoint.load_weights(model, args.modelPath)
+        if step is not None:
+            print(f"checkpoint at step {step}", flush=True)
     model = model.to(device=device, memory_format=torch.channels_last).eval()
 
     batched = make_batched()

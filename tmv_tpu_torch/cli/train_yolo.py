@@ -1,12 +1,21 @@
-"""YOLOv4 training CLI on one GPU.
+"""YOLOv4 / YOLOv3 training CLI on one GPU.
 
-Port of ``tmv_tpu/cli/train_yolo.py`` for ``--version v4`` on one device: the
-train and val pipelines, Adam at ``--lr`` with the shadow loss, ``--accumSteps``,
+Port of ``tmv_tpu/cli/train_yolo.py`` on one device: the train and val
+pipelines, Adam at ``--lr`` with the shadow loss, ``--accumSteps``,
 checkpoint resume with the epoch derived from the step, a per-epoch asynchronous
 save, ReduceLROnPlateau, EarlyStopping, GracefulShutdown, the per-epoch val mAP
 over ``min(50, labels)`` images through the predictor (and so through the NMS
-kernel on the card), and a final save. ``iou_type`` is ``ciou`` in the loss and
-``diou`` in the predictor. ``--bf16`` trains bf16 activations on float32 master
+kernel on the card), and a final save. v4's ``iou_type`` is ``ciou`` in the
+loss and ``diou`` in the predictor; v3's is ``iou`` in both.
+
+``--darknetWeights`` (a Darknet ``.weights`` stream, ``convert/darknet.py``)
+starts from imported weights with the two-phase warm start of the reference
+(`yolo_v3/train.py:79-87`): for ``--warmupSteps`` steps only the three output
+convs ``DarknetConv_0/1/2`` train (``freeze_mask``/``masked_optimizer``, Adam
+with the shadow loss, the BatchNorm statistics updating in train mode), then the
+main phase starts at step 0 from the warmed weights and statistics with a fresh
+Adam state. A resumed run (a checkpoint in ``--modelPath``) skips the warm-up.
+``--bf16`` trains bf16 activations on float32 master
 weights and float32 Adam moments. ``--device cuda`` (the default) raises where
 there is no GPU; ``--device cpu`` is for tests.
 
@@ -27,11 +36,6 @@ import numpy as np
 
 # Flags of the JAX CLI the port does not run yet → the later ROADMAP.md item.
 _NOT_PORTED = {
-    "--version v3": (lambda a: a.version != "v4",
-                     "YOLOv3 training (ROADMAP.md queue 1: the YOLOv3 family)"),
-    "--darknetWeights": (lambda a: a.darknetWeights is not None,
-                         "convert/darknet.py builds flax trees (ROADMAP.md queue 1: "
-                         "convert/darknet.py with freeze_mask/masked_optimizer)"),
     "--mosaic": (lambda a: a.mosaic > 0, "ROADMAP.md queue 1: data/mosaic.py"),
     "--cacheDir": (lambda a: a.cacheDir is not None, "ROADMAP.md queue 1: data/stage_cache.py"),
     "--remat": (lambda a: a.remat, "ROADMAP.md queue 1: --remat"),
@@ -57,9 +61,10 @@ def parse_args(argv=None):
     p.add_argument("--epochs", type=int, default=300)
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--modelPath", default="./data/yolo_weights")
-    p.add_argument("--darknetWeights", default=None)
+    p.add_argument("--darknetWeights", default=None,
+                   help="optional .weights warm start (convert.py parity)")
     p.add_argument("--warmupSteps", type=int, default=1000,
-                   help="head-only warm start steps after --darknetWeights (not ported)")
+                   help="head-only warm start steps after --darknetWeights")
     p.add_argument("--mosaic", type=float, default=0.0)
     p.add_argument("--cacheDir", default=None)
     p.add_argument("--bf16", action="store_true")
@@ -116,6 +121,11 @@ def main(argv=None):
                                                anchors.shape[1], dtype=dtype, device=device,
                                                param_dtype=torch.float32)
     init_weights(model, 0)
+    if args.darknetWeights:
+        from tmv_tpu_torch.convert.darknet import load_darknet_weights
+
+        load_darknet_weights(model, args.darknetWeights, input_size=(image_wh[1], image_wh[0]))
+        print(f"loaded darknet weights: {args.darknetWeights}", flush=True)
     model = model.to(memory_format=torch.channels_last)
     optimizer = torch.optim.Adam(model.parameters(), lr=args.lr, betas=(0.9, 0.999), eps=1e-8)
     state = TrainState.create(model, optimizer)
@@ -125,7 +135,10 @@ def main(argv=None):
     if start_step:
         print(f"resumed from step {start_step}", flush=True)
 
-    loss_fn = make_yolo_loss_fn(image_wh, anchors, iou_type="ciou")
+    loss_fn = make_yolo_loss_fn(image_wh, anchors,
+                                iou_type="ciou" if args.version == "v4" else "iou")
+    if args.darknetWeights and start_step == 0 and args.warmupSteps:
+        warm_start(model, loss_fn, pipeline, args.lr, args.warmupSteps)
     step_fn = make_train_step(loss_fn, shadow_loss=True, accum_steps=args.accumSteps)
     logger = MetricsLogger(os.path.join(args.modelPath, "metrics.jsonl"), print_every=50)
     timer = StepTimer(batch_size=args.batchSize)
@@ -186,6 +199,34 @@ def main(argv=None):
     mgr.close()
     logger.close()
     return {"step": state.step, "epochs": state.step // args.stepsPerEpoch, "val_mAP": val_maps}
+
+
+HEAD_PREFIXES = ("DarknetConv_0", "DarknetConv_1", "DarknetConv_2")
+
+
+def warm_start(model, loss_fn, pipeline, lr: float, steps: int):
+    """The head-only warm-up (FreeLayer parity, `yolo_v3/train.py:79-87`):
+    ``steps`` steps of Adam at ``lr`` with the shadow loss on a state of its own
+    over the output convs only; the module keeps the warmed parameters and
+    BatchNorm statistics, and every parameter trains again afterwards."""
+    import torch
+
+    from tmv_tpu_torch.core.train_state import TrainState, make_train_step
+    from tmv_tpu_torch.models.detector_harness import freeze_mask, masked_optimizer
+
+    mask = freeze_mask(model, HEAD_PREFIXES)
+    warm = TrainState.create(model, masked_optimizer(
+        lambda params: torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8),
+        model, mask))
+    warm_step = make_train_step(loss_fn, shadow_loss=True)
+    it = iter(pipeline)
+    try:
+        for _ in range(steps):
+            warm_step(warm, next(it))
+    finally:
+        it.close()
+        model.requires_grad_(True)
+    print("warm start done", flush=True)
 
 
 def validate(args, anchors, image_wh, device, model, predict_fn, classes_num):

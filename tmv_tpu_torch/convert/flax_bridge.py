@@ -5,8 +5,9 @@ checkpoints) ends in the same flax tree ``{"params": …, "batch_stats": …}``,
 this one bridge loads all of them. The port's modules carry the flax names, so
 the bridge is a walk over paths, not a table:
 
-- conv kinds — ``Conv_k``, and EfficientDet's ``conv2d``, ``depthwise`` and
-  ``pointwise`` — map ``…/kernel`` (HWIO) → ``….weight`` (OIHW); a depthwise
+- conv kinds — ``Conv_k``, EfficientDet's ``conv2d``, ``depthwise`` and
+  ``pointwise``, and ResNet50V2's stem ``conv1`` (its ``conv2``…``conv5`` are
+  stacks, not convs) — map ``…/kernel`` (HWIO) → ``….weight`` (OIHW); a depthwise
   kernel ``(k, k, 1, C)`` becomes ``(C, 1, k, k)`` by the same transpose;
 - ``…/Dense_k/kernel`` ``(in, out)`` → ``….Dense_k.weight`` ``(out, in)``;
 - ``…/bias`` of a conv or Dense as is;
@@ -52,6 +53,7 @@ def _leaves(tree: Mapping[str, Any], prefix=()):
 
 
 _CONV_KINDS = {"Conv", "conv2d", "depthwise", "pointwise"}
+_NAMED_CONVS = {"conv1"}    # an nn.Conv given an explicit name
 _BN_KINDS = {"BatchNorm", "bn"}
 _BN_PER_LEVEL = re.compile(r"bn_\d+_level_\d+")
 
@@ -60,6 +62,8 @@ def _kind(module_name: str) -> str:
     """``Conv``, ``BatchNorm`` or the module's class name without its ``_k``."""
     if _BN_PER_LEVEL.fullmatch(module_name):
         return "BatchNorm"
+    if module_name in _NAMED_CONVS:
+        return "Conv"
     base = re.sub(r"_\d+$", "", module_name)
     if base in _CONV_KINDS:
         return "Conv"

@@ -8,7 +8,13 @@ name and renamed, so a process killed mid-save leaves the last complete
 checkpoint. ``save(wait=False)`` copies the state to host memory at once and
 writes the file on a background thread; ``wait_until_finished`` and ``close``
 drain the writes. A save at a step already saved is skipped, and only the newest
-``max_to_keep`` checkpoints stay.
+``max_to_keep`` checkpoints stay. A state without an optimizer saves a
+weights-only checkpoint (``cli/convert_darknet.py``); restoring it leaves the
+optimizer fresh.
+
+``load_weights`` is the inference CLIs' loader (``cli/serve.py``,
+``cli/eval_map.py``), the JAX package's ``restore_weights``: a checkpoint
+directory (its latest step) or a bare ``state_dict`` ``.pt``.
 """
 
 import os
@@ -65,7 +71,8 @@ class CheckpointManager:
         if step != self._last_saved_step and step not in self.all_steps():
             payload = _to_host({
                 "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
+                "optimizer": (None if state.optimizer is None
+                              else state.optimizer.state_dict()),
                 "step": int(state.step),
                 "shadow_loss": state.shadow_loss,
                 "ema_params": state.ema_params,
@@ -97,7 +104,8 @@ class CheckpointManager:
             return state
         device = next(state.model.parameters()).device
         state.model.load_state_dict(raw["model"], strict=True)
-        state.optimizer.load_state_dict(raw["optimizer"])
+        if raw["optimizer"] is not None:
+            state.optimizer.load_state_dict(raw["optimizer"])
         state.step = int(raw["step"])
         state.shadow_loss = raw["shadow_loss"].to(device)
         for name in ("ema_params", "ema_batch_stats"):
@@ -118,3 +126,23 @@ class CheckpointManager:
     def close(self):
         self.wait_until_finished()
         self._writer.shutdown()
+
+
+def load_weights(model: torch.nn.Module, model_path: str) -> Optional[int]:
+    """Load ``model_path`` into ``model`` strictly: a checkpoint directory of the
+    port's trainers or ``cli/convert_darknet.py`` (its latest step; the
+    optimizer state is not read), or a bare ``state_dict`` ``.pt``. Returns the
+    checkpoint's step, None for a ``.pt``; raises for a directory without a
+    checkpoint."""
+    if not os.path.isdir(model_path):
+        model.load_state_dict(torch.load(model_path, map_location="cpu", weights_only=True),
+                              strict=True)
+        return None
+    mgr = CheckpointManager(model_path)
+    try:
+        step = mgr.restore_weights(model)
+    finally:
+        mgr.close()
+    if step is None:
+        raise FileNotFoundError(f"{model_path} holds no checkpoint")
+    return step

@@ -2,19 +2,19 @@
 
 Port of ``tmv_tpu/models/detector_harness.py::build_yolo_model``,
 ``make_yolo_loss_fn``, ``make_yolo_predict``, ``make_yolo_predict_batched``,
-``ground_truth_from_targets`` and ``eval_map_step``. The predictors keep the
+``ground_truth_from_targets``, ``eval_map_step``, ``freeze_mask`` and
+``masked_optimizer``. The predictors keep the
 thresholds and the padded ``(boxes, classes_id, scores, valid)`` contract;
 results come back as host numpy arrays, as ``serving.app`` reads them. There is
 no ``jit``: the predictors run eagerly under ``torch.inference_mode()``. The
 batched form replaces ``jax.vmap`` with a batch axis and one NMS launch.
-``freeze_mask``/``masked_optimizer`` wait for the darknet warm start.
 
 A predictor keeps the JAX package's signature ``predict(variables, images)`` so
 that ``DetectionService`` and ``MicroBatcher`` drive it unchanged; the weights
 live in the module it was made with, and ``variables`` is not read (pass None).
 """
 
-from typing import Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,14 +36,26 @@ def build_yolo_model(version: str, classes_num: int, anchors_per_scale: int = 3,
                      dtype: torch.dtype = torch.float32, device="cuda", param_dtype=None):
     """Detector factory → ``(model, iou_type)``, on the card unless ``device``
     says otherwise. ``param_dtype`` holds the weights in another type than the
-    compute ``dtype`` (training: float32 weights, bf16 activations). Only 'v4'
-    is ported so far."""
+    compute ``dtype`` (training: float32 weights, bf16 activations).
+
+    ``version``: 'v4' (CSPDarknet-53, DIoU NMS), 'v3' (Darknet-53, IoU NMS) or
+    'resnet', the MoCo/distillation detector (ResNet50V2 + YOLOv3 heads, IoU
+    NMS). As in the JAX package, 'v3' has 3 anchors per scale whatever
+    ``anchors_per_scale`` says."""
+    kw = dict(dtype=dtype, device=check_device(device), param_dtype=param_dtype)
     if version == "v4":
         from tmv_tpu_torch.models.yolo_v4 import YoloV4
 
-        return YoloV4(classes_num, anchors_per_scale, dtype=dtype, device=check_device(device),
-                      param_dtype=param_dtype), "diou"
-    raise ValueError(f"yolo-family version {version!r} is not ported to tmv_tpu_torch yet")
+        return YoloV4(classes_num, anchors_per_scale, **kw), "diou"
+    if version == "v3":
+        from tmv_tpu_torch.models.yolo_v3 import YoloV3
+
+        return YoloV3(classes_num, **kw), "iou"
+    if version == "resnet":
+        from tmv_tpu_torch.models.moco import ResNetYoloV3
+
+        return ResNetYoloV3(anchors_per_scale * (5 + classes_num), **kw), "iou"
+    raise ValueError(f"unknown yolo-family version {version!r}")
 
 
 def make_yolo_loss_fn(image_wh: Tuple[int, int], anchors_wh, iou_thresh: float = 0.5,
@@ -130,3 +142,29 @@ def eval_map_step(predict_fn, variables, batch, classes_num: int, thresh: float 
                            np.asarray(scores)[v][:, None]], axis=-1)
     gt = ground_truth_from_targets([t[0] for t in batch["targets"]], classes_num)
     return get_map_one(gt.tolist(), pred.tolist(), classes_num, thresh)
+
+
+def freeze_mask(model: torch.nn.Module, trainable_prefixes: Sequence[str]) -> Dict[str, bool]:
+    """``{parameter name: trainable}``: ``FreeLayer`` parity
+    (`yolo_v3/model.py:280-291`), as the JAX package's mask over param paths —
+    a parameter trains where its flax path (the name with ``/`` for ``.``)
+    starts with one of ``trainable_prefixes``. BatchNorm statistics are buffers,
+    not parameters, and are not masked."""
+    return {name: any(name.replace(".", "/").startswith(p) for p in trainable_prefixes)
+            for name, _ in model.named_parameters()}
+
+
+def masked_optimizer(make_optimizer: Callable, model: torch.nn.Module,
+                     mask: Dict[str, bool]) -> torch.optim.Optimizer:
+    """The warm-start optimizer (`yolo_v3/train.py:79-87`):
+    ``make_optimizer(params)`` over the trainable parameters only, so that a
+    frozen parameter gets no update and no optimizer state, as under
+    ``optax.masked``. The frozen parameters are set ``requires_grad=False``,
+    so the backward pass computes no gradient for them (JAX's computes one and
+    zeroes its update); ``model.requires_grad_(True)`` undoes it after the
+    warm-up. BatchNorm statistics still update in train mode."""
+    if set(mask) != {name for name, _ in model.named_parameters()}:
+        raise KeyError("the mask and the model's parameters differ")
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+    return make_optimizer([p for name, p in model.named_parameters() if mask[name]])

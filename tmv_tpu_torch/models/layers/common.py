@@ -27,7 +27,8 @@ import torch.nn.functional as F
 
 from tmv_tpu_torch.ops.activations import leaky_relu, mish, swish
 
-ACTIVATIONS: Dict[str, Callable] = {"leaky": leaky_relu, "mish": mish, "swish": swish}
+ACTIVATIONS: Dict[str, Callable] = {"leaky": leaky_relu, "mish": mish, "swish": swish,
+                                    "linear": lambda x: x}
 
 
 def _pair(v: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
@@ -58,6 +59,14 @@ def conv_as_input(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
     return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride, conv.padding,
                     conv.dilation, conv.groups)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's type (``conv_as_input``), for the
+    flax ``nn.Conv`` modules that are called as modules (ResNet50V2's)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_as_input(self, x)
 
 
 class DarknetConv(nn.Module):

@@ -1,15 +1,24 @@
-"""Convert a JAX YOLOv4 checkpoint into the ``.pt`` state_dict the PyTorch port serves.
+"""Convert a JAX checkpoint into the ``.pt`` state_dict the PyTorch port serves.
 
 Restores the orbax checkpoint through ``tmv_tpu.core.checkpoint.CheckpointManager``
-as ``tmv_tpu/cli/serve.py`` does, maps its flax tree with
-``tmv_tpu_torch.convert.flax_bridge``, loads it strictly into the port's
-``YoloV4`` and saves that module's ``state_dict``.
+as ``tmv_tpu/cli/serve.py`` does (``restore_weights``: parameters and BatchNorm
+statistics, whatever the optimizer was), maps its flax tree with
+``tmv_tpu_torch.convert.flax_bridge``, loads it strictly into the port's module
+and saves that module's ``state_dict``. ``--family yolo`` takes ``--version v4``
+(the default), ``v3`` or ``resnet``; ``--family efficientdet`` takes
+``--modelName`` and ``--imageSize`` and sizes the heads as the JAX trainer and
+server do (the classes + 1 for the background).
 
 Usage:
     python tools/export_torch_weights.py --modelPath ./data/yolo_weights \\
         --classesFile ./data/classes.txt --out yolov4.pt
     python -m tmv_tpu_torch.cli.serve --modelPath yolov4.pt --classesFile ... \\
         --anchorsFile ... --imageSize 640
+    python tools/export_torch_weights.py --family efficientdet --modelName efficientdet-d0 \\
+        --imageSize 512 --modelPath ./data/d0_weights --classesFile ./data/classes.txt \\
+        --out d0.pt
+    python -m tmv_tpu_torch.cli.serve --family efficientdet --modelPath d0.pt \\
+        --classesFile ... --imageSize 512
 """
 
 import argparse
@@ -19,26 +28,48 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def _flax_and_torch(family: str, version: str, classes_num: int, anchors_per_scale: int,
+                    model_name: str, image_size: int):
+    """(flax module, a dummy input for its init, the port's module on the CPU)."""
+    import jax.numpy as jnp
+
+    if family == "efficientdet":
+        from tmv_tpu.models.efficientdet import EfficientDetNet
+        from tmv_tpu_torch.models.efficientdet.harness import (
+            build_efficientdet, efficientdet_config,
+        )
+
+        # background reserved at id 0
+        cfg = efficientdet_config(model_name, classes_num + 1, image_size)
+        net, _ = build_efficientdet(model_name, classes_num + 1, image_size, device="cpu")
+        return (EfficientDetNet(config=cfg),
+                jnp.zeros((1, image_size, image_size, 3), jnp.float32), net)
+    from tmv_tpu.models.detector_harness import build_yolo_model
+    from tmv_tpu_torch.models.detector_harness import build_yolo_model as build_torch
+
+    model, _ = build_yolo_model(version, classes_num, anchors_per_scale)
+    net, _ = build_torch(version, classes_num, anchors_per_scale, device="cpu")
+    return model, jnp.zeros((1, 64, 64, 3), jnp.float32), net
+
+
 def export(model_path: str, classes_num: int, out: str, anchors_per_scale: int = 3,
-           step=None) -> int:
+           step=None, family: str = "yolo", version: str = "v4",
+           model_name: str = "efficientdet-d0", image_size: int = 512) -> int:
     """Write ``out`` and return the checkpoint step it came from."""
     import jax
-    import jax.numpy as jnp
     import numpy as np
     import optax
     import torch
 
     from tmv_tpu.core.checkpoint import CheckpointManager
     from tmv_tpu.core.train_state import TrainState
-    from tmv_tpu.models.detector_harness import build_yolo_model
     from tmv_tpu_torch.convert.flax_bridge import flax_to_state_dict
-    from tmv_tpu_torch.models.detector_harness import build_yolo_model as build_torch
 
     if not os.path.isdir(model_path):
         raise FileNotFoundError(f"no checkpoint directory at {model_path}")
-    model, _ = build_yolo_model("v4", classes_num, anchors_per_scale)
-    shapes = jax.eval_shape(model.init, jax.random.key(0),
-                            jnp.zeros((1, 64, 64, 3), jnp.float32))
+    model, x0, net = _flax_and_torch(family, version, classes_num, anchors_per_scale,
+                                     model_name, image_size)
+    shapes = jax.eval_shape(model.init, jax.random.key(0), x0)
     template = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
     state = TrainState.create(template["params"], template["batch_stats"], optax.sgd(1e-3))
     mgr = CheckpointManager(model_path)
@@ -47,7 +78,6 @@ def export(model_path: str, classes_num: int, out: str, anchors_per_scale: int =
     state = mgr.restore_weights(state, step)
     variables = jax.tree.map(np.asarray, {"params": state.params,
                                           "batch_stats": state.batch_stats})
-    net, _ = build_torch("v4", classes_num, anchors_per_scale, device="cpu")
     net.load_state_dict(flax_to_state_dict(variables, net), strict=True)
     torch.save(net.state_dict(), out)
     return int(state.step)
@@ -57,6 +87,11 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--modelPath", required=True, help="orbax checkpoint directory")
     p.add_argument("--classesFile", required=True)
+    p.add_argument("--family", default="yolo", choices=["yolo", "efficientdet"])
+    p.add_argument("--version", default="v4", choices=["v3", "v4", "resnet"])
+    p.add_argument("--modelName", default="efficientdet-d0")
+    p.add_argument("--imageSize", type=int, default=512,
+                   help="EfficientDet input size (sizes its pyramid)")
     p.add_argument("--anchorsPerScale", type=int, default=3)
     p.add_argument("--step", type=int, default=None, help="default: the latest")
     p.add_argument("--out", required=True, help="output .pt path")
@@ -65,7 +100,8 @@ def main(argv=None):
     from tmv_tpu.data.loaders import load_classes
 
     _, classes_num = load_classes(args.classesFile)
-    step = export(args.modelPath, classes_num, args.out, args.anchorsPerScale, args.step)
+    step = export(args.modelPath, classes_num, args.out, args.anchorsPerScale, args.step,
+                  args.family, args.version, args.modelName, args.imageSize)
     print(f"wrote {args.out} from step {step} ({classes_num} classes)")
 
 

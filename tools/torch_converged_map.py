@@ -13,7 +13,15 @@ power limit to ``converged_map_v4_torch.json`` (or ``--out``).
     python tools/torch_converged_map.py [--out path.json] [--workDir dir]
 
 It runs on the card (``--device cuda``) in float32, as the JAX artifact was
-trained; the int8 passes of the JAX artifact are not ported.
+trained; the int8 passes of the JAX artifact are not ported. A ``--workDir``
+that already holds the trained checkpoint is resumed at its last step, so a
+second run only scores.
+
+Then the re-score pass (``rescore_with_plain_kernels``): the converged
+checkpoint's eval predictions are made again with the NMS kernel and with its
+plain version ``greedy_sweep_reference`` patched in; the kept rows must be
+identical and the four mAPs equal, on a checkpoint that keeps boxes. It is
+written under ``plain_kernel_rescore``, and the tool exits non-zero if it fails.
 """
 
 import argparse
@@ -33,6 +41,66 @@ RECIPE = {"TMV_CMAP_N": "256", "TMV_CMAP_SIZE": "416", "TMV_CMAP_HW": "416"}
 EPOCHS, STEPS_PER_EPOCH, BATCH, LR = 40, 100, 16, "5e-4"
 PASSES = [("batch", "reference", "mAP_ref_per_batch"), ("global", "reference", "mAP_ref_global"),
           ("global", "voc", "mAP_voc_global"), ("global", "coco", "mAP_coco_global")]
+
+
+def rescore_with_plain_kernels(eval_argv, records, patches, tolerance=None):
+    """The eval CLI's per-image records on ``eval_argv`` (``records(args) ->
+    (records, classes_num)``) with the kernels, then with each set of plain
+    versions of ``patches`` (``{name: [(target, plain), …]}``) patched in, all
+    with float32 convolutions without TF32 (so that the kernels are the only
+    difference). Returns the comparison and whether it passed: every run keeps
+    boxes and scores the four mAPs equal to the kernels'; its kept rows are
+    identical, or, for a run named in ``tolerance`` (``{name: (box, score)}``),
+    of the same count and classes with boxes and scores within the bounds."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from tmv_tpu_torch.cli import eval_map
+
+    args = eval_map.parse_args(eval_argv)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = {"kernels": records(args)}
+        for name, targets in patches.items():
+            with contextlib.ExitStack() as stack:
+                for target, plain in targets:
+                    stack.enter_context(mock.patch(target, plain))
+                runs[name] = records(args)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+    def maps(recs, classes_num):
+        return {key: eval_map.score_dataset(recs, classes_num, mode, variant, 0.5)
+                for mode, variant, key in PASSES}
+
+    base, classes_num = runs.pop("kernels")
+    kept = sum(len(r["prediction"]) for r in base)
+    out = {"tf32_convolutions": False, "kept_boxes": kept, "kernels": maps(base, classes_num)}
+    ok = kept > 0
+    for name, (recs, _) in runs.items():
+        same_shape, box, score = True, 0.0, 0.0
+        for a, b in zip(base, recs):
+            pa = np.asarray(a["prediction"], np.float64).reshape(-1, 6)
+            pb = np.asarray(b["prediction"], np.float64).reshape(-1, 6)
+            if pa.shape != pb.shape or not np.array_equal(pa[:, 4], pb[:, 4]):
+                same_shape = False
+            elif len(pa):
+                box = max(box, float(np.abs(pa[:, :4] - pb[:, :4]).max()))
+                score = max(score, float(np.abs(pa[:, 5] - pb[:, 5]).max()))
+        identical = all(a["prediction"] == b["prediction"] for a, b in zip(base, recs))
+        run = {"identical_rows": identical, "same_count_and_classes": same_shape,
+               "max_box_diff": box, "max_score_diff": score, "mAPs": maps(recs, classes_num)}
+        run["equal_mAPs"] = run["mAPs"] == out["kernels"]
+        bounds = (tolerance or {}).get(name)
+        rows_ok = identical or (bounds is not None and same_shape and box <= bounds[0]
+                                and score <= bounds[1])
+        ok = ok and rows_ok and run["equal_mAPs"]
+        out[name] = run
+    out["passed"] = ok
+    return out, ok
 
 
 def main(argv=None):
@@ -76,13 +144,27 @@ def main(argv=None):
                 "--mode", mode, "--variant", variant, "--confidenceThresh", "0.2",
                 "--scoresThresh", "0.05", "--batchSize", str(BATCH)])
         result[key] = out["mAP"]
+    from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep_reference
+
     result["train_sec"] = train_sec
+    eval_argv = files + ["--family", "yolo", "--version", "v4", "--imagePath",
+                         os.path.join(root, "imgs"), "--labelFile",
+                         os.path.join(root, "labels.txt"), "--modelPath", ckpt,
+                         "--confidenceThresh", "0.2", "--scoresThresh", "0.05",
+                         "--batchSize", str(BATCH)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        result["plain_kernel_rescore"], rescored = rescore_with_plain_kernels(
+            eval_argv, eval_map.predict_records,
+            {"plain_sweep": [("tmv_tpu_torch.ops.nms.greedy_sweep", greedy_sweep_reference)]})
     result["wall_sec"] = time.time() - t0
     result["converged"] = bool(result["mAP_ref_global"] > 0.5 and result["mAP_coco_global"] > 0.15)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result), flush=True)
+    if not rescored:
+        sys.exit("the re-score with the plain kernels disagrees with the kernels' (see "
+                 "plain_kernel_rescore)")
 
 
 if __name__ == "__main__":

@@ -16,7 +16,18 @@ efficientdet`` in the four float passes of the JAX artifact. It writes
 
 It runs on the card (``--device cuda``). The JAX run staged through its cache
 (``--cacheDir``), which changes no pixel; the port has no cache and stages
-every batch. The int8 pass of the JAX artifact is not ported.
+every batch. The int8 pass of the JAX artifact is not ported. A ``--workDir``
+that already holds the trained checkpoint is resumed at its last step, so a
+second run only scores.
+
+Then the re-score pass (``torch_converged_map.rescore_with_plain_kernels``,
+float32 convolutions without TF32): the converged checkpoint's eval predictions
+again with the NMS kernel's plain version ``greedy_sweep_reference`` patched in
+(kept rows identical, the four mAPs equal), and with it and the depthwise
+kernel's plain version ``dw_bn_swish_reference`` (kept rows of the same count
+and classes, boxes within 1e-3 px and scores within 1e-5, the four mAPs equal),
+on a checkpoint that keeps boxes. It is written under ``plain_kernel_rescore``,
+and the tool exits non-zero if it fails.
 """
 
 import argparse
@@ -78,13 +89,32 @@ def main(argv=None):
                 "--labelFile", os.path.join(root, "labels.txt"), "--modelPath", ckpt,
                 "--mode", mode, "--variant", variant, "--batchSize", str(BATCH)])
         result[key] = out["mAP"]
+    from torch_converged_map import rescore_with_plain_kernels
+
+    from tmv_tpu_torch.kernels.dwconv import dw_bn_swish_reference
+    from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep_reference
+
     result["train_sec"] = train_sec
+    eval_argv = files + ["--family", "efficientdet", "--imagePath", os.path.join(root, "imgs"),
+                         "--labelFile", os.path.join(root, "labels.txt"), "--modelPath", ckpt,
+                         "--batchSize", str(BATCH)]
+    sweep = ("tmv_tpu_torch.ops.nms.greedy_sweep", greedy_sweep_reference)
+    depthwise = ("tmv_tpu_torch.models.efficientdet.backbone.fused_dw_bn_swish",
+                 dw_bn_swish_reference)
+    with contextlib.redirect_stdout(io.StringIO()):
+        result["plain_kernel_rescore"], rescored = rescore_with_plain_kernels(
+            eval_argv, eval_map.efficientdet_records,
+            {"plain_sweep": [sweep], "plain_sweep_and_depthwise": [sweep, depthwise]},
+            tolerance={"plain_sweep_and_depthwise": (1e-3, 1e-5)})
     result["wall_sec"] = time.time() - t0
     result["converged"] = bool(result["mAP_ref_global"] > 0.5)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result), flush=True)
+    if not rescored:
+        sys.exit("the re-score with the plain kernels disagrees with the kernels' (see "
+                 "plain_kernel_rescore)")
 
 
 if __name__ == "__main__":
