@@ -86,8 +86,10 @@ Phases, each printing its own lines:
     and classes, boxes within 1e-3 px, scores within 1e-5, equal mAPs);
 15. the YOLOv3 and ResNetYoloV3 slices (80 classes @416, f32 with TF32 off,
     B = 4, IoU NMS): detections identical with the NMS kernel and with the plain
-    sweep, every image keeping boxes out of more valid candidates, and the card's
-    heads within 1e-4·max|ref| of the CPU forward;
+    sweep, the sweeps' whole kept masks over the pre-NMS top 1024 identical too,
+    the sweep suppressing candidates in every image (it keeps fewer than are
+    eligible; the output's 500-row cap would hide that), and the card's heads
+    within 1e-4·max|ref| of the CPU forward;
 16. YOLOv3 serving: the port's server with ``--version v3 --bf16 --imageSize
     416`` answers 10 seeded JPEGs through the NMS kernel; the b1 image→boxes
     p50, the b16 images/s, the served p50 and the stage times at b1 and b16;
@@ -102,7 +104,8 @@ Phases, each printing its own lines:
     halve the raw loss); one float32 step against float64 by phase 11's rule;
     ``cli/eval_map.py --version v3`` in both modes on the trained and on the
     converted checkpoint directory (its own labels: mAP strictly between 0 and
-    1), kernel and plain sweep (equal mAPs, identical kept rows); and the port's
+    1), kernel and plain sweep (equal mAPs, identical kept rows, identical whole
+    sweep masks, and suppressions on the converted checkpoint); and the port's
     server on the trained checkpoint directory answering one request.
 
 The serving weights are seeded (``--randomInit --seed 0`` of each family), adjusted so
@@ -1716,6 +1719,36 @@ def phase_d0_eval(card, files, ckpt, seeded_pt):
 
 # ---------------------------------------------------------------- YOLOv3 family
 
+class SweepLog:
+    """Stands in for ``ops.nms.greedy_sweep`` and calls ``sweep`` (the kernel
+    or the plain loop), keeping each call's whole kept mask and eligible count.
+    The predictors cap their output at ``max_output_size`` rows, so only the
+    sweep's own mask shows whether it suppressed candidates and whether two
+    sweeps agree past the cap."""
+
+    def __init__(self, sweep):
+        self.sweep, self.masks, self.eligible = sweep, [], []
+
+    def __call__(self, boxes, eligible, *args):
+        kept = self.sweep(boxes, eligible, *args)
+        self.masks.append(kept.cpu().numpy())
+        self.eligible.append(eligible.sum(1).cpu().numpy())
+        return kept
+
+    def patch(self):
+        return mock.patch("tmv_tpu_torch.ops.nms.greedy_sweep", self)
+
+    def kept(self, calls=slice(None)):
+        return [int(n) for m in self.masks[calls] for n in m.sum(1)]
+
+    def eligibles(self, calls=slice(None)):
+        return [int(n) for e in self.eligible[calls] for n in e]
+
+    def same_masks(self, other):
+        return len(self.masks) == len(other.masks) and all(
+            np.array_equal(a, b) for a, b in zip(self.masks, other.masks))
+
+
 def seeded_v3(version, device):
     """``--randomInit --seed 0`` weights of YOLOv3 or ResNetYoloV3 (80 classes,
     f32, eval mode) with the output convs' box rows scaled by the power of ten
@@ -1754,12 +1787,11 @@ def phase_v3_slice(card):
     state_dict. Returns the seeded v3 weights' path."""
     import torch
 
-    from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep_reference
+    from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep, greedy_sweep_reference
     from tmv_tpu_torch.models.detector_harness import (
         build_yolo_model, make_yolo_predict_batched,
     )
     from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS
-    from tmv_tpu_torch.ops.yolo import decode_boxes
 
     torch.backends.cudnn.deterministic = True
     paths = {}
@@ -1773,11 +1805,19 @@ def phase_v3_slice(card):
         images = images.astype(np.float32)
         predict = make_yolo_predict_batched(model, (V3_IMAGE, V3_IMAGE), COCO_ANCHORS, 80,
                                             **V3_PREDICT_KW)
-        got = predict(None, images)
-        with mock.patch("tmv_tpu_torch.ops.nms.greedy_sweep", greedy_sweep_reference):
+        kernel_log, plain_log = SweepLog(greedy_sweep), SweepLog(greedy_sweep_reference)
+        with kernel_log.patch():
+            got = predict(None, images)
+        with plain_log.patch():
             want = predict(None, images)
         for g, w, what in zip(got, want, ("boxes", "ids", "scores", "valid")):
             check(np.array_equal(g, w), f"{name} slice {what} differ between kernel and plain")
+        check(kernel_log.same_masks(plain_log),
+              f"{name}: the sweeps' whole kept masks differ between kernel and plain")
+        swept, eligible = kernel_log.kept(), kernel_log.eligibles()
+        check(len(swept) == 4 and all(k < e for k, e in zip(swept, eligible)),
+              f"{name}: the sweep suppressed nothing in an image (kept {swept} of "
+              f"{eligible} eligible)")
         boxes, ids, scores, valid = got
         check(boxes.shape == (4, 500, 4) and valid.shape == (4, 500),
               f"{name} predictor output shapes")
@@ -1786,24 +1826,14 @@ def phase_v3_slice(card):
               f"non-finite {name} detections")
         check(((ids[valid] >= 0) & (ids[valid] < 80)).all(), f"{name} class ids out of range")
         with torch.inference_mode():
-            heads = model(torch.from_numpy(images).cuda())
-            card_heads = [h.float().cpu().numpy() for h in heads]
-            eligible = torch.zeros(4, dtype=torch.long)
-            for h, anchors in zip(heads, COCO_ANCHORS):
-                wh = torch.as_tensor(anchors / V3_IMAGE, dtype=torch.float32, device=h.device)
-                _, conf, probs, ok = decode_boxes(h.float().reshape(*h.shape[:3], 3, 85), wh, 80)
-                ok = ok & (conf > 0.5) & (probs.amax(-1) > 0.2)
-                eligible += ok.reshape(4, -1).sum(1).cpu()
-            eligible = eligible.tolist()
-        kept = valid.sum(1).tolist()
-        check(all(e > k for e, k in zip(eligible, kept)),
-              f"{name}: NMS suppressed nothing ({eligible} candidates, {kept} kept)")
+            card_heads = [h.float().cpu().numpy()
+                          for h in model(torch.from_numpy(images).cuda())]
         print(f"phase 15 slice: {name} 80 classes @{V3_IMAGE} f32 B=4, IoU NMS: kernel and "
-              f"plain sweep give identical detections, kept per image {kept} of "
-              f"{eligible} valid candidates above the thresholds (the pre-NMS top-k takes "
-              f"1024); "
-              f"seeded load: box rows of the three output convs x {factor:g} (largest box "
-              f"logit of a seeded image {box_max:.3g} unscaled) on [{card}]", flush=True)
+              f"plain sweep give identical detections and identical whole kept masks; per "
+              f"image the sweep kept {swept} of the {eligible} eligible candidates in the "
+              f"pre-NMS top 1024, the output the first {valid.sum(1).tolist()} of them (cap "
+              f"500); seeded load: box rows of the three output convs x {factor:g} (largest "
+              f"box logit of a seeded image {box_max:.3g} unscaled) on [{card}]", flush=True)
         cpu_model, _ = build_yolo_model(version, 80, device="cpu")
         cpu_model.load_state_dict(torch.load(paths[version], weights_only=True), strict=True)
         with torch.inference_mode():
@@ -1992,7 +2022,7 @@ def phase_v3_eval(card, files, ckpt, converted):
     mAPs and identical kept rows."""
     from tmv_tpu_torch.cli import eval_map
     from tmv_tpu_torch.kernels import nms_sweep
-    from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep_reference
+    from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep, greedy_sweep_reference
 
     common = ["--family", "yolo", "--version", "v3", "--imagePath", files["images"],
               "--classesFile", files["classes"], "--anchorsFile", files["anchors"],
@@ -2012,14 +2042,36 @@ def phase_v3_eval(card, files, ckpt, converted):
                for mode in modes}
         return maps, records + seeded_records, own, own_labels
 
+    kernel_log, plain_log = SweepLog(greedy_sweep), SweepLog(greedy_sweep_reference)
     nms_sweep.launches = 0
-    maps, records, own, own_labels = evaluate()
+    with kernel_log.patch():
+        maps, records, own, own_labels = evaluate()
     launches = nms_sweep.launches
-    with mock.patch("tmv_tpu_torch.ops.nms.greedy_sweep", greedy_sweep_reference):
+    with plain_log.patch():
         plain, plain_records, plain_own, _ = evaluate(own_labels)
     batches = 6 * TRAIN_SET // 8
     check(launches >= batches, f"{launches} NMS launches for {batches} v3 eval batches")
     check(nms_sweep.launches == launches, "the plain sweep launched the kernel")
+    check(kernel_log.same_masks(plain_log),
+          "v3 eval: the sweeps' whole kept masks differ between kernel and plain")
+    # evaluate()'s calls in order: 8 batches each of the trained, the converted,
+    # the trained twice and the converted twice
+    per = TRAIN_SET // 8
+    check(len(kernel_log.masks) == 6 * per, f"{len(kernel_log.masks)} sweeps in the v3 eval")
+    calls = {"trained": [slice(0, per), slice(2 * per, 4 * per)],
+             "converted": [slice(per, 2 * per), slice(4 * per, 6 * per)]}
+    suppressed = {}
+    for name, parts in calls.items():
+        kept_n = sum(sum(kernel_log.kept(c)) for c in parts)
+        eligible_n = sum(sum(kernel_log.eligibles(c)) for c in parts)
+        suppressed[name] = (eligible_n - kept_n, eligible_n)
+    # the converted checkpoint is phase 15's seeded load, whose anchor-sized
+    # boxes overlap their neighbours; the trained one's need not (printed below)
+    check(suppressed["converted"][0] > 0,
+          f"v3 eval of the converted checkpoint: the sweep suppressed nothing "
+          f"({suppressed['converted'][1]} eligible)")
+    rows = np.array([row for r in records[:TRAIN_SET] for row in r["prediction"]]).reshape(-1, 6)
+    trained_wh = np.median(rows[:, 2:4] - rows[:, 0:2], axis=0) * TRAIN_IMAGE
     for name, got, want in (("trained", maps, plain), ("converted", own, plain_own)):
         for mode in modes:
             check(got[mode]["mAP"] == want[mode]["mAP"] and got[mode]["images"] == TRAIN_SET,
@@ -2039,8 +2091,13 @@ def phase_v3_eval(card, files, ckpt, converted):
           f"kept); the converted checkpoint on its own labels ({own_labels[1]} of its kept "
           f"boxes moved by up to 2 px, plus one missed box per image) batch "
           f"{own['batch']['mAP']:.4f}, global {own['global']['mAP']:.4f} ({kept[1]} boxes "
-          f"kept); each equal with the plain sweep, kept rows identical; nms_sweep.launches "
-          f"{launches} on [{card}]", flush=True)
+          f"kept); each equal with the plain sweep, kept rows and whole sweep masks "
+          f"identical; the sweep suppressed {suppressed['trained'][0]} of "
+          f"{suppressed['trained'][1]} eligible candidates (trained: kept boxes of median "
+          f"{trained_wh[0]:.1f} x {trained_wh[1]:.1f} px in {len(np.unique(rows[:, 4]))} "
+          f"classes) and {suppressed['converted'][0]} of {suppressed['converted'][1]} "
+          f"(converted) over the passes; nms_sweep.launches {launches} on [{card}]",
+          flush=True)
     return launches, kept
 
 

@@ -38,7 +38,7 @@ from tmv_tpu_torch.convert.darknet import save_darknet_weights
 from tmv_tpu_torch.convert.flax_bridge import _map_leaf, flax_to_state_dict
 from tmv_tpu_torch.core.train_state import TrainState, make_train_step
 from tmv_tpu_torch.models.detector_harness import (
-    freeze_mask, make_yolo_loss_fn, masked_optimizer,
+    freeze_mask, frozen, make_yolo_loss_fn, masked_optimizer,
 )
 from tmv_tpu_torch.models.layers.common import init_weights
 from tmv_tpu_torch.models.yolo_v3 import YoloV3
@@ -138,11 +138,13 @@ def test_masked_warm_up_matches_jax(v3_case):
     optimizer = masked_optimizer(
         lambda params: torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8),
         net, mask)
+    assert all(p.requires_grad for p in net.parameters())
     state = TrainState.create(net, optimizer)
     step = make_train_step(make_yolo_loss_fn((64, 64), ANCHORS, iou_type="iou"),
                            shadow_loss=True)
-    losses = [step(state, port_batch(*b)) for b in batches]
-    net.requires_grad_(True)
+    with frozen(net, mask):
+        losses = [step(state, port_batch(*b)) for b in batches]
+    assert all(p.requires_grad for p in net.parameters())
     for m, (loss, raw) in zip(losses, jax_losses):
         np.testing.assert_allclose([float(m["loss"]), float(m["raw_loss"])], [loss, raw],
                                    rtol=1e-5, atol=1e-6)

@@ -212,7 +212,7 @@ def warm_start(model, loss_fn, pipeline, lr: float, steps: int):
     import torch
 
     from tmv_tpu_torch.core.train_state import TrainState, make_train_step
-    from tmv_tpu_torch.models.detector_harness import freeze_mask, masked_optimizer
+    from tmv_tpu_torch.models.detector_harness import freeze_mask, frozen, masked_optimizer
 
     mask = freeze_mask(model, HEAD_PREFIXES)
     warm = TrainState.create(model, masked_optimizer(
@@ -221,11 +221,11 @@ def warm_start(model, loss_fn, pipeline, lr: float, steps: int):
     warm_step = make_train_step(loss_fn, shadow_loss=True)
     it = iter(pipeline)
     try:
-        for _ in range(steps):
-            warm_step(warm, next(it))
+        with frozen(model, mask):
+            for _ in range(steps):
+                warm_step(warm, next(it))
     finally:
         it.close()
-        model.requires_grad_(True)
     print("warm start done", flush=True)
 
 

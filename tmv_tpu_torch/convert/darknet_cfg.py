@@ -9,7 +9,7 @@ them, and because its convs run in cfg order the traced-order importer
 (``convert.darknet``) loads ``.weights`` into it directly.
 
 Sections: ``[convolutional]`` (filters/size/stride/batch_normalize/activation
-leaky | mish | linear; stride 2 with Darknet's top-left pad), ``[shortcut]``
+leaky | mish | linear, any other name as linear; stride 2 with Darknet's top-left pad), ``[shortcut]``
 (a residual add with layer ``from``), ``[route]`` (concat of ``layers``,
 negative = relative, with ``groups``/``group_id`` slicing), ``[upsample]``
 (nearest ×2), ``[maxpool]`` (size/stride, SAME) and ``[yolo]`` (marks the
@@ -27,8 +27,9 @@ from typing import List, Tuple
 import torch
 import torch.nn as nn
 
-from tmv_tpu_torch.models.layers.common import ConvBN, DarknetConv, max_pool_same, upsample2x
-from tmv_tpu_torch.ops.activations import leaky_relu, mish
+from tmv_tpu_torch.models.layers.common import (
+    ACTIVATIONS, ConvBN, DarknetConv, max_pool_same, upsample2x,
+)
 
 Section = Tuple[str, Tuple[Tuple[str, str], ...]]
 
@@ -66,22 +67,19 @@ def parse_darknet_cfg(cfg) -> Tuple[Section, ...]:
     return tuple((name, tuple(kvs)) for name, kvs in sections)
 
 
-_PLAIN_ACTS = {"leaky": leaky_relu, "mish": mish}
-
-
 class DarknetCfgNet(nn.Module):
     """Interpreter of a parsed Darknet cfg: NHWC image → the ``[yolo]`` layers'
     outputs (NHWC), or the last layer's where there is none."""
 
-    def __init__(self, sections: Tuple[Section, ...], channels: int = 3,
-                 dtype: torch.dtype = torch.float32, device=None, param_dtype=None):
+    def __init__(self, sections: Tuple[Section, ...], dtype: torch.dtype = torch.float32,
+                 device=None):
         super().__init__()
         self.dtype = dtype
-        kw = dict(dtype=param_dtype or dtype, device=device)
+        kw = dict(dtype=dtype, device=device)
         self.layers: List[Tuple[str, dict, str]] = []   # (kind, options, module name)
         widths: List[int] = []
         counts = {"ConvBN": 0, "DarknetConv": 0}
-        c = channels
+        c = 3
         for name, kvs in sections:
             kind, o = name.rsplit("_", 1)[0], dict(kvs)
             if kind in ("net", "network"):
@@ -91,13 +89,13 @@ class DarknetCfgNet(nn.Module):
                 filters, size = int(o["filters"]), int(o.get("size", 1))
                 stride = int(o.get("stride", 1))
                 with_bn = "batch_normalize" in o and o["batch_normalize"] != "0"
+                if o.get("activation") not in ("leaky", "mish"):
+                    o["activation"] = "linear"
                 base = "ConvBN" if with_bn else "DarknetConv"
                 module_name = f"{base}_{counts[base]}"
                 counts[base] += 1
                 if with_bn:
-                    act = o.get("activation", "linear")
-                    module = ConvBN(c, filters, size, strides=stride,
-                                    act=act if act in _PLAIN_ACTS else "linear", **kw)
+                    module = ConvBN(c, filters, size, strides=stride, act=o["activation"], **kw)
                 else:
                     module = DarknetConv(c, filters, size, strides=stride, use_bias=True, **kw)
                 self.add_module(module_name, module)
@@ -116,7 +114,7 @@ class DarknetCfgNet(nn.Module):
             if kind == "convolutional":
                 x = getattr(self, module_name)(x)
                 if module_name.startswith("DarknetConv"):
-                    x = _PLAIN_ACTS.get(o.get("activation", "linear"), lambda v: v)(x)
+                    x = ACTIVATIONS[o["activation"]](x)
             elif kind == "shortcut":
                 x = x + outputs[int(o["from"])]
             elif kind == "route":

@@ -3,7 +3,8 @@
 Port of ``tmv_tpu/models/detector_harness.py::build_yolo_model``,
 ``make_yolo_loss_fn``, ``make_yolo_predict``, ``make_yolo_predict_batched``,
 ``ground_truth_from_targets``, ``eval_map_step``, ``freeze_mask`` and
-``masked_optimizer``. The predictors keep the
+``masked_optimizer`` (with ``frozen``, which keeps the frozen parameters out of
+the backward pass during the warm-up). The predictors keep the
 thresholds and the padded ``(boxes, classes_id, scores, valid)`` contract;
 results come back as host numpy arrays, as ``serving.app`` reads them. There is
 no ``jit``: the predictors run eagerly under ``torch.inference_mode()``. The
@@ -14,6 +15,7 @@ that ``DetectionService`` and ``MicroBatcher`` drive it unchanged; the weights
 live in the module it was made with, and ``variables`` is not read (pass None).
 """
 
+import contextlib
 from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
@@ -159,12 +161,24 @@ def masked_optimizer(make_optimizer: Callable, model: torch.nn.Module,
     """The warm-start optimizer (`yolo_v3/train.py:79-87`):
     ``make_optimizer(params)`` over the trainable parameters only, so that a
     frozen parameter gets no update and no optimizer state, as under
-    ``optax.masked``. The frozen parameters are set ``requires_grad=False``,
-    so the backward pass computes no gradient for them (JAX's computes one and
-    zeroes its update); ``model.requires_grad_(True)`` undoes it after the
-    warm-up. BatchNorm statistics still update in train mode."""
+    ``optax.masked``. The model is left as it is; ``frozen`` spares the
+    backward pass the frozen parameters' gradients."""
     if set(mask) != {name for name, _ in model.named_parameters()}:
         raise KeyError("the mask and the model's parameters differ")
-    for name, p in model.named_parameters():
-        p.requires_grad_(mask[name])
     return make_optimizer([p for name, p in model.named_parameters() if mask[name]])
+
+
+@contextlib.contextmanager
+def frozen(model: torch.nn.Module, mask: Dict[str, bool]):
+    """Within the block, the parameters that ``mask`` freezes take no gradient
+    (JAX's step computes one and ``optax.masked`` zeroes its update); each
+    parameter's ``requires_grad`` is restored on the way out. BatchNorm
+    statistics still update in train mode."""
+    before = {name: p.requires_grad for name, p in model.named_parameters()}
+    try:
+        for name, p in model.named_parameters():
+            p.requires_grad_(mask[name])
+        yield model
+    finally:
+        for name, p in model.named_parameters():
+            p.requires_grad_(before[name])
