@@ -8,7 +8,9 @@ hand-written CUDA kernels: YOLOv4 @640 (80 classes, full width) and
 EfficientDet-D0 @512 (81 classes, full width and depth), each predicting and
 served at ``POST /ai_api/object_detection/predict``, on seeded random weights;
 then each model's trainer and eval CLI; then YOLOv3 @416 and the ResNet50V2
-YOLO tower (phases 15-17), whose IoU NMS goes through the same sweep kernel.
+YOLO tower (phases 15-17), whose IoU NMS goes through the same sweep kernel;
+then YOLOv4 @608 mosaic training with the staging cache and ``--remat``, UNet
+@128 training, and the WSGI entry and detect CLI (phases 18-20).
 Phases, each printing its own lines:
 
 1. environment: torch/CUDA/nvcc versions and the card (nvidia-smi);
@@ -106,7 +108,33 @@ Phases, each printing its own lines:
     converted checkpoint directory (its own labels: mAP strictly between 0 and
     1), kernel and plain sweep (equal mAPs, identical kept rows, identical whole
     sweep masks, and suppressions on the converted checkpoint); and the port's
-    server on the trained checkpoint directory answering one request.
+    server on the trained checkpoint directory answering one request;
+18. YOLOv4 @608 with mosaic (80 classes, the COCO anchors scaled by 608/416):
+    ``cli/train_yolo.py --imageSize 608 --mosaic 1.0 --cacheDir … --bf16`` for two
+    epochs of 10 steps at b8 with a val pass per epoch through the NMS kernel
+    (launches counted), no image decoded again once cached; two passes over the
+    whole set through the cache (the second decodes nothing and its frames and
+    labels equal uncached staging), the host staging time of a batch decoding
+    and from the cache; ``mosaic_batch`` on the card against the CPU for one set
+    of draws (boxes, classes, valid identical, pixels within one uint8 step);
+    the step by CUDA events, its kernels' device time (torch.profiler) and its
+    peak memory without and with ``--remat`` (remat must lower the peak), and
+    one float32 step (TF32 off, deterministic
+    cuDNN) with remat against the step without it run twice (within 2x that
+    spread + 1e-6);
+19. UNet @128 through ``cli/train_unet.py`` at the CLI's defaults (depth 4,
+    width 16, 4 points, b4, float32) on 16 synthetic labelme quads the script
+    writes: 20 steps with the dumps and checkpoints of two windows and a resume;
+    the step by CUDA events, its kernels' device time and its peak memory at
+    widths 16 and 64; an overfit
+    of one fixed batch (30 steps at lr 1e-2 must halve the loss); one float32
+    step on the card and on the CPU against the CPU's float64 step by phase
+    11's rule;
+20. the serving leftovers: ``tmv_tpu_torch.serving.wsgi:application`` built from
+    the ``TMV_*`` environment (bf16, cuda) on phase 18's checkpoint directory (6
+    requests through the NMS kernel) and on phase 13's D0 directory (4 requests,
+    16 depthwise launches each), and ``cli/detect.py`` (float32) writing its
+    image for both.
 
 The serving weights are seeded (``--randomInit --seed 0`` of each family), adjusted so
 that NMS has real work: YOLOv4's three output convs' box rows are scaled by
@@ -149,6 +177,10 @@ TRAIN_STEPS_PER_EPOCH = 20
 TRAIN_SET = 64
 VAL_SET = 16
 OVERFIT_STEPS = 30
+MOSAIC_IMAGE = 608
+MOSAIC_STEPS_PER_EPOCH = 10
+UNET_SET = 16
+UNET_STEPS = 20
 D0_TRAIN_BATCH = 16
 V3_IMAGE = 416
 V3_STEPS_PER_EPOCH = 10
@@ -2102,6 +2134,410 @@ def phase_v3_eval(card, files, ckpt, converted):
 
 
 
+# ------------------------------------------------- slice 7: mosaic, UNet, serving
+
+def write_anchors(files, size):
+    """The COCO anchors scaled by ``size / 416``, as an anchors file."""
+    from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS
+
+    scaled = np.round(COCO_ANCHORS * size / TRAIN_IMAGE).astype(np.int64)
+    path = os.path.join(os.path.dirname(files["anchors"]), f"anchors_{size}.txt")
+    with open(path, "w") as f:
+        f.write(",".join(str(int(v)) for v in scaled[::-1].reshape(-1)))
+    return path
+
+
+def mosaic_setup(anchors, dtype, seed, remat=False):
+    """YOLOv4 at 608 (80 classes) on the card, its train state and step."""
+    import torch
+
+    from tmv_tpu_torch.core.train_state import TrainState, make_train_step
+    from tmv_tpu_torch.models.detector_harness import build_yolo_model, make_yolo_loss_fn
+    from tmv_tpu_torch.models.layers.common import init_weights
+
+    model, _ = build_yolo_model("v4", 80, dtype=dtype, device="cuda",
+                                param_dtype=torch.float32, remat=remat)
+    init_weights(model, seed)
+    model = model.to(memory_format=torch.channels_last)
+    state = TrainState.create(model, torch.optim.Adam(model.parameters(), lr=5e-4))
+    loss_fn = make_yolo_loss_fn((MOSAIC_IMAGE, MOSAIC_IMAGE), anchors, iou_type="ciou")
+    return state, loss_fn, make_train_step(loss_fn, shadow_loss=True)
+
+
+def phase_mosaic_train(card, files):
+    """Phase 18: YOLOv4 @608 with mosaic through the trainer CLI and the staging
+    cache, mosaic on the card against the CPU, the step with and without remat."""
+    import torch
+
+    from tmv_tpu_torch.cli import train_yolo
+    from tmv_tpu_torch.data.loaders import load_anchors
+    from tmv_tpu_torch.data.mosaic import draw_mosaic_params, mosaic_batch
+    from tmv_tpu_torch.data.yolo_pipeline import YoloDataPipeline
+    from tmv_tpu_torch.kernels import nms_sweep
+
+    t_phase = time.perf_counter()
+    anchors_file = write_anchors(files, MOSAIC_IMAGE)
+    anchors = load_anchors(anchors_file)
+    ckpt = os.path.join(WORK, "yolov4_608_mosaic")
+    cache = os.path.join(WORK, "stage_cache_608")
+    for d in (ckpt, cache):
+        shutil.rmtree(d, ignore_errors=True)
+    argv = ["--version", "v4", "--trainData", files["labels"], "--trainImagePath",
+            files["images"], "--valData", files["val"], "--valImagePath", files["images"],
+            "--classesFile", files["classes"], "--anchorsFile", anchors_file,
+            "--imageSize", str(MOSAIC_IMAGE), "--mosaic", "1.0", "--cacheDir", cache, "--bf16",
+            "--batchSize", str(TRAIN_BATCH), "--stepsPerEpoch", str(MOSAIC_STEPS_PER_EPOCH),
+            "--epochs", "2", "--lr", "5e-4", "--modelPath", ckpt, "--device", "cuda"]
+    staged = []            # (image path, served from the cache) of the cached pipeline
+    real_stage = YoloDataPipeline.stage_one
+
+    def stage(self, label):
+        if self.cache is not None:
+            staged.append((label["image_path"], self.cache.get(label["_cache_row"]) is not None))
+        return real_stage(self, label)
+
+    torch.cuda.reset_peak_memory_stats()
+    nms_sweep.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(YoloDataPipeline, "stage_one", stage):
+        out = train_yolo.main(argv)
+    wall = time.perf_counter() - t0
+    val_launches = nms_sweep.launches
+    cli_peak = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = 2 * MOSAIC_STEPS_PER_EPOCH
+    check(out["step"] == steps and len(records) == steps, f"the 608 CLI took {out['step']} steps")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["raw_loss"]) for r in records),
+          "a non-finite loss at 608 with mosaic")
+    check(len(out["val_mAP"]) == 2 and val_launches >= 2 * VAL_SET,
+          f"608 val passes: {out['val_mAP']}, {val_launches} NMS launches")
+    per_epoch = MOSAIC_STEPS_PER_EPOCH * TRAIN_BATCH
+    first, second = staged[:per_epoch], staged[per_epoch:2 * per_epoch]
+    seen = {p for p, _ in first}
+    decoded_again = [p for p, hit in second if not hit and p in seen]
+    check(not decoded_again, f"epoch 2 decoded {len(decoded_again)} images epoch 1 had cached")
+    decodes = [sum(not hit for _, hit in part) for part in (first, second)]
+    host_step = statistics.median(r["step_time_s"] for r in records[2:]) * 1e3
+    print(f"phase 18 train CLI: YOLOv4 80 classes @{MOSAIC_IMAGE} b{TRAIN_BATCH} bf16 --mosaic "
+          f"1.0 --cacheDir, anchors x{MOSAIC_IMAGE}/{TRAIN_IMAGE}: {steps} steps in {wall:.1f} s "
+          f"with two val passes of {VAL_SET} images; raw loss first {records[0]['raw_loss']:.2f}, "
+          f"last {records[-1]['raw_loss']:.2f}; val mAP {[round(m, 4) for m in out['val_mAP']]}; "
+          f"host step time p50 {host_step:.2f} ms; decodes per epoch {decodes} of {per_epoch} "
+          f"stagings ({len(seen)} distinct images in epoch 1, none decoded again in epoch 2); "
+          f"nms_sweep.launches in the val passes {val_launches}; peak memory {cli_peak:.2f} GiB "
+          f"on [{card}]", flush=True)
+
+    # the cache over whole passes of the set, against uncached staging
+    pipeline = YoloDataPipeline(files["images"], files["labels"], files["classes"], TRAIN_BATCH,
+                                anchors, image_wh=(MOSAIC_IMAGE, MOSAIC_IMAGE), mosaic=1.0,
+                                cache_dir=cache, device="cuda")
+    labels = pipeline.labels
+    count = {"decode": 0}
+    real_decode = pipeline.stage_one_uncached
+
+    def decode(label):
+        count["decode"] += 1
+        return real_decode(label)
+
+    pipeline.stage_one_uncached = decode
+    passes = []
+    with ThreadPoolExecutor(TRAIN_BATCH) as pool:
+        for _ in range(2):
+            count["decode"] = 0
+            rows = [pipeline.stage_batch(labels[i:i + TRAIN_BATCH], pool)
+                    for i in range(0, len(labels), TRAIN_BATCH)]
+            passes.append((count["decode"], rows))
+        check(passes[1][0] == 0, f"the second pass over the set decoded {passes[1][0]} images")
+        for i, row in zip(range(0, len(labels), TRAIN_BATCH), passes[1][1]):
+            fresh = [real_decode(lb) for lb in labels[i:i + TRAIN_BATCH]]
+            for got, want in zip(row, (np.stack(z) for z in zip(*fresh))):
+                check(np.array_equal(got, want), "a cached frame differs from uncached staging")
+        batch_labels = labels[:TRAIN_BATCH]
+        cached_ms = host_ms(lambda: pipeline.stage_batch(batch_labels, pool), 5)
+        plain = YoloDataPipeline(files["images"], files["labels"], files["classes"],
+                                 TRAIN_BATCH, anchors, image_wh=(MOSAIC_IMAGE, MOSAIC_IMAGE),
+                                 device="cuda")
+        uncached_ms = host_ms(lambda: plain.stage_batch(batch_labels, pool), 5)
+        staged_batch = pipeline.stage_batch(batch_labels, pool)
+    print(f"phase 18 staging cache: a pass over the {len(labels)} images decoded "
+          f"{passes[0][0]} (those the CLI had not staged), the next pass {passes[1][0]}, its "
+          f"frames and labels bit-equal to uncached staging; host staging of a batch of "
+          f"{TRAIN_BATCH} ({TRAIN_BATCH} threads, median of 5): {uncached_ms:.2f} ms decoding, "
+          f"{cached_ms:.2f} ms from the cache on [{card}]", flush=True)
+
+    # mosaic on the card against the CPU, same draws
+    draws = draw_mosaic_params(torch.Generator().manual_seed(18), TRAIN_BATCH,
+                               (MOSAIC_IMAGE, MOSAIC_IMAGE))
+    host = [torch.from_numpy(a) for a in staged_batch]
+    want = mosaic_batch(*host, *draws)
+    got = [t.cpu() for t in mosaic_batch(*(t.cuda() for t in host), *draws)]
+    pixel_steps = int((got[0].int() - want[0].int()).abs().max())
+    check(all(torch.equal(g, w) for g, w in zip(got[1:], want[1:])),
+          "mosaic boxes, classes or valid differ between the card and the CPU")
+    check(pixel_steps <= 1, f"mosaic pixels differ by {pixel_steps} uint8 steps")
+    mosaic_ms = cuda_ms(lambda: mosaic_batch(*(t.cuda() for t in host), *draws), 5)
+    print(f"phase 18 mosaic card vs CPU (b{TRAIN_BATCH} uint8 @{MOSAIC_IMAGE}, one set of "
+          f"draws): boxes, classes and valid identical, pixels within {pixel_steps} uint8 "
+          f"step(s) (tolerance 1), {int(got[3].sum())} valid boxes; mosaic_batch with its H2D "
+          f"{mosaic_ms:.2f} ms on [{card}]", flush=True)
+
+    # the step with and without remat
+    it = iter(pipeline)
+    batch = next(it)
+    it.close()
+    timing = {}
+    for remat in (False, True):
+        state, _, step = mosaic_setup(anchors, torch.bfloat16, 0, remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for _ in range(2):
+            step(state, batch)
+        ms = cuda_ms(lambda: step(state, batch), 5)
+        timing[remat] = (ms, (torch.cuda.max_memory_allocated() - base) / 2**30,
+                         torch.cuda.max_memory_allocated() / 2**30,
+                         step_kernel_ms(lambda: step(state, batch), 3))
+        del state, step
+        torch.cuda.empty_cache()
+    check(timing[True][1] < timing[False][1], f"remat did not lower the peak memory: {timing}")
+    # float32, TF32 off: the step without remat twice (its own run-to-run spread:
+    # atomics in the loss's scatter) and with remat once, from one state_dict
+    results = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, False, True):
+            state, loss_fn, _ = mosaic_setup(anchors, torch.float32, 2, remat)
+            model = state.model.train()
+            loss, _ = loss_fn(model, {"image": batch["image"], "targets": batch["targets"]})
+            loss.backward()
+            results.append((loss.item(), grads_of(model)))
+            del state, model, loss
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (direct, _), (again, _), (with_remat, _) = results
+    spread, grad_err = rel_l2(results[1][1], results[0][1]), rel_l2(results[2][1], results[0][1])
+    loss_diff = abs(with_remat - direct)
+    check(loss_diff <= 2 * abs(again - direct) + 1e-6 * abs(direct)
+          and grad_err[1] <= 2 * spread[1] + 1e-6,
+          f"remat f32 step: loss {with_remat} vs {direct} (again {again}), gradients "
+          f"{grad_err} against the spread {spread}")
+    results = {False: results[0], True: results[2]}
+    print(f"phase 18 remat on [{card}]: YOLOv4 80 classes @{MOSAIC_IMAGE} b{TRAIN_BATCH} bf16 "
+          f"(mosaic batch): step {timing[False][0]:.2f} ms without, {timing[True][0]:.2f} ms "
+          f"with remat (CUDA events, 5 steps after 2); step peak memory above the resident "
+          f"state {timing[False][1]:.2f} GiB without, {timing[True][1]:.2f} GiB with remat "
+          f"(process peak {timing[False][2]:.2f} / {timing[True][2]:.2f} GiB); kernels' device "
+          f"time per step (torch.profiler, 3 steps) {timing[False][3]:.2f} ms without, "
+          f"{timing[True][3]:.2f} ms with remat; float32 step "
+          f"(TF32 off, deterministic cuDNN) loss {results[False][0]:.6f} without, "
+          f"{results[True][0]:.6f} with remat (difference {loss_diff:.3g}; the step without "
+          f"remat run twice differs by {abs(again - direct):.3g}), gradients' relative L2 "
+          f"difference with remat: overall {grad_err[0]:.3g}, worst tensor {grad_err[1]:.3g}; "
+          f"without remat twice: {spread[0]:.3g}, {spread[1]:.3g} (tolerance: within 2x that "
+          f"spread + 1e-6); phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"ckpt": ckpt, "anchors_file": anchors_file, "val_launches": val_launches,
+            "timing": timing, "grad_err": grad_err}
+
+
+def write_labelme_set(root, count=UNET_SET):
+    """``count`` seeded 240 x 180 JPEGs, each a gradient with one filled
+    quadrilateral, and a labelme JSON per image holding its 4 corners."""
+    from PIL import Image, ImageDraw
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(19)
+    h, w = 180, 240
+    y, x = np.mgrid[0:h, 0:w]
+    base = np.stack([x * 255 // w, y * 255 // h, np.full_like(x, 90)], -1).astype(np.uint8)
+    for i in range(count):
+        im = Image.fromarray(base)
+        cx, cy = rng.uniform(90, 150), rng.uniform(70, 110)
+        hw, hh = rng.uniform(40, 70), rng.uniform(30, 50)
+        quad = [(cx + sx * hw + rng.uniform(-8, 8), cy + sy * hh + rng.uniform(-8, 8))
+                for sx, sy in ((-1, -1), (1, -1), (1, 1), (-1, 1))]
+        ImageDraw.Draw(im).polygon(quad, fill=tuple(int(v) for v in rng.integers(0, 256, 3)))
+        im.save(os.path.join(root, f"doc{i}.jpg"), quality=90)
+        with open(os.path.join(root, f"doc{i}.json"), "w") as f:
+            json.dump({"imagePath": f"doc{i}.jpg",
+                       "shapes": [{"label": "doc", "points": [list(p) for p in quad]}]}, f)
+    return root
+
+
+def unet_setup(filters_base, device, dtype=None, seed=0, lr=1e-3):
+    """UNetLogits at the CLI's depth 4 and 4 points, its Adam state and step."""
+    import torch
+
+    from tmv_tpu_torch.core.train_state import TrainState, make_train_step
+    from tmv_tpu_torch.models.unet import UNetLogits, init_weights, make_unet_loss_fn
+
+    model = init_weights(UNetLogits(4, filters_base, 4), seed)
+    model = model.to(device=device, dtype=dtype or torch.float32,
+                     memory_format=torch.channels_last)
+    state = TrainState.create(model, torch.optim.Adam(model.parameters(), lr=lr))
+    return state, make_unet_loss_fn(), make_train_step(make_unet_loss_fn(),
+                                                       clip_global_norm=10.0)
+
+
+def phase_unet(card):
+    """Phase 19: UNet @128 through cli/train_unet.py at its defaults, its step's
+    numbers at widths 16 and 64, an overfit, float32 against float64, a resume."""
+    import torch
+
+    from tmv_tpu_torch.cli import train_unet
+    from tmv_tpu_torch.data.unet_dataset import get_dataset
+
+    t_phase = time.perf_counter()
+    root = write_labelme_set(os.path.join(WORK, "unet_set"))
+    ckpt = os.path.join(WORK, "unet_train")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--labelPath", root, "--steps", str(UNET_STEPS), "--dumpEvery",
+            str(UNET_STEPS // 2), "--modelPath", ckpt, "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_unet.main(argv)
+    wall = time.perf_counter() - t0
+    check(out["step"] == UNET_STEPS and all(np.isfinite(out["losses"])),
+          f"the UNet CLI: step {out['step']}, losses {out['losses'][:3]}")
+    windows = (UNET_STEPS // 2 - 1, UNET_STEPS - 1)
+    dumps = sorted(os.listdir(os.path.join(ckpt, "dumps")))
+    want = sorted([f"in_{i}.jpg" for i in windows] + [f"{k}_{i}_{c}.jpg" for k in ("pred", "target")
+                                                       for i in windows for c in range(4)])
+    check(dumps == want, f"UNet dumps {dumps}")
+    saved = sorted(f for f in os.listdir(ckpt) if f.endswith(".pt"))
+    check(saved == sorted(f"{i + 1}.pt" for i in windows), f"UNet checkpoints {saved}")
+    again = train_unet.main(argv[:3] + [str(UNET_STEPS + 5)] + argv[4:])
+    check(again["step"] == UNET_STEPS + 5 and len(again["losses"]) == 5,
+          f"the UNet resume took {again['step']} steps")
+    print(f"phase 19 UNet CLI: @128 depth 4 width 16 4 points b4 float32 (the CLI's "
+          f"defaults), {UNET_STEPS} steps in {wall:.1f} s, loss {out['losses'][0]:.4f} -> "
+          f"{out['losses'][-1]:.4f}, checkpoints {saved}, {len(dumps)} dump images; resumed "
+          f"from step {UNET_STEPS} to {again['step']} ({again['losses'][-1]:.4f}) on [{card}]",
+          flush=True)
+
+    batches, _ = get_dataset(root, 4, 4, (128, 128), (128, 128))
+    host = next(batches)
+    batch = {k: v.cuda() for k, v in host.items()}
+    numbers = {}
+    for width in (16, 64):
+        state, _, step = unet_setup(width, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for _ in range(3):
+            step(state, batch)
+        ms = cuda_ms(lambda: step(state, batch), 10)
+        numbers[width] = (ms, (torch.cuda.max_memory_allocated() - base) / 2**20,
+                          sum(p.numel() for p in state.model.parameters()),
+                          step_kernel_ms(lambda: step(state, batch), 3))
+        del state
+    state, _, step = unet_setup(16, "cuda", seed=1, lr=1e-2)
+    overfit = [float(step(state, batch)["raw_loss"]) for _ in range(OVERFIT_STEPS)]
+    check(all(np.isfinite(overfit)) and overfit[-1] <= overfit[0] / 2,
+          f"UNet overfit: loss {overfit[0]:.4f} -> {overfit[-1]:.4f}")
+    del state
+    results = {}
+    for name, device, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                                ("cpu f64", "cpu", torch.float64)):
+        state, loss_fn, _ = unet_setup(16, device, dtype, seed=2)
+        model = state.model.train()
+        loss, _ = loss_fn(model, {k: v.to(device, dtype) for k, v in host.items()})
+        loss.backward()
+        results[name] = (loss.item(), {n: p.grad.detach().cpu().double()
+                                       for n, p in model.named_parameters()
+                                       if p.grad is not None})
+        del state, model
+    (card_loss, card_g), (cpu_loss, cpu_g), (ref_loss, ref_g) = (
+        results[k] for k in ("card", "cpu", "cpu f64"))
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    card_err, cpu_err = rel_l2(card_g, ref_g), rel_l2(cpu_g, ref_g)
+    check(loss_rel <= 1e-3, f"UNet f32 loss card {card_loss} vs CPU {cpu_loss}")
+    check(card_err[0] <= 2 * cpu_err[0] + 1e-4 and card_err[1] <= 2 * cpu_err[1] + 1e-4,
+          f"UNet f32 gradients: card vs float64 {card_err}, CPU vs float64 {cpu_err}")
+    print(f"phase 19 UNet step on [{card}]: @128 b4 depth 4 float32 (CUDA events, 10 steps "
+          f"after 3): width 16 ({numbers[16][2]} parameters) {numbers[16][0]:.2f} ms "
+          f"({4e3 / numbers[16][0]:.1f} images/s), peak above the resident state "
+          f"{numbers[16][1]:.1f} MiB, kernels' device time per step (torch.profiler, 3 steps) "
+          f"{numbers[16][3]:.2f} ms; width 64 ({numbers[64][2]} parameters) "
+          f"{numbers[64][0]:.2f} ms ({4e3 / numbers[64][0]:.1f} images/s), "
+          f"{numbers[64][1]:.1f} MiB, kernels {numbers[64][3]:.2f} ms; overfit of one batch, {OVERFIT_STEPS} steps lr 1e-2: "
+          f"loss {overfit[0]:.4f} -> {overfit[-1]:.4f} ({overfit[0] / overfit[-1]:.1f}x; "
+          f"required >= 2x); f32 step (TF32 off): loss card {card_loss:.6f}, CPU "
+          f"{cpu_loss:.6f} (relative {loss_rel:.3g}), float64 {ref_loss:.6f}; gradients' "
+          f"relative L2 error against float64 (overall, worst tensor): card {card_err[0]:.3g}, "
+          f"{card_err[1]:.3g}; CPU float32 {cpu_err[0]:.3g}, {cpu_err[1]:.3g}; phase 19 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"numbers": numbers, "overfit": (overfit[0], overfit[-1]), "card_err": card_err,
+            "cpu_err": cpu_err}
+
+
+def wsgi_application(env):
+    """``tmv_tpu_torch.serving.wsgi.application`` built anew from ``env``."""
+    import importlib
+
+    with mock.patch.dict(os.environ, env):
+        sys.modules.pop("tmv_tpu_torch.serving.wsgi", None)
+        return importlib.import_module("tmv_tpu_torch.serving.wsgi").application
+
+
+def phase_serving_extras(card, files, mosaic, d0_ckpt):
+    """Phase 20: the WSGI module from the environment on phase 18's and phase
+    13's checkpoint directories, and cli/detect.py for both families."""
+    from tmv_tpu_torch.cli import detect
+    from tmv_tpu_torch.kernels import dwconv, nms_sweep
+
+    t_phase = time.perf_counter()
+    common = {"TMV_CLASSES_FILE": files["classes"], "TMV_BF16": "1", "TMV_DEVICE": "cuda"}
+    yolo_env = dict(common, TMV_MODEL_PATH=mosaic["ckpt"], TMV_FAMILY="yolo", TMV_VERSION="v4",
+                    TMV_ANCHORS_FILE=mosaic["anchors_file"], TMV_IMAGE_SIZE=str(MOSAIC_IMAGE))
+    d0_env = dict(common, TMV_MODEL_PATH=d0_ckpt, TMV_FAMILY="efficientdet",
+                  TMV_MODEL_NAME="efficientdet-d0", TMV_IMAGE_SIZE=str(D0_IMAGE))
+    served = {}
+    for name, env, count in (("YOLOv4 @608", yolo_env, 6), ("D0 @512", d0_env, 4)):
+        latencies, _, boxes, launches = drive_server(wsgi_application(env), count, seed=20)
+        check(launches["nms_sweep"] >= count, f"WSGI {name}: {launches} for {count} requests")
+        if name.startswith("D0"):
+            check(launches["dwconv_bn_swish"] == 16 * count,
+                  f"WSGI {name}: {launches['dwconv_bn_swish']} depthwise launches")
+        served[name] = (statistics.median(latencies), boxes, launches)
+    image = os.path.join(WORK, "detect_in.jpg")
+    with open(image, "wb") as f:
+        f.write(scene_jpeg(np.random.default_rng(20), 480, 640))
+    detected = {}
+    for name, extra in (("yolo", ["--anchorsFile", mosaic["anchors_file"], "--modelPath",
+                                  mosaic["ckpt"], "--imageSize", str(MOSAIC_IMAGE)]),
+                        ("efficientdet", ["--family", "efficientdet", "--modelPath", d0_ckpt,
+                                          "--imageSize", str(D0_IMAGE)])):
+        out = os.path.join(WORK, f"detect_{name}.jpg")
+        if os.path.exists(out):
+            os.remove(out)
+        nms_sweep.launches = dwconv.launches = 0
+        boxes, _, _ = detect.main(["--image", image, "--out", out, "--classesFile",
+                                   files["classes"], "--device", "cuda"] + extra)
+        launches = {"nms_sweep": nms_sweep.launches, "dwconv_bn_swish": dwconv.launches}
+        check(os.path.getsize(out) > 0 and launches["nms_sweep"] >= 1,
+              f"detect {name}: {out}, {launches}")
+        if name == "efficientdet":
+            check(launches["dwconv_bn_swish"] >= 16, f"detect {name}: {launches}")
+        detected[name] = (len(boxes), launches)
+    print(f"phase 20 serving leftovers on [{card}]: tmv_tpu_torch.serving.wsgi:application "
+          f"built from TMV_* (bf16, cuda) on phase 18's checkpoint directory answered 6 "
+          f"requests (p50 {served['YOLOv4 @608'][0]:.2f} ms, {served['YOLOv4 @608'][1]} "
+          f"boxes, launches {served['YOLOv4 @608'][2]}) and on phase 13's D0 directory 4 "
+          f"(p50 {served['D0 @512'][0]:.2f} ms, {served['D0 @512'][1]} boxes, launches "
+          f"{served['D0 @512'][2]}); cli/detect.py wrote its image for YOLOv4 @608 "
+          f"({detected['yolo'][0]} boxes, launches {detected['yolo'][1]}, the warm-up's "
+          f"included) and D0 @512 ({detected['efficientdet'][0]} boxes, launches "
+          f"{detected['efficientdet'][1]}); phase 20 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    nms = (sum(v[2]["nms_sweep"] for v in served.values())
+           + sum(v[1]["nms_sweep"] for v in detected.values()))
+    dw = (sum(v[2]["dwconv_bn_swish"] for v in served.values())
+          + sum(v[1]["dwconv_bn_swish"] for v in detected.values()))
+    return {"nms_sweep": nms, "dwconv_bn_swish": dw}
+
+
 def main():
     import torch
 
@@ -2130,10 +2566,15 @@ def main():
     v3_weights = phase_v3_slice(card)
     v3_serving = phase_v3_serving(card, v3_weights)
     v3_train = phase_v3_train(card, files, v3_weights)
+    mosaic = phase_mosaic_train(card, files)
+    phase_unet(card)
+    extras = phase_serving_extras(card, files, mosaic, d0_train["ckpt"])
     nms_launches = (yolo_launches["nms_sweep"] + d0_launches["nms_sweep"]
                     + train["val_launches"] + eval_launches + d0_eval["nms_sweep"]
-                    + v3_serving["launches"] + v3_train["launches"])
-    dw_launches = d0_launches["dwconv_bn_swish"] + d0_eval["dwconv_bn_swish"]
+                    + v3_serving["launches"] + v3_train["launches"] + mosaic["val_launches"]
+                    + extras["nms_sweep"])
+    dw_launches = (d0_launches["dwconv_bn_swish"] + d0_eval["dwconv_bn_swish"]
+                   + extras["dwconv_bn_swish"])
     dw = dw_sums[64]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s on [{card}]; kernels "
           f"line: nms_sweep at N=1024 B=1 (ms: device time by CUDA graph, mask + scan "
@@ -2143,10 +2584,13 @@ def main():
           f"({train['val_launches']}), the YOLOv4 eval CLI ({eval_launches}), the D0 eval CLI "
           f"({d0_eval['nms_sweep']}), the YOLOv3 trainer's val passes ({v3_train['val']}), the "
           f"YOLOv3 eval CLI ({v3_train['eval']}) and the YOLOv3 server on the trained "
-          f"checkpoint ({v3_train['serve']}); dwconv_bn_swish summed over the 16 launches of "
+          f"checkpoint ({v3_train['serve']}), the YOLOv4 @608 mosaic trainer's val passes "
+          f"({mosaic['val_launches']}) and the WSGI apps and detect CLI of phase 20 "
+          f"({extras['nms_sweep']}); dwconv_bn_swish summed over the 16 launches of "
           f"one D0 bf16 forward at B=64, launches over the D0 served path "
-          f"({d0_launches['dwconv_bn_swish']}) and the D0 eval CLI "
-          f"({d0_eval['dwconv_bn_swish']})", flush=True)
+          f"({d0_launches['dwconv_bn_swish']}), the D0 eval CLI "
+          f"({d0_eval['dwconv_bn_swish']}) and phase 20's D0 WSGI app and detect CLI "
+          f"({extras['dwconv_bn_swish']})", flush=True)
     print(json.dumps({"kernels": [
         {"name": "nms_sweep", "route": "cuda", "source": NMS_SOURCE, "replaces": NMS_REPLACES,
          "launches": nms_launches,

@@ -212,9 +212,12 @@ def test_pipeline_prefetch_thread_and_refusals(tmp_path, rng):
         assert a["image"].shape == (2, 32, 32, 3)
         assert float(a["image"].min()) >= 0 and float(a["image"].max()) <= 1
     threaded.close()
-    for bad, match in ((dict(mosaic=0.5), "mosaic"), (dict(cache_dir="c"), "stage_cache")):
-        with pytest.raises(ValueError, match=match):
-            YoloDataPipeline(*args, device="cpu", **bad)
+    # mosaic and the staging cache are ported: both options are taken
+    ported = YoloDataPipeline(*args, image_wh=(32, 32), seed=1, prefetch=0, mosaic=0.5,
+                              cache_dir=str(tmp_path / "cache"), device="cpu")
+    assert ported.mosaic == 0.5 and ported.cache is not None
+    assert next(iter(ported))["image"].shape == (2, 32, 32, 3)
+    assert ported.cache.filled_count == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             YoloDataPipeline(*args)

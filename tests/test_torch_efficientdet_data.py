@@ -178,9 +178,13 @@ def test_host_blur_and_noise_copies_match_jax(rng):
 def test_pipeline_refusals_and_default_device(tmp_path, rng):
     files = write_set(tmp_path, rng, n=2)
     anchors, _ = anchor_pair()
-    with pytest.raises(ValueError, match="stage_cache.py"):
+    # the staging cache is ported: it is refused only without device augmentation
+    with pytest.raises(ValueError, match="requires device_aug"):
         EfficientDetPipeline(*files, 2, anchors, CLASSES, cache_dir=str(tmp_path / "c"),
                              device="cpu")
+    cached = EfficientDetPipeline(*files, 2, anchors, CLASSES, cache_dir=str(tmp_path / "c"),
+                                  device_aug=True, device="cpu")
+    assert cached.cache is not None and cached.cache.filled_count == 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             EfficientDetPipeline(*files, 2, anchors, CLASSES)

@@ -202,21 +202,23 @@ def test_clis_refuse_unported_flags_and_need_a_card(tiny_set, capsys):
     root = tiny_set[0]
     train = ["--trainData", "l.txt", "--trainImagePath", "i", "--classesFile", "c.txt",
              "--anchorsFile", "a.txt"]
-    for extra in (["--mosaic", "0.5"], ["--cacheDir", "c"], ["--remat"], ["--dp"],
-                  ["--sp", "2"], ["--tp", "2"], ["--fsdp"]):
+    for extra in (["--dp"], ["--sp", "2"], ["--tp", "2"], ["--fsdp"]):
         with pytest.raises(SystemExit):
             train_yolo.parse_args(train + extra)
         err = capsys.readouterr().err
-        assert "not yet ported" in err and "ROADMAP" in err and extra[0] in err
+        assert "not yet ported" in err and "ROADMAP.md queue 6" in err and extra[0] in err
     assert train_yolo.parse_args(train).device == "cuda"
+    taken = train_yolo.parse_args(train + ["--mosaic", "0.5", "--cacheDir", "c", "--remat"])
+    assert (taken.mosaic, taken.cacheDir, taken.remat) == (0.5, "c", True)
     ported = train_yolo.parse_args(train + ["--version", "v3", "--darknetWeights", "x.weights",
                                             "--warmupSteps", "5"])
     assert (ported.version, ported.darknetWeights, ported.warmupSteps) == ("v3", "x.weights", 5)
-    for extra in (["--cacheDir", "c"], ["--int8Static"], ["--int8PerChannel"],
-                  ["--int8Margin", "0.5"]):
+    for extra in (["--int8Static"], ["--int8PerChannel"], ["--int8Margin", "0.5"]):
         with pytest.raises(SystemExit):
             eval_map.parse_args(cli_files(root) + extra)
-        assert "not yet ported" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert "not yet ported" in err and "ROADMAP.md queue 5: int8" in err
+    assert eval_map.parse_args(cli_files(root) + ["--cacheDir", "c"]).cacheDir == "c"
     for version in ("v3", "resnet"):
         assert eval_map.parse_args(cli_files(root) + ["--version", version]).version == version
     if not torch.cuda.is_available():
@@ -378,12 +380,13 @@ def test_d0_train_cli_on_cpu_saves_resumes_and_evaluates(d0_set, tmp_path, capsy
 
 def test_d0_train_cli_refuses_unported_flags_and_needs_a_card(capsys):
     train = ["--trainData", "l.txt", "--trainImagePath", "i", "--classesFile", "c.txt"]
-    for extra in (["--cacheDir", "c"], ["--remat"], ["--dp"], ["--sp", "2"], ["--tp", "2"],
-                  ["--fsdp"]):
+    for extra in (["--dp"], ["--sp", "2"], ["--tp", "2"], ["--fsdp"]):
         with pytest.raises(SystemExit):
             train_efficientdet.parse_args(train + extra)
         err = capsys.readouterr().err
-        assert "not yet ported" in err and "ROADMAP" in err and extra[0] in err
+        assert "not yet ported" in err and "ROADMAP.md queue 6" in err and extra[0] in err
+    taken = train_efficientdet.parse_args(train + ["--cacheDir", "c", "--deviceAug", "--remat"])
+    assert (taken.cacheDir, taken.remat) == ("c", True)
     args = train_efficientdet.parse_args(train)
     assert (args.device, args.modelName, args.batchSize) == ("cuda", "efficientdet-d1", 8)
     cfg = efficientdet_config("efficientdet-d0", D0_CLASSES, SIZE)

@@ -34,7 +34,7 @@ from tmv_tpu_torch.cli import serve
 from tmv_tpu_torch.convert.flax_bridge import flax_to_state_dict
 from tmv_tpu_torch.models.detector_harness import make_yolo_predict, make_yolo_predict_batched
 from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS, YoloV4
-from torch_port_cases import seeded_variables
+from torch_port_cases import seeded_variables, write_labelme
 
 SIZE = (64, 64)
 
@@ -139,7 +139,8 @@ def test_serve_refuses_unported_flags_and_missing_weights(tmp_path, capsys):
                   ["--artifact", "a.tmvx"]):
         with pytest.raises(SystemExit):
             serve.parse_args(base + ["--randomInit"] + extra)
-        assert "not yet ported" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert "not yet ported" in err and "ROADMAP.md queue" in err
     for version in ("v3", "resnet"):
         assert serve.parse_args(base + ["--randomInit", "--version", version]).version == version
     with pytest.raises(SystemExit):
@@ -162,8 +163,10 @@ def test_port_imports_no_jax(tmp_path):
     v3 and resnet, EfficientDet), the converters' call-order trace, a cfg net,
     ``freeze_mask``, and the trainers', converter's and eval CLI's arguments,
     pipelines (EfficientDet's host and device augmentation), train states and
-    D0's loss at a tiny size leave ``tmv_tpu`` (and jax, flax, jaxlib) out of
-    ``sys.modules``; h5py may be loaded."""
+    D0's loss at a tiny size, the WSGI module built from the environment, the
+    detect CLI's and UNet trainer's arguments, the UNet dataset, the mosaic and
+    cached YOLO pipelines and a remat step leave ``tmv_tpu`` (and jax, flax,
+    jaxlib) out of ``sys.modules``; h5py may be loaded."""
     yolo = _write_inputs(tmp_path) + ["--randomInit", "--imageSize", "32", "--device", "cpu",
                                       "--batch", "2"]
     det = _write_inputs(tmp_path)[:2] + ["--family", "efficientdet", "--randomInit",
@@ -181,6 +184,13 @@ def test_port_imports_no_jax(tmp_path):
     evaluate_d0 = files[:2] + ["--family", "efficientdet", "--imagePath", str(tmp_path),
                                "--labelFile", str(tmp_path / "labels.txt"), "--imageSize", "64",
                                "--device", "cpu"]
+    write_labelme(tmp_path)
+    unet_args = ["--labelPath", str(tmp_path), "--inputSize", "32", "--depth", "2",
+                 "--filtersBase", "4", "--batchSize", "2", "--remat", "--device", "cpu"]
+    wsgi_env = {"TMV_CLASSES_FILE": files[1], "TMV_FAMILY": "efficientdet",
+                "TMV_MODEL_PATH": str(tmp_path / "d0.pt"), "TMV_IMAGE_SIZE": "64",
+                "TMV_BF16": "0", "TMV_DEVICE": "cpu"}
+    detect_args = ["--image", str(tmp_path / "im0.png"), "--modelPath", "m"] + files
     code = ("import sys, pkgutil, importlib, tmv_tpu_torch\n"
             "for m in pkgutil.walk_packages(tmv_tpu_torch.__path__, 'tmv_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
@@ -230,6 +240,30 @@ def test_port_imports_no_jax(tmp_path):
             "loss, _ = make_efficientdet_loss_fn(generator=gen)(net.train(), b)\n"
             "make_line_search_train_step(make_efficientdet_loss_fn(generator=gen))\n"
             "assert b['image'].shape == (2, 64, 64, 3) and bool(torch.isfinite(loss))\n"
+            "import os\n"
+            "torch.save(net.state_dict(), " + repr(wsgi_env["TMV_MODEL_PATH"]) + ")\n"
+            f"os.environ.update({wsgi_env!r})\n"
+            "import tmv_tpu_torch.serving.wsgi as wsgi\n"
+            "wsgi = importlib.reload(wsgi)\n"
+            "assert callable(wsgi.application)\n"
+            "from tmv_tpu_torch.cli import detect, train_unet\n"
+            f"detect.parse_args({detect_args!r})\n"
+            f"u = train_unet.parse_args({unet_args!r})\n"
+            "from tmv_tpu_torch.data.unet_dataset import get_dataset\n"
+            "from tmv_tpu_torch.models.unet import UNetLogits, make_unet_loss_fn\n"
+            "batches, _ = get_dataset(u.labelPath, 2, 4, (32, 32), (32, 32))\n"
+            "ub = next(batches)\n"
+            "unet = UNetLogits(depth=u.depth, filters_base=u.filtersBase, remat=u.remat,\n"
+            "                  output_filters=4)\n"
+            "ustate = TrainState.create(unet, torch.optim.Adam(unet.parameters()))\n"
+            "m = make_train_step(make_unet_loss_fn(), clip_global_norm=10.0)(ustate, ub)\n"
+            "assert ustate.step == 1 and bool(torch.isfinite(m['loss']))\n"
+            "p = YoloDataPipeline(a.trainImagePath, a.trainData, a.classesFile, a.batchSize,\n"
+            "                     load_anchors(a.anchorsFile), image_wh=(32, 32), prefetch=0,\n"
+            "                     mosaic=1.0,\n"
+            "                     cache_dir=" + repr(str(tmp_path / "cache")) + ", device='cpu')\n"
+            "assert next(iter(p))['image'].shape == (2, 32, 32, 3)\n"
+            "assert p.cache.filled_count == 1\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('tmv_tpu', 'jax', 'flax', 'jaxlib'))\n"
             "assert not bad, bad\n"

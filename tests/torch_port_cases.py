@@ -161,3 +161,26 @@ def write_tiny_set(root, count=4, size=64, names=("red", "green", "blue")):
     return {k: str(root / v) for k, v in (("images", "imgs"), ("labels", "labels.txt"),
                                           ("classes", "classes.txt"),
                                           ("anchors", "anchors.txt"))}
+
+
+def write_labelme(root, count=5):
+    """``count`` seeded PNGs of 72 × 96 px, each with a labelme JSON holding one
+    4-corner quad shape (corners in a shuffled order); one extra JSON with two
+    shapes, kept only with ``first_shape``."""
+    import json
+
+    from PIL import Image
+
+    rng = np.random.default_rng(11)
+    for i in range(count + 1):
+        Image.fromarray(rng.integers(0, 256, (72, 96, 3), dtype=np.uint8)).save(
+            root / f"q{i}.png")
+        x0, y0 = rng.uniform(20, 35), rng.uniform(15, 25)
+        x1, y1 = rng.uniform(60, 75), rng.uniform(45, 55)
+        quad = [[x0, y0], [x1, y0 + 2], [x1 - 3, y1], [x0 + 2, y1 - 1]]
+        order = rng.permutation(4)
+        shapes = [{"label": "doc", "points": [quad[j] for j in order]}]
+        if i == count:
+            shapes.append({"label": "doc", "points": quad})
+        (root / f"q{i}.json").write_text(json.dumps({"imagePath": f"q{i}.png",
+                                                     "shapes": shapes}))

@@ -17,8 +17,10 @@ omitted, the model is seeded random weights (a smoke run only). YOLO images go
 through the batched predictor; EfficientDet batches through one eval-mode
 forward (the depthwise kernel on the card) and one NMS sweep, scored in the JAX
 eval's space (yxyx letterbox pixels, 1-based ids, ``num_classes`` = the
-dataset's classes + background). ``--device cuda`` (the default) raises where
-there is no GPU.
+dataset's classes + background). ``--cacheDir`` (yolo family only, as in the
+JAX CLI) stages the set through the memmap cache of ``data/stage_cache.py``,
+so a repeated evaluation of the same set decodes nothing. ``--device cuda``
+(the default) raises where there is no GPU.
 
 Usage:
     python -m tmv_tpu_torch.cli.eval_map --family yolo --version v4 \\
@@ -35,10 +37,9 @@ import json
 import numpy as np
 
 _NOT_PORTED = {
-    "--cacheDir": (lambda a: a.cacheDir is not None, "ROADMAP.md queue 1: data/stage_cache.py"),
-    "--int8Static": (lambda a: a.int8Static, "ROADMAP.md queue 1: int8"),
-    "--int8Margin": (lambda a: a.int8Margin is not None, "ROADMAP.md queue 1: int8"),
-    "--int8PerChannel": (lambda a: a.int8PerChannel, "ROADMAP.md queue 1: int8"),
+    "--int8Static": (lambda a: a.int8Static, "ROADMAP.md queue 5: int8"),
+    "--int8Margin": (lambda a: a.int8Margin is not None, "ROADMAP.md queue 5: int8"),
+    "--int8PerChannel": (lambda a: a.int8PerChannel, "ROADMAP.md queue 5: int8"),
 }
 
 
@@ -66,7 +67,8 @@ def parse_args(argv=None):
     p.add_argument("--scoresThresh", type=float, default=0.2)
     p.add_argument("--iouThresh", type=float, default=0.5)
     p.add_argument("--bf16", action="store_true")
-    p.add_argument("--cacheDir", default=None)
+    p.add_argument("--cacheDir", default=None,
+                   help="staging cache directory (yolo family only; data/stage_cache.py)")
     p.add_argument("--int8Static", action="store_true")
     p.add_argument("--int8Margin", type=float, default=None)
     p.add_argument("--int8PerChannel", action="store_true")
@@ -78,6 +80,9 @@ def parse_args(argv=None):
         p.error(f"not yet ported to tmv_tpu_torch: {'; '.join(refused)}")
     if args.family == "yolo" and args.anchorsFile is None:
         p.error("--anchorsFile is required for --family yolo")
+    if args.cacheDir and args.family != "yolo":
+        p.error("--cacheDir is yolo-family only (the efficientdet eval stages through "
+                "the host-aug loader)")
     return args
 
 
@@ -144,7 +149,7 @@ def predict_records(args):
     image_wh = (args.imageSize, args.imageSize)
     pipeline = YoloDataPipeline(args.imagePath, args.labelFile, args.classesFile,
                                 args.batchSize, anchors, image_wh=image_wh, image_random=False,
-                                label_mean=False, device=device)
+                                label_mean=False, cache_dir=args.cacheDir, device=device)
     classes_num = pipeline.classes_num
     model, iou_type = load_model(args, classes_num, anchors.shape[1], device)
     predict_b = make_yolo_predict_batched(

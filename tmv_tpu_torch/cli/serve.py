@@ -23,15 +23,16 @@ checkpoint. ``--device cuda`` (the default) raises where there is no GPU.
 
 import argparse
 
-# JAX-only flags, accepted by the parser so that they can be refused by name.
+# JAX-only flags, accepted by the parser so that they can be refused by name
+# → the ROADMAP.md item that holds them.
 _NOT_PORTED = {
-    "--int8": lambda a: a.int8,
-    "--int8Static": lambda a: a.int8Static is not None,
-    "--int8Margin": lambda a: a.int8Margin is not None,
-    "--int8PerChannel": lambda a: a.int8PerChannel,
-    "--dp": lambda a: a.dp is not None,
-    "--spatial": lambda a: a.spatial is not None,
-    "--artifact": lambda a: a.artifact is not None,
+    "--int8": (lambda a: a.int8, "ROADMAP.md queue 5: int8"),
+    "--int8Static": (lambda a: a.int8Static is not None, "ROADMAP.md queue 5: int8"),
+    "--int8Margin": (lambda a: a.int8Margin is not None, "ROADMAP.md queue 5: int8"),
+    "--int8PerChannel": (lambda a: a.int8PerChannel, "ROADMAP.md queue 5: int8"),
+    "--dp": (lambda a: a.dp is not None, "ROADMAP.md queue 6: multi-GPU training"),
+    "--spatial": (lambda a: a.spatial is not None, "ROADMAP.md queue 6: multi-GPU training"),
+    "--artifact": (lambda a: a.artifact is not None, "ROADMAP.md queue 6: export"),
 }
 
 
@@ -66,9 +67,10 @@ def parse_args(argv=None):
     p.add_argument("--spatial", type=int, default=None)
     p.add_argument("--artifact", default=None)
     args = p.parse_args(argv)
-    refused = [flag for flag, given in _NOT_PORTED.items() if given(args)]
+    refused = [f"{flag} ({where})" for flag, (given, where) in _NOT_PORTED.items()
+               if given(args)]
     if refused:
-        p.error(f"{', '.join(refused)}: not yet ported to tmv_tpu_torch "
+        p.error(f"not yet ported to tmv_tpu_torch: {'; '.join(refused)} "
                 "(serve them with python -m tmv_tpu.cli.serve)")
     if args.randomInit == (args.modelPath is not None):
         p.error("give exactly one of --modelPath and --randomInit")
@@ -79,9 +81,11 @@ def parse_args(argv=None):
     return args
 
 
-def _build_model(args, classes_num, dtype):
+def _build_model(args, classes_num, dtype, thresholds=None):
     """``(model, make_batched, init)`` of the family: the module, a factory of
-    its batched predictor and its seeded init."""
+    its batched predictor and its seeded init. ``thresholds`` (``confidence``,
+    ``scores``, ``iou``) replace the server's (the JAX server's 0.5, 0.2, 0.5
+    for YOLO; the predictor's own for EfficientDet)."""
     if args.family == "efficientdet":
         from tmv_tpu_torch.models.efficientdet.harness import (
             build_efficientdet, make_efficientdet_predict_batched,
@@ -91,7 +95,10 @@ def _build_model(args, classes_num, dtype):
         # background reserved at id 0
         model, anchors = build_efficientdet(args.modelName, classes_num + 1, args.imageSize,
                                             dtype=dtype, device=args.device)
-        return (model, lambda: make_efficientdet_predict_batched(model, anchors, args.imageSize),
+        kw = ({} if thresholds is None else
+              dict(iou_threshold=thresholds["iou"], score_threshold=thresholds["scores"]))
+        return (model,
+                lambda: make_efficientdet_predict_batched(model, anchors, args.imageSize, **kw),
                 init_weights)
 
     from tmv_tpu_torch.data.loaders import load_anchors
@@ -102,15 +109,18 @@ def _build_model(args, classes_num, dtype):
     model, iou_type = build_yolo_model(args.version, classes_num, anchors.shape[1], dtype=dtype,
                                        device=args.device)
     image_wh = (args.imageSize, args.imageSize)
-    kw = dict(confidence_thresh=0.5, scores_thresh=0.2, iou_thresh=0.5, iou_type=iou_type)
+    t = thresholds or dict(confidence=0.5, scores=0.2, iou=0.5)
+    kw = dict(confidence_thresh=t["confidence"], scores_thresh=t["scores"], iou_thresh=t["iou"],
+              iou_type=iou_type)
     return (model, lambda: make_yolo_predict_batched(model, image_wh, anchors, classes_num, **kw),
             init_weights)
 
 
-def build_service(args):
+def build_service(args, thresholds=None):
     """Model, weights and warm predictor → ``(service, model)``: a
     ``DetectionService`` ready for ``create_app``/``run_server`` (its
-    ``batcher`` is set when ``--batch`` > 1) and the module it serves."""
+    ``batcher`` is set when ``--batch`` > 1) and the module it serves.
+    ``thresholds`` as in ``_build_model`` (``cli/detect.py`` passes its own)."""
     import numpy as np
     import torch
 
@@ -123,7 +133,7 @@ def build_service(args):
     classes_name, classes_num = load_classes(args.classesFile)
     image_wh = (args.imageSize, args.imageSize)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model, make_batched, init_weights = _build_model(args, classes_num, dtype)
+    model, make_batched, init_weights = _build_model(args, classes_num, dtype, thresholds)
     if args.randomInit:
         print(f"WARNING: serving random weights (--randomInit --seed {args.seed}); "
               "the boxes mean nothing", flush=True)

@@ -11,7 +11,10 @@ loss, GracefulShutdown, ``metrics.jsonl`` and a final save. ``--bf16`` trains
 bf16 activations on float32 master weights and float32 momentum. The heads'
 ``drop_connect`` draws from a ``torch.Generator`` on the device seeded with the
 step's number, as the JAX CLI's draws come from ``jax.random.key(step)``, so a
-resumed run draws what the uninterrupted one would.
+resumed run draws what the uninterrupted one would. ``--remat`` recomputes
+each MBConv block, BiFPN cell and head in the backward (the heads' recompute
+draws the same masks); ``--cacheDir`` (with ``--deviceAug`` only) keeps the
+decoded, letterboxed frames in a memmap cache that later epochs read.
 ``--device cuda`` (the default) raises where there is no GPU; ``--device cpu``
 is for tests.
 
@@ -32,12 +35,10 @@ import numpy as np
 
 # Flags of the JAX CLI the port does not run yet → the later ROADMAP.md item.
 _NOT_PORTED = {
-    "--cacheDir": (lambda a: a.cacheDir is not None, "ROADMAP.md queue 1: data/stage_cache.py"),
-    "--remat": (lambda a: a.remat, "ROADMAP.md queue 1: --remat"),
-    "--dp": (lambda a: a.dp, "ROADMAP.md queue 1: multi-GPU training"),
-    "--sp": (lambda a: a.sp > 1, "ROADMAP.md queue 1: multi-GPU training"),
-    "--tp": (lambda a: a.tp > 1, "ROADMAP.md queue 1: multi-GPU training"),
-    "--fsdp": (lambda a: a.fsdp, "ROADMAP.md queue 1: multi-GPU training"),
+    "--dp": (lambda a: a.dp, "ROADMAP.md queue 6: multi-GPU training"),
+    "--sp": (lambda a: a.sp > 1, "ROADMAP.md queue 6: multi-GPU training"),
+    "--tp": (lambda a: a.tp > 1, "ROADMAP.md queue 6: multi-GPU training"),
+    "--fsdp": (lambda a: a.fsdp, "ROADMAP.md queue 6: multi-GPU training"),
 }
 
 
@@ -57,7 +58,8 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--accumSteps", type=int, default=1,
                    help="gradient accumulation micro-steps (batchSize must divide)")
-    p.add_argument("--remat", action="store_true")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute MBConv blocks, BiFPN cells and heads in the backward")
     p.add_argument("--dp", action="store_true")
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
@@ -67,7 +69,8 @@ def parse_args(argv=None):
     p.add_argument("--deviceAug", action="store_true",
                    help="blur/affine/noise augmentation batched on the device "
                         "(data/device_aug.py); the host only decodes and letterboxes")
-    p.add_argument("--cacheDir", default=None)
+    p.add_argument("--cacheDir", default=None,
+                   help="staging cache directory (data/stage_cache.py; needs --deviceAug)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     refused = [f"{flag} ({where})" for flag, (given, where) in _NOT_PORTED.items()
@@ -76,6 +79,9 @@ def parse_args(argv=None):
         p.error(f"not yet ported to tmv_tpu_torch: {'; '.join(refused)}")
     if args.batchSize % args.accumSteps:
         p.error("--accumSteps must divide --batchSize")
+    if args.cacheDir and not args.deviceAug:
+        p.error("--cacheDir requires --deviceAug (only the fixed staging frame is "
+                "deterministic; host augmentation draws anew every epoch)")
     return args
 
 
@@ -102,12 +108,13 @@ def main(argv=None):
     # head size follows the dataset: its classes + background id 0
     _, names_num = load_classes(args.classesFile)
     model, anchors = build_efficientdet(args.modelName, names_num + 1, size, dtype=dtype,
-                                        device=device, param_dtype=torch.float32)
+                                        device=device, param_dtype=torch.float32,
+                                        remat=args.remat)
     cfg = model.config
     pipeline = EfficientDetPipeline(args.trainImagePath, args.trainData, args.classesFile,
                                     args.batchSize, anchors, cfg.num_classes, image_size=size,
                                     max_boxes=args.maxBoxes, device_aug=args.deviceAug,
-                                    device=device)
+                                    cache_dir=args.cacheDir, device=device)
     init_weights(model, 0)
     model = model.to(memory_format=torch.channels_last)
 

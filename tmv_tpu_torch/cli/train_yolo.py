@@ -15,6 +15,11 @@ convs ``DarknetConv_0/1/2`` train (``freeze_mask``/``masked_optimizer``, Adam
 with the shadow loss, the BatchNorm statistics updating in train mode), then the
 main phase starts at step 0 from the warmed weights and statistics with a fresh
 Adam state. A resumed run (a checkpoint in ``--modelPath``) skips the warm-up.
+``--mosaic p`` replaces each training image by a 4-image mosaic with
+probability p (``data/mosaic.py``); ``--cacheDir`` keeps the decoded staging
+frames of the train set in a memmap cache that later epochs read
+(``data/stage_cache.py``); ``--remat`` recomputes each stage in the backward
+instead of storing its activations (``layers.common.remat_call``).
 ``--bf16`` trains bf16 activations on float32 master
 weights and float32 Adam moments. ``--device cuda`` (the default) raises where
 there is no GPU; ``--device cpu`` is for tests.
@@ -36,13 +41,10 @@ import numpy as np
 
 # Flags of the JAX CLI the port does not run yet → the later ROADMAP.md item.
 _NOT_PORTED = {
-    "--mosaic": (lambda a: a.mosaic > 0, "ROADMAP.md queue 1: data/mosaic.py"),
-    "--cacheDir": (lambda a: a.cacheDir is not None, "ROADMAP.md queue 1: data/stage_cache.py"),
-    "--remat": (lambda a: a.remat, "ROADMAP.md queue 1: --remat"),
-    "--dp": (lambda a: a.dp, "ROADMAP.md queue 1: multi-GPU training"),
-    "--sp": (lambda a: a.sp > 1, "ROADMAP.md queue 1: multi-GPU training"),
-    "--tp": (lambda a: a.tp > 1, "ROADMAP.md queue 1: multi-GPU training"),
-    "--fsdp": (lambda a: a.fsdp, "ROADMAP.md queue 1: multi-GPU training"),
+    "--dp": (lambda a: a.dp, "ROADMAP.md queue 6: multi-GPU training"),
+    "--sp": (lambda a: a.sp > 1, "ROADMAP.md queue 6: multi-GPU training"),
+    "--tp": (lambda a: a.tp > 1, "ROADMAP.md queue 6: multi-GPU training"),
+    "--fsdp": (lambda a: a.fsdp, "ROADMAP.md queue 6: multi-GPU training"),
 }
 
 
@@ -65,8 +67,10 @@ def parse_args(argv=None):
                    help="optional .weights warm start (convert.py parity)")
     p.add_argument("--warmupSteps", type=int, default=1000,
                    help="head-only warm start steps after --darknetWeights")
-    p.add_argument("--mosaic", type=float, default=0.0)
-    p.add_argument("--cacheDir", default=None)
+    p.add_argument("--mosaic", type=float, default=0.0,
+                   help="per-image probability of the 4-image mosaic (data/mosaic.py)")
+    p.add_argument("--cacheDir", default=None,
+                   help="staging cache directory (data/stage_cache.py)")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--dp", action="store_true")
     p.add_argument("--sp", type=int, default=1)
@@ -74,7 +78,8 @@ def parse_args(argv=None):
     p.add_argument("--fsdp", action="store_true")
     p.add_argument("--accumSteps", type=int, default=1,
                    help="gradient accumulation micro-steps (batchSize must divide)")
-    p.add_argument("--remat", action="store_true")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each stage in the backward (torch.utils.checkpoint)")
     p.add_argument("--earlyStopPatience", type=int, default=10,
                    help="epochs without train-loss improvement before stopping (0 disables)")
     p.add_argument("--reduceLrFactor", type=float, default=0.1)
@@ -116,10 +121,11 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.bf16 else torch.float32
 
     pipeline = YoloDataPipeline(args.trainImagePath, args.trainData, args.classesFile,
-                                args.batchSize, anchors, image_wh=image_wh, device=device)
+                                args.batchSize, anchors, image_wh=image_wh, mosaic=args.mosaic,
+                                cache_dir=args.cacheDir, device=device)
     model, predict_iou_type = build_yolo_model(args.version, pipeline.classes_num,
                                                anchors.shape[1], dtype=dtype, device=device,
-                                               param_dtype=torch.float32)
+                                               param_dtype=torch.float32, remat=args.remat)
     init_weights(model, 0)
     if args.darknetWeights:
         from tmv_tpu_torch.convert.darknet import load_darknet_weights

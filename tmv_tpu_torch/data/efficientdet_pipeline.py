@@ -17,8 +17,11 @@ sampling, a producer thread with a bounded queue. Two paths:
 
 Either way the batch's anchor targets are made on the device by one batched
 ``Anchors.generate_targets``, the host arrays copied from pinned memory.
-``with_raw_boxes`` adds each image's yxyx boxes and classes for the eval. The
-staging cache (``cache_dir``) and the native JPEG decoder are not ported.
+``with_raw_boxes`` adds each image's yxyx boxes and classes for the eval.
+``cache_dir`` (device augmentation only: the host path draws anew every epoch)
+serves the letterboxed uint8 frames from the memmap cache of
+``data/stage_cache.py`` (tag ``efficientdet-stage-pil``). The native JPEG
+decoder is not ported: staging decodes with PIL.
 """
 
 import random
@@ -59,9 +62,6 @@ class EfficientDetPipeline:
                  max_boxes: int = 100, augment: bool = True, label_mean: bool = True,
                  seed: int = 0, with_raw_boxes: bool = False, device_aug: bool = False,
                  prefetch: int = 2, cache_dir: str = None, device="cuda"):
-        if cache_dir:
-            raise ValueError("the staging cache (data/stage_cache.py) is not ported to "
-                             "tmv_tpu_torch yet (ROADMAP.md queue 1: data/stage_cache.py)")
         self.device = check_device(device)
         self.classes, _ = load_classes(classes_path)
         self.labels, self.labels_num = load_labels(label_path, image_path, self.classes)
@@ -77,6 +77,17 @@ class EfficientDetPipeline:
         self.sampler = ClassBalancedSampler(self.labels, label_mean, seed)
         self._rng = random.Random(seed)
         self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.cache = None
+        if cache_dir:
+            if not self.device_aug:
+                raise ValueError("cache_dir requires device_aug=True: only the fixed staging "
+                                 "frame is deterministic; the host-aug path draws anew every "
+                                 "epoch and is not cacheable")
+            from tmv_tpu_torch.data.stage_cache import StageCache, assign_rows
+
+            assign_rows(self.labels)
+            self.cache = StageCache(cache_dir, self.labels, (image_size, image_size), max_boxes,
+                                    tag="efficientdet-stage-pil")
 
     # ---------------------------------------------------------------- host
     def get_random_data(self, label: Dict, seed: int):
@@ -117,9 +128,15 @@ class EfficientDetPipeline:
         return img.astype(np.float32) / 255.0, boxes, classes
 
     def stage_fixed(self, label: Dict):
-        """Host staging of the device-augmentation path: decode and letterbox to
-        the network frame only → (uint8 image, padded xyxy boxes, classes + 1,
-        valid)."""
+        """Host staging of the device-augmentation path, through the staging
+        cache when there is one (``stage_fixed_uncached`` on a miss)."""
+        if self.cache is not None:
+            return self.cache.wrap(label, self.stage_fixed_uncached)
+        return self.stage_fixed_uncached(label)
+
+    def stage_fixed_uncached(self, label: Dict):
+        """Decode and letterbox to the network frame only → (uint8 image, padded
+        xyxy boxes, classes + 1, valid)."""
         s = self.image_size
         boxes = np.asarray(label["boxes"], np.float32).reshape(-1, 4)  # xyxy
         with open(label["image_path"], "rb") as f:

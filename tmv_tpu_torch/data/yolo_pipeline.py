@@ -11,8 +11,14 @@ The JAX package's ``_augment_one`` is split in two: ``draw_augment_params`` draw
 each image's eleven numbers (two aspect factors, scale, dx, dy, the flip coin
 and the five HSV draws) from a ``torch.Generator`` on the CPU, and
 ``augment_batch`` applies given numbers. The draws cannot equal threefry's; given
-the same numbers, the geometry and the HSV shift are the JAX package's. Mosaic,
-the staging cache and the native JPEG decoder are not ported.
+the same numbers, the geometry and the HSV shift are the JAX package's.
+
+With ``image_random`` and ``mosaic`` > 0 the staged batch first goes through the
+4-image mosaic (``data/mosaic.py``; its draws from the same generator, before
+the augmentation's), as the JAX pipeline runs it. ``cache_dir`` serves the
+staged frames from the memmap cache of ``data/stage_cache.py`` (tag
+``yolo-stage-pil``): the first epoch decodes and fills it, later epochs read it.
+The native JPEG decoder is not ported: staging decodes with PIL.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -23,6 +29,7 @@ import torch
 
 from tmv_tpu_torch.data.image_ops import flip_boxes_lr, hsv_shift, load_image
 from tmv_tpu_torch.data.loaders import load_classes, load_labels
+from tmv_tpu_torch.data.mosaic import draw_mosaic_params, mosaic_batch
 from tmv_tpu_torch.data.prefetch import prefetch_batches
 from tmv_tpu_torch.data.samplers import ClassBalancedSampler
 from tmv_tpu_torch.data.yolo_targets import make_yolo_targets, pad_labels
@@ -130,12 +137,6 @@ class YoloDataPipeline:
                  hue: float = 0.1, sat: float = 1.5, val: float = 1.5, flip: bool = True,
                  mosaic: float = 0.0, max_boxes: int = 100, seed: int = 0, prefetch: int = 2,
                  cache_dir: str = None, device="cuda"):
-        if mosaic > 0:
-            raise ValueError("mosaic augmentation (data/mosaic.py) is not ported to "
-                             "tmv_tpu_torch yet (ROADMAP.md queue 1: data/mosaic.py)")
-        if cache_dir:
-            raise ValueError("the staging cache (data/stage_cache.py) is not ported to "
-                             "tmv_tpu_torch yet (ROADMAP.md queue 1: data/stage_cache.py)")
         self.device = check_device(device)
         self.classes, self.classes_num = load_classes(classes_path)
         self.labels, self.labels_num = load_labels(label_path, image_path, self.classes)
@@ -145,12 +146,27 @@ class YoloDataPipeline:
         self.image_random = image_random
         self.aug = dict(jitter=jitter, hue=hue, sat=sat, val=val)
         self.flip = flip
+        self.mosaic = mosaic
         self.max_boxes = max_boxes
         self.sampler = ClassBalancedSampler(self.labels, label_mean, seed)
         self.generator = torch.Generator().manual_seed(seed)
         self.prefetch = prefetch
+        self.cache = None
+        if cache_dir:
+            from tmv_tpu_torch.data.stage_cache import StageCache, assign_rows
+
+            assign_rows(self.labels)
+            self.cache = StageCache(cache_dir, self.labels, (image_wh[1], image_wh[0]),
+                                    max_boxes, tag="yolo-stage-pil")
 
     def stage_one(self, label: Dict):
+        """Host: one label's staged tuple, through the staging cache when there
+        is one (``stage_one_uncached`` on a miss)."""
+        if self.cache is not None:
+            return self.cache.wrap(label, self.stage_one_uncached)
+        return self.stage_one_uncached(label)
+
+    def stage_one_uncached(self, label: Dict):
         """Host: decode and resize to exactly the staging size (boxes scaled
         alike) → (uint8 image, padded boxes, classes, valid)."""
         from PIL import Image
@@ -172,6 +188,10 @@ class YoloDataPipeline:
     def device_batch(self, staged) -> Dict:
         """H2D of a staged batch, then augmentation and targets on the device."""
         imgs, boxes, classes, valid = (torch.from_numpy(a).to(self.device) for a in staged)
+        if self.image_random and self.mosaic > 0:
+            draws = draw_mosaic_params(self.generator, imgs.shape[0], self.image_wh,
+                                       prob=self.mosaic)
+            imgs, boxes, classes, valid = mosaic_batch(imgs, boxes, classes, valid, *draws)
         if self.image_random:
             params = draw_augment_params(self.generator, imgs.shape[0], **self.aug)
             images01, boxes, valid = augment_batch(imgs, boxes, valid, params, self.image_wh,

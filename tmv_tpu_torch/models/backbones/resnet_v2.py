@@ -15,14 +15,15 @@ The stem's 7×7 conv pads 3 and its 3×3 max-pool pads 1 with -inf; the blocks'
 3×3 conv pads 1 on each side (not TF-SAME); the strided identity shortcut is
 flax's ``max_pool(x, (1, 1), strides=s)``, a subsampling ``x[:, :, ::s, ::s]``.
 Inputs are NCHW; weights are cast to the input's type, as ``layers.common``
-does. ``remat`` is not ported.
+does. ``remat=True`` runs every block under ``layers.common.remat_call`` in
+train mode, as the JAX package wraps ``BlockV2`` in ``nn.remat``.
 """
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tmv_tpu_torch.models.layers.common import BatchNorm, Conv2d
+from tmv_tpu_torch.models.layers.common import BatchNorm, Conv2d, remat_call
 
 BN_EPSILON = 1.001e-5
 
@@ -66,10 +67,10 @@ class StackV2(nn.Module):
     output of block ``tap_block`` or None)."""
 
     def __init__(self, in_features: int, filters: int, blocks: int, stride1: int = 2,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, remat: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
-        self.blocks = blocks
+        self.blocks, self.remat = blocks, remat
         self.block1 = BlockV2(in_features, filters, conv_shortcut=True, **kw)
         for i in range(2, blocks):
             self.add_module(f"block{i}", BlockV2(4 * filters, filters, **kw))
@@ -78,7 +79,7 @@ class StackV2(nn.Module):
     def forward(self, x, tap_block=None):
         tap = None
         for i in range(1, self.blocks + 1):
-            x = getattr(self, f"block{i}")(x)
+            x = remat_call(self.remat, getattr(self, f"block{i}"), x)
             if tap_block == i:
                 tap = x
         return x, tap
@@ -88,14 +89,15 @@ class ResNet50V2(nn.Module):
     """Feature extractor: NCHW → (conv5_block3_out, conv4_block5_out,
     conv3_block3_out) at strides (32, 16, 8), 2048/1024/512 channels."""
 
-    def __init__(self, dtype=torch.float32, device=None):
+    def __init__(self, dtype=torch.float32, device=None, remat: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        stack = dict(kw, remat=remat)
         self.conv1 = Conv2d(3, 64, 7, 2, padding=3, **kw)
-        self.conv2 = StackV2(64, 64, 3, **kw)
-        self.conv3 = StackV2(256, 128, 4, **kw)
-        self.conv4 = StackV2(512, 256, 6, **kw)
-        self.conv5 = StackV2(1024, 512, 3, stride1=1, **kw)
+        self.conv2 = StackV2(64, 64, 3, **stack)
+        self.conv3 = StackV2(256, 128, 4, **stack)
+        self.conv4 = StackV2(512, 256, 6, **stack)
+        self.conv5 = StackV2(1024, 512, 3, stride1=1, **stack)
 
     def forward(self, x):
         x = F.max_pool2d(self.conv1(x), 3, 2, padding=1)

@@ -35,16 +35,18 @@ def check_device(device) -> torch.device:
 
 
 def build_yolo_model(version: str, classes_num: int, anchors_per_scale: int = 3,
-                     dtype: torch.dtype = torch.float32, device="cuda", param_dtype=None):
+                     dtype: torch.dtype = torch.float32, device="cuda", param_dtype=None,
+                     remat: bool = False):
     """Detector factory → ``(model, iou_type)``, on the card unless ``device``
     says otherwise. ``param_dtype`` holds the weights in another type than the
-    compute ``dtype`` (training: float32 weights, bf16 activations).
+    compute ``dtype`` (training: float32 weights, bf16 activations); ``remat``
+    recomputes the stages in the backward (``layers.common.remat_call``).
 
     ``version``: 'v4' (CSPDarknet-53, DIoU NMS), 'v3' (Darknet-53, IoU NMS) or
     'resnet', the MoCo/distillation detector (ResNet50V2 + YOLOv3 heads, IoU
     NMS). As in the JAX package, 'v3' has 3 anchors per scale whatever
     ``anchors_per_scale`` says."""
-    kw = dict(dtype=dtype, device=check_device(device), param_dtype=param_dtype)
+    kw = dict(dtype=dtype, device=check_device(device), param_dtype=param_dtype, remat=remat)
     if version == "v4":
         from tmv_tpu_torch.models.yolo_v4 import YoloV4
 

@@ -21,6 +21,8 @@ that ``convert.flax_bridge`` maps a flax tree onto them by path.
   kernel takes float32 taps, as the Pallas kernel did).
 - The BatchNorms are ``layers.common.BatchNorm``: in train mode they update
   their running statistics as flax does (biased batch variance).
+- ``remat=True`` runs each MBConv block under ``layers.common.remat_call`` in
+  train mode, as the JAX package wraps ``MBConvBlock`` in ``nn.remat``.
 """
 
 from typing import List, Sequence
@@ -34,7 +36,9 @@ from tmv_tpu_torch.models.efficientdet.config import (
     round_filters,
     round_repeats,
 )
-from tmv_tpu_torch.models.layers.common import BatchNorm, conv2d_same, conv_as_input
+from tmv_tpu_torch.models.layers.common import (
+    BatchNorm, conv2d_same, conv_as_input, remat_call,
+)
 from tmv_tpu_torch.ops.activations import swish
 
 
@@ -126,8 +130,10 @@ class BackboneModel(nn.Module):
     def __init__(self, blocks_args: Sequence[EfficientDetBlockArgs],
                  width_coefficient: float = 1.0, depth_coefficient: float = 1.0,
                  depth_divisor: int = 8, bn_momentum: float = 0.99,
-                 bn_epsilon: float = 1e-3, dtype=torch.float32, device=None):
+                 bn_epsilon: float = 1e-3, dtype=torch.float32, device=None,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.blocks_args = list(blocks_args)
         self.width_coefficient = width_coefficient
         self.depth_coefficient = depth_coefficient
@@ -168,7 +174,7 @@ class BackboneModel(nn.Module):
         x = self.Stem_0(x)
         reductions = []
         for idx in range(len(self.blocks)):
-            x = getattr(self, f"MBConvBlock_{idx}")(x)
+            x = remat_call(self.remat, getattr(self, f"MBConvBlock_{idx}"), x)
             is_last = idx == len(self.blocks) - 1
             if is_last or self.blocks[idx + 1].strides[0] > 1:
                 reductions.append(x)

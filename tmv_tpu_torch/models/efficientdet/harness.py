@@ -38,12 +38,16 @@ def efficientdet_config(model_name: str, num_classes: int, image_size: int):
 
 
 def build_efficientdet(model_name: str, num_classes: int, image_size: int,
-                       dtype: torch.dtype = torch.float32, device="cuda", param_dtype=None):
+                       dtype: torch.dtype = torch.float32, device="cuda", param_dtype=None,
+                       remat: bool = False):
     """``(model, anchors)`` for a D-config at ``image_size``, on the card unless
     ``device`` says otherwise; ``param_dtype`` holds the weights in another type
-    than the activations' ``dtype`` (training: float32 weights, bf16 activations)."""
+    than the activations' ``dtype`` (training: float32 weights, bf16 activations);
+    ``remat`` sets the config's ``remat`` (the JAX CLI's ``cfg.remat = True``)."""
     device = check_device(device)
     cfg = efficientdet_config(model_name, num_classes, image_size)
+    if remat:
+        cfg.remat = True
     anchors = Anchors(cfg.min_level, cfg.max_level, (image_size, image_size), cfg.num_scales,
                       cfg.aspect_ratios, cfg.anchor_scale)
     return EfficientDetNet(cfg, dtype=dtype, device=device, param_dtype=param_dtype), anchors

@@ -5,7 +5,11 @@ Port of ``tmv_tpu/models/efficientdet/net.py::EfficientDetNet`` and
 JAX package's does, runs NCHW in ``channels_last`` memory inside, and returns
 ``(boxes_outputs, classes_outputs)``: tuples over levels of ``(B, h, w, A, 4)``
 and ``(B, h, w, A, num_classes)`` heads. There is no fused-depthwise switch: the
-eval MBConv depthwise always goes through ``kernels.dwconv``.
+eval MBConv depthwise always goes through ``kernels.dwconv``. A config with
+``remat`` set runs the MBConv blocks, the BiFPN cells, ``ClassNet`` and
+``BoxNet`` under ``layers.common.remat_call`` in train mode, the modules the
+JAX package wraps in ``nn.remat``; the heads' recompute draws the same
+``drop_connect`` masks from the generator as their forward.
 """
 
 import math
@@ -17,6 +21,7 @@ from tmv_tpu_torch.models.efficientdet.backbone import BackboneModel
 from tmv_tpu_torch.models.efficientdet.bifpn import BiFPN, ResampleFeatureMap
 from tmv_tpu_torch.models.efficientdet.config import default_blocks_args
 from tmv_tpu_torch.models.efficientdet.heads import BoxNet, ClassNet
+from tmv_tpu_torch.models.layers.common import remat_call
 from tmv_tpu_torch.ops.losses import box_loss, focal_loss, l2_regularization
 
 CLASS_PRIOR = 0.01
@@ -35,11 +40,13 @@ class EfficientDetNet(nn.Module):
         super().__init__()
         cfg = self.config = config
         self.dtype = dtype
+        self.remat = bool(cfg.get("remat", False))
         bn = dict(bn_momentum=cfg.batch_norm_momentum, bn_epsilon=cfg.batch_norm_epsilon,
                   dtype=param_dtype or dtype, device=device)
         filters = cfg.fpn_num_filters
         self.backbone = BackboneModel(default_blocks_args(), cfg.width_coefficient,
-                                      cfg.depth_coefficient, cfg.depth_divisor, **bn)
+                                      cfg.depth_coefficient, cfg.depth_divisor,
+                                      remat=self.remat, **bn)
         # [final, r1..r5] indexed min_level..max_level → r3, r4, r5
         channels = self.backbone.out_channels[cfg.min_level:cfg.max_level + 1]
         for level in range(6, cfg.max_level + 1):
@@ -66,9 +73,11 @@ class EfficientDetNet(nn.Module):
         for level in range(6, cfg.max_level + 1):
             feats.append(getattr(self, f"resample_p{level}")(feats[-1]))
         for rep in range(cfg.fpn_cell_repeats):
-            feats = getattr(self, f"fpn_cell_{rep}")(feats)
-        classes = self.class_net(feats, generator)     # flax's call order
-        return self.box_net(feats, generator), classes
+            feats = remat_call(self.remat, getattr(self, f"fpn_cell_{rep}"), feats)
+        drawn = (generator,) if generator is not None else ()
+        classes = remat_call(self.remat, self.class_net, feats, generator,
+                             generators=drawn)     # flax's call order
+        return remat_call(self.remat, self.box_net, feats, generator, generators=drawn), classes
 
 
 # stddev of a unit-variance normal truncated to ±2 (flax's variance_scaling)

@@ -16,19 +16,71 @@ a flax tree onto them by path.
   in the bf16 predictors). So a model with float32 weights fed bf16 activations
   trains on float32 master weights, as flax's ``param_dtype`` float32 with
   ``dtype`` bf16 does. BatchNorm parameters and statistics stay float32.
+- ``remat_call`` runs a stage under ``torch.utils.checkpoint`` (non-reentrant)
+  in train mode, the port of flax's ``nn.remat`` on the same stages: the
+  backward recomputes the stage's interior instead of storing it. The
+  recompute neither updates the BatchNorm statistics a second time nor draws
+  other numbers from the explicit generators the stage draws from.
 """
 
+import contextlib
 import math
-from typing import Callable, Dict, Tuple, Union
+import threading
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from tmv_tpu_torch.ops.activations import leaky_relu, mish, swish
 
 ACTIVATIONS: Dict[str, Callable] = {"leaky": leaky_relu, "mish": mish, "swish": swish,
                                     "linear": lambda x: x}
+
+
+_RECOMPUTE = threading.local()
+
+
+def recomputing() -> bool:
+    """True while a ``remat_call`` stage is being recomputed for its backward."""
+    return getattr(_RECOMPUTE, "depth", 0) > 0
+
+
+def remat_call(remat: bool, module: nn.Module, *args,
+               generators: Sequence[torch.Generator] = ()):
+    """``module(*args)``; with ``remat`` in train mode (and autograd on) through
+    ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, whose
+    non-reentrant form also keeps the gradient of a stage whose inputs and
+    parameters need none (the Darknet warm-up's frozen stages). The recompute
+    runs with ``recomputing()`` true, so ``BatchNorm`` updates its statistics
+    once per step, as under flax's ``nn.remat``; each of ``generators`` (the
+    explicit ``torch.Generator`` s the stage draws from, which checkpoint does not
+    restore) is put back to its state at the forward for the recompute and
+    returned to its later state after it."""
+    if not (remat and module.training and torch.is_grad_enabled()):
+        return module(*args)
+
+    def contexts():
+        at_forward = [g.get_state() for g in generators]
+
+        @contextlib.contextmanager
+        def recompute():
+            now = [g.get_state() for g in generators]
+            for g, state in zip(generators, at_forward):
+                g.set_state(state)
+            _RECOMPUTE.depth = getattr(_RECOMPUTE, "depth", 0) + 1
+            try:
+                yield
+            finally:
+                _RECOMPUTE.depth -= 1
+                for g, state in zip(generators, now):
+                    g.set_state(state)
+
+        return contextlib.nullcontext(), recompute()
+
+    return torch.utils.checkpoint.checkpoint(module, *args, use_reentrant=False,
+                                             context_fn=contexts)
 
 
 def _pair(v: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
@@ -101,7 +153,8 @@ class BatchNorm(nn.BatchNorm2d):
     reduced in float32 also for bf16 inputs; the update rescales the variance by
     (n−1)/n. One value per channel (a 1 × 1 map of one image) normalizes to the
     bias with a batch variance of 0, as flax does, where ``F.batch_norm`` would
-    refuse it. Eval mode is ``nn.BatchNorm2d``'s."""
+    refuse it. Eval mode is ``nn.BatchNorm2d``'s. While a ``remat_call`` stage is
+    recomputed the statistics are left alone: they moved in the forward."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -110,6 +163,8 @@ class BatchNorm(nn.BatchNorm2d):
         var = torch.ones_like(self.running_var)
         y = torch.batch_norm(x, self.weight, self.bias, mean, var, True, 1.0, self.eps,
                              torch.backends.cudnn.enabled)
+        if recomputing():
+            return y
         n = x.numel() // x.shape[1]
         biased = var * ((n - 1) / n) if n > 1 else torch.zeros_like(var)
         # ra + (1-m)·(batch − ra) = m·ra + (1-m)·batch, with m flax's momentum

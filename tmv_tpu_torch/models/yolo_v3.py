@@ -7,7 +7,9 @@ Port of ``tmv_tpu/models/yolo_v3.py`` at full width (stem 32, stages
 tree maps onto the ``state_dict`` path by path. ``YoloV3`` takes NHWC images and
 returns NHWC heads ``(B, h, w, A·(5+C))`` at strides 32/16/8; inside it runs
 NCHW in ``channels_last`` memory. ``dtype`` and ``param_dtype`` are those of
-``yolo_v4.YoloV4``. ``remat`` is not ported.
+``yolo_v4.YoloV4``. ``remat=True`` runs each ``ResblockBody`` and ``LastLayers``
+under ``layers.common.remat_call`` in train mode, as the JAX package wraps them
+in ``nn.remat``.
 """
 
 from typing import Tuple
@@ -15,7 +17,7 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from tmv_tpu_torch.models.layers.common import ConvBN, DarknetConv, upsample2x
+from tmv_tpu_torch.models.layers.common import ConvBN, DarknetConv, remat_call, upsample2x
 
 
 class ResblockBody(nn.Module):
@@ -44,9 +46,10 @@ class DarknetBody(nn.Module):
     """Darknet-53: 32-filter stem, five residual stages; returns the taps after
     stages 5, 4 and 3 (strides 32, 16, 8)."""
 
-    def __init__(self, dtype=torch.float32, device=None):
+    def __init__(self, dtype=torch.float32, device=None, remat: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        self.remat = remat
         self.ConvBN_0 = ConvBN(3, 32, 3, act="leaky", **kw)
         self.ResblockBody_0 = ResblockBody(32, 64, 1, **kw)
         self.ResblockBody_1 = ResblockBody(64, 128, 2, **kw)
@@ -55,11 +58,14 @@ class DarknetBody(nn.Module):
         self.ResblockBody_4 = ResblockBody(512, 1024, 4, **kw)
 
     def forward(self, x):
+        def stage(module, x):
+            return remat_call(self.remat, module, x)
+
         x = self.ConvBN_0(x)
-        x = self.ResblockBody_1(self.ResblockBody_0(x))
-        y3 = x = self.ResblockBody_2(x)
-        y2 = x = self.ResblockBody_3(x)
-        return self.ResblockBody_4(x), y2, y3
+        x = stage(self.ResblockBody_1, stage(self.ResblockBody_0, x))
+        y3 = x = stage(self.ResblockBody_2, x)
+        y2 = x = stage(self.ResblockBody_3, x)
+        return stage(self.ResblockBody_4, x), y2, y3
 
 
 class LastLayers(nn.Module):
@@ -99,15 +105,16 @@ def add_heads(model: nn.Module, taps: Tuple[int, int, int], out_filters: int,
     model.DarknetConv_2 = DarknetConv(256, out_filters, 1, **kw)
 
 
-def heads_forward(model: nn.Module, y1, y2, y3):
-    """The neck and heads of ``add_heads`` on NCHW taps → NHWC raw heads."""
-    x, h1 = model.LastLayers_0(y1)
+def heads_forward(model: nn.Module, y1, y2, y3, remat: bool = False):
+    """The neck and heads of ``add_heads`` on NCHW taps → NHWC raw heads; with
+    ``remat`` each ``LastLayers`` runs under ``remat_call``."""
+    x, h1 = remat_call(remat, model.LastLayers_0, y1)
     h1 = model.DarknetConv_0(h1)
     x = torch.cat([upsample2x(model.ConvBN_0(x)), y2], dim=1)
-    x, h2 = model.LastLayers_1(x)
+    x, h2 = remat_call(remat, model.LastLayers_1, x)
     h2 = model.DarknetConv_1(h2)
     x = torch.cat([upsample2x(model.ConvBN_1(x)), y3], dim=1)
-    _, h3 = model.LastLayers_2(x)
+    _, h3 = remat_call(remat, model.LastLayers_2, x)
     h3 = model.DarknetConv_2(h3)
     return tuple(h.permute(0, 2, 3, 1) for h in (h1, h2, h3))
 
@@ -117,13 +124,15 @@ class YoloV3(nn.Module):
     at 416 input)."""
 
     def __init__(self, classes_num: int, anchors_num: int = 3,
-                 dtype: torch.dtype = torch.float32, device=None, param_dtype=None):
+                 dtype: torch.dtype = torch.float32, device=None, param_dtype=None,
+                 remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         kw = dict(dtype=param_dtype or dtype, device=device)
-        self.DarknetBody_0 = DarknetBody(**kw)
+        self.DarknetBody_0 = DarknetBody(remat=remat, **kw)
         add_heads(self, (1024, 512, 256), anchors_num * (classes_num + 5), **kw)
 
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         x = images.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
-        return heads_forward(self, *self.DarknetBody_0(x))
+        return heads_forward(self, *self.DarknetBody_0(x), remat=self.remat)

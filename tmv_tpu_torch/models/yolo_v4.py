@@ -11,7 +11,10 @@ is the compute type; ``param_dtype`` (default: ``dtype``) the type the conv
 weights are held in. Serving holds bf16 weights; training with bf16 activations
 holds float32 weights (``param_dtype=torch.float32``), as flax does. In train
 mode the BatchNorms use and update batch statistics (``layers.common.BatchNorm``).
-``remat`` is not ported.
+``remat=True`` runs every stage (``BlocksLayer``, ``BlocksLayer2``, ``LastLayer``,
+``LastLayer2``, ``OutputLayer2``), the modules the JAX package wraps in
+``nn.remat``, under ``layers.common.remat_call`` in train mode; the
+``state_dict`` is the same with and without it.
 """
 
 from typing import Tuple
@@ -20,7 +23,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from tmv_tpu_torch.models.layers.common import ConvBN, DarknetConv, max_pool_same, upsample2x
+from tmv_tpu_torch.models.layers.common import (
+    ConvBN, DarknetConv, max_pool_same, remat_call, upsample2x,
+)
 
 # COCO anchors in pixels, coarsest (stride-32) scale first, as
 # ``tmv_tpu.data.loaders.load_anchors`` orders them.
@@ -150,9 +155,11 @@ class YoloV4(nn.Module):
     """Forward network: NHWC image → (z1, z2, z3) NHWC raw heads (strides 32/16/8)."""
 
     def __init__(self, classes_num: int, anchors_num: int = 3,
-                 dtype: torch.dtype = torch.float32, device=None, param_dtype=None):
+                 dtype: torch.dtype = torch.float32, device=None, param_dtype=None,
+                 remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         kw = dict(dtype=param_dtype or dtype, device=device)
         out_filters = anchors_num * (5 + classes_num)
         self.ConvBN_0 = ConvBN(3, 32, 3, act="mish", **kw)
@@ -173,20 +180,23 @@ class YoloV4(nn.Module):
 
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         x = images.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
-        x = self.ConvBN_0(x)
-        x = self.BlocksLayer_0(x)
-        x = self.BlocksLayer2_0(x)
-        y3 = x = self.BlocksLayer2_1(x)
-        y2 = x = self.BlocksLayer2_2(x)
-        y1 = self.BlocksLayer2_3(x)
+        def stage(module, *args):
+            return remat_call(self.remat, module, *args)
 
-        y1 = self.LastLayer_0(y1)
-        y2 = self.LastLayer2_0(y1, y2)
-        y3 = self.LastLayer2_1(y2, y3)
+        x = self.ConvBN_0(x)
+        x = stage(self.BlocksLayer_0, x)
+        x = stage(self.BlocksLayer2_0, x)
+        y3 = x = stage(self.BlocksLayer2_1, x)
+        y2 = x = stage(self.BlocksLayer2_2, x)
+        y1 = stage(self.BlocksLayer2_3, x)
+
+        y1 = stage(self.LastLayer_0, y1)
+        y2 = stage(self.LastLayer2_0, y1, y2)
+        y3 = stage(self.LastLayer2_1, y2, y3)
 
         z3 = self.DarknetConv_0(self.ConvBN_1(y3))       # stride 8
-        z2, y2 = self.OutputLayer2_0(y3, y2)
+        z2, y2 = stage(self.OutputLayer2_0, y3, y2)
         z2 = self.DarknetConv_1(z2)                      # stride 16
-        z1, _ = self.OutputLayer2_1(y2, y1)
+        z1, _ = stage(self.OutputLayer2_1, y2, y1)
         z1 = self.DarknetConv_2(z1)                      # stride 32
         return tuple(z.permute(0, 2, 3, 1) for z in (z1, z2, z3))

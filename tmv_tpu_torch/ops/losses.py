@@ -2,8 +2,9 @@
 
 Port of ``tmv_tpu/ops/losses.py``: ``sigmoid_cross_entropy`` (the YOLO loss's)
 and EfficientDet's ``focal_loss``, ``huber``, ``box_loss``, ``class_focal_loss``
-and ``l2_regularization``, in the JAX package's operation order. The other
-families' losses (focus, triplet, InfoNCE) come with their slices.
+and ``l2_regularization``, and the UNet family's ``focus_loss``, in the JAX
+package's operation order. The other families' losses (triplet, InfoNCE) come
+with their slices.
 """
 
 from typing import Sequence
@@ -82,3 +83,23 @@ def regularized_weights(model: nn.Module):
 def l2_regularization(model: nn.Module, weight_decay: float) -> torch.Tensor:
     """``weight_decay · Σ w²`` over ``regularized_weights(model)``."""
     return weight_decay * sum(torch.sum(torch.square(w)) for w in regularized_weights(model))
+
+
+def focus_loss(y_true: torch.Tensor, y_pred_logits: torch.Tensor,
+               threshold: float = 0.5) -> torch.Tensor:
+    """Balanced MSE for keypoint heatmaps (`losses/focus_loss.py:10-39`): the
+    foreground (nonzero-target) and background pixels normalized apart by
+    their counts and inverse frequency, divided by the batch. ``threshold`` is
+    unused, as in the JAX function."""
+    b, h, w = y_true.shape[0], y_true.shape[1], y_true.shape[2]
+    y_pred = torch.sigmoid(y_pred_logits)
+    object_mask = (y_true != 0.0).to(y_pred.dtype)
+    object_num = torch.sum(object_mask)
+    hw = float(h * w)
+    other_num = hw - object_num
+    object_percent = object_num / hw
+    sq_obj = torch.sum(torch.square((y_true - y_pred) * object_mask))
+    sq_other = torch.sum(torch.square((y_true - y_pred) * (1.0 - object_mask)))
+    loss_object = sq_obj / object_num / object_percent
+    loss_other = sq_other / other_num / (1.0 - object_percent)
+    return (loss_object + loss_other) / float(b)

@@ -1,13 +1,15 @@
-"""Host-side image helpers of serving and the EfficientDet pipeline (PIL, numpy).
+"""Host-side image helpers of serving, the detect CLI and the pipelines (PIL, numpy).
 
-The port's own copy of part of ``tmv_tpu/utils/image_helper.py``: base64/bytes/
-array conversions, the proportional letterbox resize, box drawing, and the
-host augmentation's ``blur`` and ``random_noise``. Images are numpy RGB uint8
-``(H, W, 3)``.
+The port's own copy of ``tmv_tpu/utils/image_helper.py``: base64/bytes/array/file
+conversions, the proportional letterbox resize, the perspective warp with point
+tracking, the host augmentations (``random_noise``, ``random_color_jitter``,
+``random_lines``, ``blur``), ``crop`` and box drawing. Images are numpy RGB
+uint8 ``(H, W, 3)``.
 """
 
 import base64
 import io
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -32,6 +34,10 @@ def image_to_bytes(img: np.ndarray, format: str = "JPEG") -> bytes:
     buf = io.BytesIO()
     Image.fromarray(np.asarray(img, np.uint8)).save(buf, format=format)
     return buf.getvalue()
+
+
+def image_to_file(path: str, img: np.ndarray):
+    Image.fromarray(np.asarray(img).astype(np.uint8)).save(path)
 
 
 def get_image_size(img: np.ndarray) -> Tuple[int, int]:
@@ -79,6 +85,62 @@ def proportional_resize(
     return out, new_points, (pad_top, pad_bottom, pad_left, pad_right)
 
 
+# ------------------------------------------------------------------ transforms
+def perspective(
+    img: np.ndarray,
+    points: np.ndarray | None = None,
+    degrees: Tuple[float, float, float] = (0.0, 0.0, 0.0),
+    bg_color: Tuple[int, int, int] = (0, 0, 0),
+):
+    """3-D-ish perspective/rotation warp with point tracking.
+
+    Capability match for ``opencvPerspective`` (`image_helper.py:110-199`):
+    rotate the image plane by (rx, ry, rz) degrees about its center and
+    project back, keeping tracked points aligned.  Implemented as an exact
+    3×3 homography on the four corners + PIL inverse-coefficient warp.
+    """
+    h, w = img.shape[0], img.shape[1]
+    rx, ry, rz = (math.radians(d) for d in degrees)
+    f = max(h, w)  # focal length ~ image size
+
+    def rot_matrix():
+        cx, sx = math.cos(rx), math.sin(rx)
+        cy, sy = math.cos(ry), math.sin(ry)
+        cz, sz = math.cos(rz), math.sin(rz)
+        mx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+        my = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        mz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+        return mz @ my @ mx
+
+    r = rot_matrix()
+
+    def project(pts):
+        p = np.asarray(pts, np.float64) - [w / 2, h / 2]
+        p3 = np.concatenate([p, np.zeros((len(p), 1))], axis=1) @ r.T
+        z = p3[:, 2] + f
+        return (p3[:, 0:2] * (f / z)[:, None]) + [w / 2, h / 2]
+
+    src = np.array([[0, 0], [w, 0], [w, h], [0, h]], np.float64)
+    dst = project(src)
+
+    # solve homography dst→src for PIL (which wants inverse coefficients)
+    def solve_h(src_pts, dst_pts):
+        a, b = [], []
+        for (x, y), (u, v) in zip(dst_pts, src_pts):
+            a.append([x, y, 1, 0, 0, 0, -u * x, -u * y])
+            a.append([0, 0, 0, x, y, 1, -v * x, -v * y])
+            b.extend([u, v])
+        return np.linalg.solve(np.asarray(a), np.asarray(b))
+
+    coeffs = solve_h(src, dst)
+    warped = Image.fromarray(np.asarray(img, np.uint8)).transform(
+        (w, h), Image.PERSPECTIVE, coeffs, Image.BILINEAR,
+        fillcolor=tuple(bg_color),
+    )
+    new_points = project(points) if points is not None else None
+    return np.asarray(warped), new_points
+
+
 # ----------------------------------------------------------------- augmentation
 def random_noise(img: np.ndarray, rng: np.random.Generator, amount: float = 0.02) -> np.ndarray:
     """Salt-and-pepper style noise: ``amount`` of the pixels get a random RGB."""
@@ -92,6 +154,32 @@ def blur(img: np.ndarray, radius: float = 1.5) -> np.ndarray:
     """PIL Gaussian blur of ``radius``."""
     return np.asarray(
         Image.fromarray(np.asarray(img, np.uint8)).filter(ImageFilter.GaussianBlur(radius)))
+
+
+def random_color_jitter(img: np.ndarray, rng: np.random.Generator,
+                        strength: float = 0.3) -> np.ndarray:
+    scale = 1.0 + rng.uniform(-strength, strength, size=(1, 1, 3))
+    shift = rng.uniform(-strength, strength, size=(1, 1, 3)) * 30
+    return np.clip(img.astype(np.float64) * scale + shift, 0, 255).astype(np.uint8)
+
+
+def random_lines(img: np.ndarray, rng: np.random.Generator,
+                 num_lines: int = 8) -> np.ndarray:
+    """Scribble random lines (`image_helper.py` ``opencvRandomLines``)."""
+    im = Image.fromarray(np.asarray(img, np.uint8))
+    draw = ImageDraw.Draw(im)
+    h, w = img.shape[0], img.shape[1]
+    for _ in range(int(rng.integers(1, num_lines + 1))):
+        x1, x2 = rng.integers(0, w, 2)
+        y1, y2 = rng.integers(0, h, 2)
+        color = tuple(int(c) for c in rng.integers(0, 256, 3))
+        draw.line([(int(x1), int(y1)), (int(x2), int(y2))], fill=color,
+                  width=int(rng.integers(1, 4)))
+    return np.asarray(im)
+
+
+def crop(img: np.ndarray, x1: int, y1: int, x2: int, y2: int) -> np.ndarray:
+    return img[y1:y2, x1:x2]
 
 
 # --------------------------------------------------------------------- drawing
