@@ -10,7 +10,8 @@ served at ``POST /ai_api/object_detection/predict``, on seeded random weights;
 then each model's trainer and eval CLI; then YOLOv3 @416 and the ResNet50V2
 YOLO tower (phases 15-17), whose IoU NMS goes through the same sweep kernel;
 then YOLOv4 @608 mosaic training with the staging cache and ``--remat``, UNet
-@128 training, and the WSGI entry and detect CLI (phases 18-20).
+@128 training, and the WSGI entry and detect CLI (phases 18-20); then the FaceNet
+family (phase 21), which launches neither kernel.
 Phases, each printing its own lines:
 
 1. environment: torch/CUDA/nvcc versions and the card (nvidia-smi);
@@ -134,7 +135,28 @@ Phases, each printing its own lines:
     the ``TMV_*`` environment (bf16, cuda) on phase 18's checkpoint directory (6
     requests through the NMS kernel) and on phase 13's D0 directory (4 requests,
     16 depthwise launches each), and ``cli/detect.py`` (float32) writing its
-    image for both.
+    image for both;
+21. FaceNet (no hand-written kernel on its path; the phase checks that neither
+    counter moves): on 12 synthetic people x 8 JPEGs (250 x 250) and an LFW-format
+    tree (10 people x 6, a ``pairs.txt`` of 60 pairs, half same): the eval
+    embeddings of InceptionResNetV1 @160 (embedding 512, float32, seeded) by
+    ``get_embeddings`` at b30 and the b30 forward by CUDA events, the card
+    against the CPU on 4 images (1e-4·max|CPU|, TF32 off) and unit norms within
+    1e-5, the same for InceptionResNetV2, InceptionV4 and RepVGG-B2g4, and
+    RepVGG-B2g4's deploy model (``repvgg_convert_params``) against its train
+    model at JAX's test tolerance; ``select_triplets`` at the CLI's defaults (P =
+    45, I = 40, n = 1800, D = 512): its time and peak memory, and one CPU Gumbel
+    draw mined on the card and on the CPU, equal away from the borderline pairs;
+    ``cli/train_facenet.py`` (b30, 2 epochs of 2 outer steps, the LFW flags) with
+    its outer step split into load, embed, mine and steps; the step (10
+    triplets) by CUDA events, its kernels' device time, a warm step's peak and
+    the memory its forward keeps for the backward, without and with ``--remat``
+    (which must keep less); an overfit of one batch (5x or 0 in 30 steps); a float32
+    step against float64 by phase 11's rule; a resume (weights equal the
+    checkpoint, the step continues); one step each with ADAGRAD, ADADELTA and
+    RMSPROP; ``cli/validate_on_lfw.py`` (its four lines; the accuracy equals
+    ``lfw.evaluate`` on recomputed embeddings) and ``cli/facenet_distance.py``
+    (symmetric, zero diagonal, the embeddings' squared distances).
 
 The serving weights are seeded (``--randomInit --seed 0`` of each family), adjusted so
 that NMS has real work: YOLOv4's three output convs' box rows are scaled by
@@ -187,6 +209,16 @@ V3_STEPS_PER_EPOCH = 10
 V3_WARMUP = 10
 V3_PREDICT_KW = dict(confidence_thresh=0.5, scores_thresh=0.2, iou_thresh=0.5, iou_type="iou")
 D0_OVERFIT_LR = 0.05
+FACE_IMAGE = 160
+FACE_EMBEDDING = 512
+FACE_BATCH = 30
+FACE_PEOPLE = 12
+FACE_IMAGES = 8
+LFW_PEOPLE = 10
+LFW_IMAGES = 6
+LFW_PAIRS = 60
+MINING_PEOPLE = 45
+MINING_IMAGES = 40
 NMS_SOURCE = "tmv_tpu_torch/csrc/nms_sweep.cu"
 NMS_REPLACES = "tmv_tpu/kernels/nms_pallas.py:90"
 DW_SOURCE = "tmv_tpu_torch/csrc/dwconv_bn_swish.cu"
@@ -2538,6 +2570,413 @@ def phase_serving_extras(card, files, mosaic, d0_ckpt):
     return {"nms_sweep": nms, "dwconv_bn_swish": dw}
 
 
+# ---------------------------------------------------------------- slice 8: FaceNet
+
+def write_face_tree(root, people, images, seed, size=250):
+    """``root/<name>/<name>_NNNN.jpg``: per person a seeded 10 x 10 colour pattern
+    scaled to ``size``, each image that pattern shifted by up to 12 px with
+    per-pixel noise; returns the names."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    names = [f"person_{seed}_{p:02d}" for p in range(people)]
+    for name in names:
+        os.makedirs(os.path.join(root, name), exist_ok=True)
+        base = np.kron(rng.uniform(0, 255, (10, 10, 3)), np.ones((size // 10, size // 10, 1)))
+        for i in range(images):
+            dy, dx = rng.integers(-12, 13, 2)
+            img = np.roll(base, (dy, dx), (0, 1)) + rng.normal(0, 18, base.shape)
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                os.path.join(root, name, f"{name}_{i + 1:04d}.jpg"), quality=90)
+    return names
+
+
+def write_lfw_pairs(path, names, images, count, seed):
+    """An LFW ``pairs.txt``: a header, then ``count`` pairs alternating same
+    (``name i j``) and different (``a i b j``)."""
+    rng = np.random.default_rng(seed)
+    lines = [f"1\t{count}"]
+    for k in range(count):
+        if k % 2 == 0:
+            i, j = rng.choice(np.arange(1, images + 1), 2, replace=False)
+            lines.append(f"{names[rng.integers(len(names))]}\t{i}\t{j}")
+        else:
+            a, b = rng.choice(len(names), 2, replace=False)
+            lines.append(f"{names[a]}\t{rng.integers(1, images + 1)}\t{names[b]}\t"
+                         f"{rng.integers(1, images + 1)}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def facenet_setup(device, seed=0, optimizer="ADAM", remat=False, dropout_rate=0.2,
+                  dtype=None):
+    """A seeded FaceNet (IRv1 @160, embedding 512) in the CLI's train state
+    (``optimizer`` at lr 1e-3, the shadow loss, the parameters' EMA 0.9999) and
+    its train step."""
+    import torch
+
+    from tmv_tpu_torch.cli.train_facenet import make_optimizer
+    from tmv_tpu_torch.core.train_state import TrainState, make_train_step
+    from tmv_tpu_torch.models.facenet import FaceNetModel, make_triplet_train_step
+    from tmv_tpu_torch.models.facenet.model import init_weights
+
+    model = init_weights(FaceNetModel(FACE_EMBEDDING, device=device, remat=remat,
+                                      dropout_rate=dropout_rate), seed)
+    model = model.to(dtype=dtype or torch.float32, memory_format=torch.channels_last)
+    state = TrainState.create(model, make_optimizer(optimizer, 1e-3, model.parameters()),
+                              ema_decay=0.9999)
+    loss_fn = make_triplet_train_step(0.2, torch.Generator(device=device).manual_seed(seed))
+    return state, loss_fn, make_train_step(loss_fn, shadow_loss=True, ema_decay=0.9999)
+
+
+def facenet_embedding_reading(backbone, images):
+    """One backbone @160 in eval mode: the b30 forward by CUDA events, the card
+    against the CPU on 4 images and the embedding norms."""
+    import torch
+
+    from tmv_tpu_torch.models.facenet import FaceNetModel, get_embeddings
+    from tmv_tpu_torch.models.facenet.model import init_weights
+
+    model = init_weights(FaceNetModel(FACE_EMBEDDING, backbone, device="cuda"), 0)
+    model = model.to(memory_format=torch.channels_last).eval()
+    x = torch.from_numpy(images[:FACE_BATCH]).cuda()
+    with torch.inference_mode():
+        for _ in range(3):
+            model(x)
+        ms = cuda_ms(lambda: model(x), 10)
+    cpu = init_weights(FaceNetModel(FACE_EMBEDDING, backbone, device="cpu"), 0).eval()
+    with torch.inference_mode():
+        want = cpu(torch.from_numpy(images[:4])).numpy()
+    got = get_embeddings(model, images[:4], 4)
+    err = float(np.abs(got - want).max())
+    norms = np.linalg.norm(get_embeddings(model, images[:FACE_BATCH], FACE_BATCH), axis=1)
+    check(err <= 1e-4 * np.abs(want).max(),
+          f"{backbone} @160: card vs CPU {err} (max |CPU| {np.abs(want).max()})")
+    check(np.abs(norms - 1).max() <= 1e-5,
+          f"{backbone} embedding norms {norms.min()}-{norms.max()}")
+    params = sum(p.numel() for p in model.parameters())
+    return model, {"ms": ms, "err": err, "max": float(np.abs(want).max()), "params": params,
+                   "norm_err": float(np.abs(norms - 1).max())}
+
+
+def mining_grid_case(seed):
+    """A (45, 40, 512) grid of unit embeddings, each person a random centre plus
+    twice its spread of noise; the last 10 images of 5 people padded."""
+    rng = np.random.default_rng(seed)
+    emb = (rng.normal(size=(MINING_PEOPLE, 1, FACE_EMBEDDING))
+           + 2.0 * rng.normal(size=(MINING_PEOPLE, MINING_IMAGES, FACE_EMBEDDING)))
+    emb = (emb / np.linalg.norm(emb, axis=-1, keepdims=True)).astype(np.float32)
+    valid = np.ones((MINING_PEOPLE, MINING_IMAGES), bool)
+    valid[:5, 30:] = False
+    return emb, valid
+
+
+def borderline_rows(grid, valid, alpha, margin=1e-5):
+    """(n²,) bool on the card: the (anchor, positive) rows with a candidate
+    negative whose float64 ``|neg − pos − α|`` or ``|neg − pos|`` is under
+    ``margin``, where float32 rounding may decide the mining condition."""
+    import torch
+
+    p_num, i_num, d = grid.shape
+    n = p_num * i_num
+    flat = grid.reshape(n, d).double()
+    sq = torch.sum(flat * flat, 1)
+    dists = sq[:, None] + sq[None, :] - 2.0 * flat @ flat.T
+    people = torch.arange(p_num, device=grid.device)
+    pos = dists.reshape(p_num, i_num, p_num, i_num)[people, :, people][..., None]
+    diff = dists.reshape(p_num, i_num, 1, n) - pos
+    neg_ok = ((people.repeat_interleave(i_num)[None, :] != people[:, None])
+              & valid.reshape(n)[None, :])
+    close = ((diff - alpha).abs() < margin) | (diff.abs() < margin)
+    block = torch.any(close & neg_ok[:, None, None, :], dim=-1)
+    rows = torch.zeros((n, n), dtype=torch.bool, device=grid.device)
+    rows.view(p_num, i_num, p_num, i_num)[people, :, people] = block
+    return rows.reshape(-1)
+
+
+def phase_facenet(card):
+    """Phase 21: FaceNet. Embeddings of the four backbones @160, the mining at
+    the CLI's defaults, cli/train_facenet.py on 12 x 8 synthetic people with the
+    LFW flags, the step's numbers, an overfit, float32 against float64, a
+    resume, the other optimizers, cli/validate_on_lfw.py and
+    cli/facenet_distance.py. No hand-written kernel runs on this path."""
+    import contextlib
+
+    import torch
+
+    from tmv_tpu_torch.cli import facenet_distance, train_facenet, validate_on_lfw
+    from tmv_tpu_torch.core.checkpoint import CheckpointManager, load_weights
+    from tmv_tpu_torch.kernels import dwconv, nms_sweep
+    from tmv_tpu_torch.models.backbones.repvgg import get_repvgg_by_name, repvgg_convert_params
+    from tmv_tpu_torch.models.facenet import FaceNetModel, get_embeddings, lfw
+    from tmv_tpu_torch.models.facenet.model import draw_gumbel, init_weights, select_triplets
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 must stay off for the FaceNet comparisons")
+    launches_before = (nms_sweep.launches, dwconv.launches)
+    faces = os.path.join(WORK, "faces")
+    lfw_dir = os.path.join(WORK, "lfw")
+    shutil.rmtree(faces, ignore_errors=True)
+    shutil.rmtree(lfw_dir, ignore_errors=True)
+    write_face_tree(faces, FACE_PEOPLE, FACE_IMAGES, seed=21)
+    lfw_names = write_face_tree(lfw_dir, LFW_PEOPLE, LFW_IMAGES, seed=22)
+    pairs = write_lfw_pairs(os.path.join(WORK, "lfw_pairs.txt"), lfw_names, LFW_IMAGES,
+                            LFW_PAIRS, seed=23)
+    face_paths = sorted(os.path.join(faces, d, f) for d in sorted(os.listdir(faces))
+                        for f in sorted(os.listdir(os.path.join(faces, d))))
+    images = train_facenet.load_images(face_paths, FACE_IMAGE)
+
+    # embeddings: IRv1 through get_embeddings at b30, then the other backbones
+    readings = {}
+    model, readings["InceptionResNetV1"] = facenet_embedding_reading("InceptionResNetV1", images)
+    get_embeddings(model, images, FACE_BATCH)
+    embed_ms = cuda_ms(lambda: get_embeddings(model, images, FACE_BATCH), 3)
+    del model
+    for backbone in ("InceptionResNetV2", "InceptionV4", "RepVGG"):
+        model, readings[backbone] = facenet_embedding_reading(backbone, images)
+        del model
+    repvgg = init_weights(get_repvgg_by_name("RepVGG-B2g4", FACE_EMBEDDING, device="cuda"), 0)
+    repvgg = repvgg.to(memory_format=torch.channels_last)
+    x = torch.from_numpy(images[:FACE_BATCH]).cuda().permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    norms = [m for m in repvgg.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    with torch.no_grad():
+        # the running statistics of one batch (momentum 1 for one train-mode forward):
+        # at the identity statistics of the init the eval outputs reach ~1e4
+        for m in norms:
+            m.momentum = 1.0
+        repvgg.train()(x)
+        for m in norms:
+            m.momentum = 0.01
+        deploy = get_repvgg_by_name("RepVGG-B2g4", FACE_EMBEDDING, deploy=True, device="cuda")
+        deploy.load_state_dict(repvgg_convert_params(repvgg), strict=True)
+        x = x.flip(3)
+        y_train = repvgg.eval()(x).cpu().numpy()
+        y_deploy = deploy.eval().to(memory_format=torch.channels_last)(x).cpu().numpy()
+    reparam_err = float(np.abs(y_deploy - y_train).max())
+    check(np.allclose(y_deploy, y_train, rtol=1e-3, atol=1e-4),
+          f"RepVGG-B2g4 deploy vs train on the card: {reparam_err}")
+    del repvgg, deploy
+    print(f"phase 21 FaceNet embeddings on [{card}]: eval f32 @{FACE_IMAGE}, embedding "
+          f"{FACE_EMBEDDING}, seeded weights, TF32 off; b{FACE_BATCH} forward by CUDA events "
+          "(10 after 3) " + ", ".join(
+              f"{name} ({r['params']} parameters) {r['ms']:.2f} ms "
+              f"({FACE_BATCH * 1e3 / r['ms']:.1f} images/s), card vs CPU on 4 images "
+              f"{r['err']:.3g} (tolerance 1e-4 x {r['max']:.3g}), |norm - 1| <= "
+              f"{r['norm_err']:.2g}" for name, r in readings.items())
+          + f"; IRv1 get_embeddings of {len(images)} images at b{FACE_BATCH} (H2D and D2H "
+          f"included) {embed_ms:.2f} ms ({len(images) * 1e3 / embed_ms:.1f} images/s); "
+          f"RepVGG-B2g4 with one batch's BatchNorm statistics, deploy (repvgg_convert_params) "
+          f"vs train on the card on the mirrored batch: max |diff| {reparam_err:.3g} of max "
+          f"|y| {np.abs(y_train).max():.3g} (rtol 1e-3, atol 1e-4)", flush=True)
+
+    # mining at the CLI's defaults
+    grid_np, valid_np = mining_grid_case(21)
+    grid, valid = torch.from_numpy(grid_np).cuda(), torch.from_numpy(valid_np).cuda()
+    n = MINING_PEOPLE * MINING_IMAGES
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    select_triplets(grid, valid, 0.2, generator=gen)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mined, mined_valid = select_triplets(grid, valid, 0.2, generator=gen)
+    torch.cuda.synchronize()
+    mine_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    mine_ms = cuda_ms(lambda: select_triplets(grid, valid, 0.2, generator=gen), 5)
+    noise = draw_gumbel((MINING_PEOPLE, MINING_IMAGES, MINING_IMAGES, n),
+                        torch.Generator().manual_seed(22))
+    cpu_t, cpu_v = select_triplets(torch.from_numpy(grid_np), torch.from_numpy(valid_np), 0.2,
+                                   gumbel=noise)
+    card_t, card_v = (a.cpu() for a in select_triplets(grid, valid, 0.2, gumbel=noise.cuda()))
+    border = borderline_rows(grid, valid, 0.2).cpu()
+    clear = ~border
+    check(torch.equal(cpu_v[clear], card_v[clear]), "mining: card and CPU valid masks differ "
+          "away from the borderline pairs")
+    keep = clear & cpu_v
+    check(torch.equal(cpu_t[keep], card_t[keep]), "mining: card and CPU triplets differ")
+    differ = int((cpu_v != card_v).sum() + ((cpu_t != card_t).any(1) & cpu_v & card_v).sum())
+    check(int(cpu_v.sum()) > 0 and mine_peak < n ** 3 * 4 / 2**20 / 4,
+          f"mining: {int(cpu_v.sum())} valid triplets, peak {mine_peak:.1f} MiB")
+    print(f"phase 21 FaceNet mining on [{card}]: select_triplets at the CLI's defaults (P="
+          f"{MINING_PEOPLE}, I={MINING_IMAGES}, n={n}, D={FACE_EMBEDDING}, 50 images padded), "
+          f"per person block over (P, I, I, n) = {MINING_PEOPLE * MINING_IMAGES ** 2 * n:,} "
+          f"elements: {mine_ms:.2f} ms (CUDA events, 5 calls after 2), peak above its inputs "
+          f"{mine_peak:.1f} MiB (one (n, n, n) float32 tensor would take "
+          f"{n ** 3 * 4 / 2**20:.0f} MiB); {int(mined_valid.sum())} of {n * n} rows valid with "
+          f"the card's generator; with one CPU Gumbel draw, card = CPU: "
+          f"{int(cpu_v.sum())} valid triplets, {int(border.sum())} borderline pairs "
+          f"(|neg - pos - 0.2| or |neg - pos| under 1e-5 in float64), {differ} rows "
+          "differing, all among them", flush=True)
+    del grid, valid, noise
+
+    # training through the CLI
+    ckpt = os.path.join(WORK, "facenet_train")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--filesPath", faces, "--peoplePerBatch", str(FACE_PEOPLE), "--imagesPerPerson",
+            str(FACE_IMAGES), "--batchSize", str(FACE_BATCH), "--stepsPerEpoch", "2",
+            "--epochs", "2", "--lfwDir", lfw_dir, "--lfwPairs", pairs, "--modelPath", ckpt,
+            "--device", "cuda"]
+    t0 = time.perf_counter()
+    out = train_facenet.main(argv)
+    wall = time.perf_counter() - t0
+    check(out["step"] > 0 and all(np.isfinite(out["losses"])) and len(out["lfw"]) == 2,
+          f"the FaceNet CLI: step {out['step']}, {len(out['lfw'])} LFW evaluations")
+    saved = sorted(f for f in os.listdir(ckpt) if f.endswith(".pt"))
+    check(f"{out['step']}.pt" in saved and len(saved) == 2, f"FaceNet checkpoints {saved}")
+    parts = {k: statistics.median(o[k] for o in out["outer"]) * 1e3
+             for k in ("load", "embed", "mine", "steps")}
+    steps_per_outer = [o["train_steps"] for o in out["outer"]]
+    lfw_acc = [float(r[0].mean()) for r in out["lfw"]]
+    print(f"phase 21 FaceNet CLI on [{card}]: cli/train_facenet.py @{FACE_IMAGE} IRv1 "
+          f"embedding {FACE_EMBEDDING} float32 Adam 1e-3, {FACE_PEOPLE} people x {FACE_IMAGES} "
+          f"images, b{FACE_BATCH} (10 triplets a step), 2 epochs x 2 outer steps: "
+          f"{out['step']} steps ({steps_per_outer} per outer step, triplets "
+          f"{[o['triplets'] for o in out['outer']]}) in {wall:.1f} s, loss "
+          f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}; the outer step's host-clock "
+          f"medians: load {parts['load']:.1f} ms, embed {parts['embed']:.1f} ms, mine "
+          f"{parts['mine']:.1f} ms, steps {parts['steps']:.1f} ms; LFW accuracy on the "
+          f"synthetic pairs (a smoke value) {lfw_acc}; checkpoints {saved}", flush=True)
+
+    # the step's numbers on a fixed batch of 10 triplets
+    person = np.repeat(np.arange(FACE_PEOPLE), FACE_IMAGES)
+    anchors = np.array([p * FACE_IMAGES for p in range(10)])
+    positives = anchors + 1
+    negatives = (anchors + FACE_IMAGES * 3 + 2) % len(images)
+    check(all(person[anchors] == person[positives]) and all(person[anchors] != person[negatives]),
+          "the fixed triplet batch")
+    batch = {k: torch.from_numpy(images[idx]).cuda()
+             for k, idx in (("anchor", anchors), ("positive", positives),
+                            ("negative", negatives))}
+    numbers = {}
+    for remat in (False, True):
+        state, loss_fn, step = facenet_setup("cuda", remat=remat)
+        for _ in range(3):
+            step(state, batch)
+        ms = cuda_ms(lambda: step(state, batch), 10)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batch)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        loss, _ = loss_fn(state.model.train(), batch)      # what the forward keeps for the backward
+        torch.cuda.synchronize()
+        saved = (torch.cuda.memory_allocated() - base) / 2**20
+        del loss
+        numbers[remat] = (ms, peak, step_kernel_ms(lambda: step(state, batch), 3), saved)
+        del state
+    check(numbers[True][3] < numbers[False][3],
+          f"remat did not lower what the FaceNet forward keeps: {numbers}")
+    state, _, step = facenet_setup("cuda", seed=1)
+    overfit = [float(step(state, batch)["raw_loss"]) for _ in range(OVERFIT_STEPS)]
+    check(all(np.isfinite(overfit)) and (overfit[-1] <= overfit[0] / 5 or overfit[-1] == 0),
+          f"FaceNet overfit: loss {overfit[0]:.4f} -> {overfit[-1]:.4f}")
+    del state
+    small = {k: v[:2].cpu() for k, v in batch.items()}
+    results = {}
+    for name, device, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                                ("cpu f64", "cpu", torch.float64)):
+        state, loss_fn, _ = facenet_setup(device, seed=2, dropout_rate=0.0, dtype=dtype)
+        model = state.model.train()
+        loss, _ = loss_fn(model, {k: v.to(device, dtype) for k, v in small.items()})
+        loss.backward()
+        results[name] = (loss.item(), grads_of(model))
+        del state, model
+    (card_loss, card_g), (cpu_loss, cpu_g), (ref_loss, ref_g) = (
+        results[k] for k in ("card", "cpu", "cpu f64"))
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    card_err, cpu_err = rel_l2(card_g, ref_g), rel_l2(cpu_g, ref_g)
+    check(loss_rel <= 1e-3, f"FaceNet f32 loss card {card_loss} vs CPU {cpu_loss}")
+    check(card_err[0] <= 2 * cpu_err[0] + 1e-4 and card_err[1] <= 2 * cpu_err[1] + 1e-4,
+          f"FaceNet f32 gradients: card vs float64 {card_err}, CPU vs float64 {cpu_err}")
+    others = {}
+    for name in ("ADAGRAD", "ADADELTA", "RMSPROP"):
+        state, _, step = facenet_setup("cuda", seed=3, optimizer=name)
+        dense = state.model.backbone.Dense_0.weight
+        before = dense.detach().clone()
+        loss = float(step(state, batch)["raw_loss"])
+        moved = float((dense.detach() - before).abs().max())
+        check(np.isfinite(loss) and moved > 0, f"FaceNet {name} step: loss {loss}, moved {moved}")
+        others[name] = (loss, moved)
+        del state
+    print(f"phase 21 FaceNet step on [{card}]: IRv1 @{FACE_IMAGE} b{FACE_BATCH} (10 triplets) "
+          f"float32 Adam, shadow loss, EMA (CUDA events, 10 steps after 3): "
+          f"{numbers[False][0]:.2f} ms ({FACE_BATCH * 1e3 / numbers[False][0]:.1f} images/s), "
+          f"kernels' device time per step (torch.profiler, 3 steps) {numbers[False][2]:.2f} ms "
+          f"(busy {numbers[False][2] / numbers[False][0]:.2f}), peak of a warm step above "
+          f"the resident state {numbers[False][1]:.1f} MiB, held by the forward for the "
+          f"backward {numbers[False][3]:.1f} MiB; with --remat {numbers[True][0]:.2f} ms, "
+          f"kernels {numbers[True][2]:.2f} ms, peak {numbers[True][1]:.1f} MiB, held "
+          f"{numbers[True][3]:.1f} MiB; overfit of one batch, "
+          f"{OVERFIT_STEPS} steps: loss {overfit[0]:.4f} -> {overfit[-1]:.4f} (required 5x or "
+          f"0); f32 step on 2 triplets (TF32 off, dropout 0): loss card {card_loss:.6f}, CPU "
+          f"{cpu_loss:.6f} (relative {loss_rel:.3g}), float64 {ref_loss:.6f}; gradients' "
+          f"relative L2 error against float64 (overall, worst tensor): card {card_err[0]:.3g}, "
+          f"{card_err[1]:.3g}; CPU float32 {cpu_err[0]:.3g}, {cpu_err[1]:.3g}; one step each, "
+          "(raw loss, largest Dense_0 move): " + ", ".join(
+              f"{k} ({v[0]:.4f}, {v[1]:.3g})" for k, v in others.items()), flush=True)
+
+    # resume: the restored weights equal the checkpoint, the step count continues
+    mgr = CheckpointManager(ckpt)
+    last = torch.load(mgr.path(mgr.latest_step()), map_location="cpu", weights_only=True)
+    state, _, _ = facenet_setup("cuda", seed=4)
+    mgr.restore(state)
+    mgr.close()
+    check(state.step == out["step"] == last["step"], f"FaceNet restored step {state.step}")
+    check(all(torch.equal(v.cpu(), last["model"][k]) for k, v in state.model.state_dict().items()),
+          "FaceNet restored weights differ from the checkpoint")
+    del state
+    again = train_facenet.main(argv + ["--epochs", "1"])
+    check(again["step"] > out["step"] and all(np.isfinite(again["losses"])),
+          f"the FaceNet resume took the step from {out['step']} to {again['step']}")
+
+    # the two inference CLIs on the trained directory
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        result = validate_on_lfw.main(["--lfwDir", lfw_dir, "--lfwPairs", pairs, "--modelPath",
+                                       ckpt, "--imageSize", str(FACE_IMAGE), "--embeddingSize",
+                                       str(FACE_EMBEDDING), "--batchSize", "32", "--device",
+                                       "cuda"])
+    lines = printed.getvalue().strip().splitlines()[-4:]
+    check([line.split(":")[0] for line in lines] == ["Accuracy", "Validation rate",
+                                                     "Area Under Curve (AUC)",
+                                                     "Equal Error Rate (EER)"],
+          f"validate_on_lfw printed {lines}")
+    model = FaceNetModel(FACE_EMBEDDING, device="cuda")
+    load_weights(model, ckpt)
+    lfw_paths, issame = lfw.get_paths(lfw_dir, lfw.read_pairs(pairs))
+    emb = get_embeddings(model, train_facenet.load_images(lfw_paths, FACE_IMAGE), 32)
+    accuracy = lfw.evaluate(emb, issame)[2]
+    check(np.array_equal(accuracy, result["accuracy"]),
+          f"validate_on_lfw accuracy {result['accuracy']} vs recomputed {accuracy}")
+    four = face_paths[:2] + face_paths[FACE_IMAGES:FACE_IMAGES + 2]
+    with contextlib.redirect_stdout(io.StringIO()):
+        matrix = facenet_distance.main(four + ["--modelPath", ckpt, "--imageSize",
+                                               str(FACE_IMAGE), "--embeddingSize",
+                                               str(FACE_EMBEDDING), "--device", "cuda"])
+    emb4 = get_embeddings(model, train_facenet.load_images(four, FACE_IMAGE), 4)
+    want = np.array([[float(np.sum((emb4[i] - emb4[j]) ** 2)) for j in range(4)]
+                     for i in range(4)])
+    check(np.array_equal(matrix, matrix.T) and not np.diag(matrix).any()
+          and np.allclose(matrix, want, rtol=0, atol=1e-6),
+          f"facenet_distance matrix {matrix} vs {want}")
+    del model
+    check((nms_sweep.launches, dwconv.launches) == launches_before,
+          "the FaceNet path launched a hand-written kernel")
+    print(f"phase 21 FaceNet inference CLIs on [{card}]: resumed from step {out['step']} to "
+          f"{again['step']} (restored weights equal the checkpoint); validate_on_lfw on the "
+          f"trained directory ({len(issame)} pairs): " + " | ".join(lines)
+          + f" (= lfw.evaluate of recomputed embeddings); facenet_distance on 4 images: "
+          f"symmetric, zero diagonal, = get_embeddings' squared distances (same person "
+          f"{matrix[0, 1]:.4f}, {matrix[2, 3]:.4f}; different {matrix[0, 2]:.4f}); no "
+          f"hand-written kernel launched; phase 21 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"readings": readings, "mine_ms": mine_ms, "mine_peak": mine_peak,
+            "numbers": numbers, "parts": parts, "card_err": card_err, "cpu_err": cpu_err}
+
+
 def main():
     import torch
 
@@ -2569,6 +3008,7 @@ def main():
     mosaic = phase_mosaic_train(card, files)
     phase_unet(card)
     extras = phase_serving_extras(card, files, mosaic, d0_train["ckpt"])
+    phase_facenet(card)
     nms_launches = (yolo_launches["nms_sweep"] + d0_launches["nms_sweep"]
                     + train["val_launches"] + eval_launches + d0_eval["nms_sweep"]
                     + v3_serving["launches"] + v3_train["launches"] + mosaic["val_launches"]

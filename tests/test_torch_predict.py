@@ -165,8 +165,10 @@ def test_port_imports_no_jax(tmp_path):
     pipelines (EfficientDet's host and device augmentation), train states and
     D0's loss at a tiny size, the WSGI module built from the environment, the
     detect CLI's and UNet trainer's arguments, the UNet dataset, the mosaic and
-    cached YOLO pipelines and a remat step leave ``tmv_tpu`` (and jax, flax,
-    jaxlib) out of ``sys.modules``; h5py may be loaded."""
+    cached YOLO pipelines, a remat step, and FaceNet's three CLIs' arguments, an
+    IRv1 with remat, its padded embeddings, the mining, the optax-rule optimizers
+    and the LFW evaluation leave ``tmv_tpu`` (and jax, flax, jaxlib, optax and
+    sklearn) out of ``sys.modules``; h5py may be loaded."""
     yolo = _write_inputs(tmp_path) + ["--randomInit", "--imageSize", "32", "--device", "cpu",
                                       "--batch", "2"]
     det = _write_inputs(tmp_path)[:2] + ["--family", "efficientdet", "--randomInit",
@@ -264,8 +266,23 @@ def test_port_imports_no_jax(tmp_path):
             "                     cache_dir=" + repr(str(tmp_path / "cache")) + ", device='cpu')\n"
             "assert next(iter(p))['image'].shape == (2, 32, 32, 3)\n"
             "assert p.cache.filled_count == 1\n"
-            "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('tmv_tpu', 'jax', 'flax', 'jaxlib'))\n"
+            "import numpy as np\n"
+            "from tmv_tpu_torch.cli import facenet_distance, train_facenet, validate_on_lfw\n"
+            "from tmv_tpu_torch.models.facenet import FaceNetModel, get_embeddings, lfw\n"
+            "from tmv_tpu_torch.models.facenet import select_triplets\n"
+            "f = train_facenet.parse_args(['--filesPath', 'f', '--remat', '--device', 'cpu'])\n"
+            "validate_on_lfw.parse_args(['--lfwDir', 'd', '--lfwPairs', 'p', '--modelPath', 'm'])\n"
+            "facenet_distance.parse_args(['a.jpg', '--modelPath', 'm'])\n"
+            "net = FaceNetModel(8, remat=f.remat, device=f.device)\n"
+            "assert get_embeddings(net, np.zeros((3, 80, 80, 3), np.float32), 2).shape == (3, 8)\n"
+            "t, v = select_triplets(torch.randn(3, 4, 8), torch.ones(3, 4, dtype=torch.bool), 0.2,\n"
+            "                       generator=torch.Generator().manual_seed(0))\n"
+            "assert t.shape == (144, 3) and v.shape == (144,)\n"
+            "train_facenet.make_optimizer('RMSPROP', 1e-3, net.parameters())\n"
+            "train_facenet.make_optimizer('ADAGRAD', 1e-3, net.parameters())\n"
+            "lfw.evaluate(np.random.default_rng(0).normal(size=(40, 8)), [True, False] * 10)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('tmv_tpu', 'jax', 'flax', 'jaxlib', 'optax', 'sklearn'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

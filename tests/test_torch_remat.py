@@ -4,7 +4,9 @@ One float64 train step (``core.train_state.make_train_step``, Adam) with and
 without remat, from one ``state_dict`` and one batch, for YOLOv4, YOLOv3 and
 ResNetYoloV3 at 64 px, EfficientDet-D0 at 64 px with its ``survival_prob`` of
 0.8 (the heads' ``drop_connect`` draws from an explicit generator, which the
-recompute must replay), and UNet at depth 2: the loss, every gradient, every
+recompute must replay), UNet at depth 2, and FaceNet's InceptionResNetV1 at 80
+px on 2 triplets through the triplet loss (its head's dropout at 0.2 draws from
+an explicit generator outside the recomputed blocks): the loss, every gradient, every
 BatchNorm statistic (updated once per step, not again in the recompute), the
 parameters after the update and the generator's state afterwards agree within
 1e-12 (they come out bit-equal); the ``state_dict`` keys are identical. One
@@ -22,6 +24,8 @@ from tmv_tpu_torch.cli.train_yolo import HEAD_PREFIXES
 from tmv_tpu_torch.core.train_state import TrainState, make_train_step
 from tmv_tpu_torch.models.detector_harness import build_yolo_model, freeze_mask, frozen
 from tmv_tpu_torch.models.efficientdet.harness import build_efficientdet
+from tmv_tpu_torch.models.facenet import FaceNetModel, make_triplet_train_step
+from tmv_tpu_torch.models.facenet.model import init_weights as facenet_init
 from tmv_tpu_torch.models.layers.common import init_weights
 from tmv_tpu_torch.models.unet import UNetLogits
 from tmv_tpu_torch.models.unet import init_weights as unet_init
@@ -43,6 +47,15 @@ def unet_loss(model, batch):
     return torch.mean(torch.square(model(batch["image"]) - 0.5)), {}
 
 
+def facenet_loss(generator):
+    triplet = make_triplet_train_step(0.2, generator)
+
+    def loss_fn(model, batch):
+        a, p, n = torch.chunk(batch["image"], 3)
+        return triplet(model, {"anchor": a, "positive": p, "negative": n})
+    return loss_fn
+
+
 def build(name, remat):
     if name in ("v4", "v3", "resnet"):
         model, _ = build_yolo_model(name, 2, device="cpu", dtype=torch.float64, remat=remat)
@@ -54,6 +67,8 @@ def build(name, remat):
 
         d0_init(model, 0)
         assert model.config.survival_prob < 1
+    elif name == "facenet":
+        model = facenet_init(FaceNetModel(16, remat=remat, device="cpu"), 0)
     else:
         model = unet_init(UNetLogits(depth=2, filters_base=4, output_filters=4, remat=remat), 0)
     return model.double()
@@ -63,11 +78,11 @@ def step_once(name, remat, mask=None):
     """(model, metrics, grads, generator state) after one step."""
     model = build(name, remat)
     generator = torch.Generator().manual_seed(5)
-    loss_fn = (d0_loss(generator) if name == "d0" else
-               unet_loss if name == "unet" else heads_loss)
-    size = 32 if name == "unet" else 64
+    loss_fn = {"d0": d0_loss(generator), "facenet": facenet_loss(generator),
+               "unet": unet_loss}.get(name, heads_loss)
+    size, count = {"unet": (32, 2), "facenet": (80, 6)}.get(name, (64, 2))
     batch = {"image": torch.from_numpy(
-        np.random.default_rng(1).uniform(0, 1, (2, size, size, 3)))}
+        np.random.default_rng(1).uniform(0, 1, (count, size, size, 3)))}
     params = ([p for n, p in model.named_parameters() if mask[n]] if mask is not None
               else model.parameters())
     state = TrainState.create(model, torch.optim.Adam(params, lr=1e-3))
@@ -111,7 +126,7 @@ def assert_same_step(name, mask=None):
     return g0
 
 
-@pytest.mark.parametrize("name", ["v4", "v3", "resnet", "d0", "unet"])
+@pytest.mark.parametrize("name", ["v4", "v3", "resnet", "d0", "unet", "facenet"])
 def test_remat_step_equals_the_direct_step(name, one_torch_thread):
     assert_same_step(name)
 

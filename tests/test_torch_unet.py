@@ -33,7 +33,7 @@ from tmv_tpu_torch.data import unet_dataset
 from tmv_tpu_torch.models.unet import UNet, UNetLogits, init_weights, make_unet_loss_fn
 from tmv_tpu_torch.ops import losses, soft_label
 from tmv_tpu_torch.utils import image_helper
-from torch_port_cases import seeded_variables, write_labelme
+from torch_port_cases import by_torch_name, seeded_variables, write_labelme
 
 KW = dict(depth=2, filters_base=4, output_filters=4)
 
@@ -42,20 +42,6 @@ def flax_variables(size, seed=0):
     shapes = jax.eval_shape(jax_unet.UNetLogits(**KW).init, jax.random.key(0),
                             jnp.zeros((1, size, size, 3)))
     return jax.tree.map(np.asarray, seeded_variables(shapes, np.random.default_rng(seed)))
-
-
-def by_torch_name(tree):
-    """A flax params or batch_stats tree as float64 numpy arrays under the torch
-    names, kernels in OIHW (``flax_to_state_dict`` rounds to float32)."""
-    names = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean",
-             "var": "running_var"}
-    out = {}
-    for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
-        keys = [str(k.key) for k in path]
-        array = np.asarray(leaf, np.float64)
-        out[".".join(keys[:-1] + [names[keys[-1]]])] = (
-            array.transpose(3, 2, 0, 1) if keys[-1] == "kernel" else array)
-    return out
 
 
 def bridged(cls, variables, dtype=torch.float32):

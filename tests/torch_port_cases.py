@@ -184,3 +184,107 @@ def write_labelme(root, count=5):
             shapes.append({"label": "doc", "points": quad})
         (root / f"q{i}.json").write_text(json.dumps({"imagePath": f"q{i}.png",
                                                      "shapes": shapes}))
+
+
+def write_face_set(root, people=4, images=3, size=96, seed=0):
+    """``root/<person>/<person>_NNNN.jpg``: each person a seeded colour pattern,
+    each image that pattern plus per-image noise; returns the person names."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    names = [f"person_{p}" for p in range(people)]
+    for name in names:
+        (root / name).mkdir(parents=True, exist_ok=True)
+        pattern = rng.uniform(0, 255, (8, 8, 3))
+        base = np.kron(pattern, np.ones((size // 8, size // 8, 1)))
+        for i in range(images):
+            img = np.clip(base + rng.normal(0, 20, base.shape), 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(root / name / f"{name}_{i + 1:04d}.jpg", quality=90)
+    return names
+
+
+def write_pairs(path, names, images, count=20, seed=0):
+    """An LFW ``pairs.txt`` over ``names`` × ``images``: a header line, then
+    alternating same (``name i j``) and different (``a i b j``) pairs."""
+    rng = np.random.default_rng(seed)
+    lines = [f"1\t{count}"]
+    for k in range(count):
+        if k % 2 == 0:
+            name = names[rng.integers(len(names))]
+            i, j = rng.choice(np.arange(1, images + 1), 2, replace=False)
+            lines.append(f"{name}\t{i}\t{j}")
+        else:
+            a, b = rng.choice(len(names), 2, replace=False)
+            lines.append(f"{names[a]}\t{rng.integers(1, images + 1)}\t{names[b]}\t"
+                         f"{rng.integers(1, images + 1)}")
+    path.write_text("\n".join(lines) + "\n")
+    return path
+
+
+def by_torch_name(tree):
+    """A flax params or batch_stats tree as float64 numpy arrays under the torch
+    ``state_dict`` names: conv kernels HWIO → OIHW, Dense kernels transposed
+    (``flax_to_state_dict`` rounds to float32)."""
+    import jax
+
+    names = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean",
+             "var": "running_var"}
+    out = {}
+    for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
+        keys = [str(k.key) for k in path]
+        array = np.asarray(leaf, np.float64)
+        if keys[-1] == "kernel":
+            array = array.transpose(3, 2, 0, 1) if array.ndim == 4 else array.T
+        out[".".join(keys[:-1] + [names[keys[-1]]])] = array
+    return out
+
+
+def hold_against_flax(flax_module, torch_module, shape, seed=0):
+    """Hold ``torch_module`` (NCHW in and out, or 2-D out) against
+    ``flax_module`` (NHWC) on seeded variables bridged by ``flax_to_state_dict``
+    and a seeded input of NHWC ``shape``: in eval mode in float32 within
+    1e-5·max|ref|, and in train mode in float64 within 1e-10·max|ref| with every
+    BatchNorm statistic after the forward within 1e-10 of its largest entry.
+    Returns the flax variables."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from tmv_tpu_torch.convert.flax_bridge import flax_to_state_dict
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, shape).astype(np.float32)
+    shapes = jax.eval_shape(flax_module.init, jax.random.key(0), jnp.zeros((1,) + shape[1:]))
+    variables = jax.tree.map(np.asarray, seeded_variables(shapes, rng))
+    torch_module.load_state_dict(flax_to_state_dict(variables, torch_module), strict=True)
+
+    def nhwc(t):
+        t = t.detach()
+        return (t.permute(0, 2, 3, 1) if t.dim() == 4 else t).numpy()
+
+    def nchw(a):
+        return torch.from_numpy(a).permute(0, 3, 1, 2)
+
+    want = np.asarray(jax.jit(lambda v, a: flax_module.apply(v, a))(variables, x))
+    with torch.no_grad():
+        got = nhwc(torch_module.float().eval()(nchw(x)))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+    x64 = x.astype(np.float64) + rng.normal(0, 1e-3, shape)
+    with jax.enable_x64(True):
+        module = flax_module.clone(dtype=jnp.float64)
+        cast = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
+        want, mutated = jax.jit(lambda v, a: module.apply(v, a, train=True,
+                                                          mutable=["batch_stats"]))(cast, x64)
+        want = np.asarray(want)
+        stats = by_torch_name(mutated.get("batch_stats", {}))
+    net = torch_module.double().train()
+    with torch.no_grad():
+        got = nhwc(net(nchw(x64)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10 * np.abs(want).max())
+    state = net.state_dict()
+    assert len(stats) == 2 * sum(isinstance(m, torch.nn.BatchNorm2d) for m in net.modules())
+    for key, w in stats.items():
+        assert np.abs(state[key].numpy() - w).max() <= 1e-10 * np.abs(w).max(), key
+    return variables

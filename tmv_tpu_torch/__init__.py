@@ -11,13 +11,15 @@ paths and their HTTP serving (``cli/serve.py``, ``serving/wsgi.py``) and
 one-image detection (``cli/detect.py``), their training (``cli/train_yolo.py``
 with mosaic, the staging cache and ``--remat``; ``cli/train_efficientdet.py``)
 and mAP evaluation (``cli/eval_map.py``), the Darknet/Keras importers, the UNet
-keypoint family's training (``cli/train_unet.py``), the flax weight and
+keypoint family's training (``cli/train_unet.py``), the FaceNet family's
+embeddings, triplet mining and training (``cli/train_facenet.py``) and LFW
+validation (``cli/validate_on_lfw.py``, ``cli/facenet_distance.py``), the flax weight and
 optimizer-state bridge (``convert/flax_bridge.py``), the greedy-NMS kernel and
 the fused depthwise-conv + BatchNorm + swish kernel.
 The package imports ``torch``, numpy, PIL and the standard library, and nothing
 of ``jax``, ``flax`` or the ``tmv_tpu`` package: where it needs a jax-free module
 of ``tmv_tpu`` (config, loaders, samplers, stage cache, map_eval, image and file
-helpers, serving), it keeps its own copy.
+helpers, serving, the FaceNet dataset and LFW evaluation), it keeps its own copy.
 """
 
 __version__ = "0.1.0"

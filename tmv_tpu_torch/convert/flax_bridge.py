@@ -6,13 +6,17 @@ this one bridge loads all of them. The port's modules carry the flax names, so
 the bridge is a walk over paths, not a table:
 
 - conv kinds — ``Conv_k``, EfficientDet's ``conv2d``, ``depthwise`` and
-  ``pointwise``, and ResNet50V2's stem ``conv1`` (its ``conv2``…``conv5`` are
-  stacks, not convs) — map ``…/kernel`` (HWIO) → ``….weight`` (OIHW); a depthwise
-  kernel ``(k, k, 1, C)`` becomes ``(C, 1, k, k)`` by the same transpose;
-- ``…/Dense_k/kernel`` ``(in, out)`` → ``….Dense_k.weight`` ``(out, in)``;
+  ``pointwise``, ResNet50V2's stem ``conv1`` (its ``conv2``…``conv5`` are
+  stacks, not convs), and RepVGG's ``conv`` and ``rbr_reparam`` — map
+  ``…/kernel`` (HWIO) → ``….weight`` (OIHW); a depthwise kernel ``(k, k, 1, C)``
+  becomes ``(C, 1, k, k)`` and a grouped one ``(k, k, C/g, O)`` becomes
+  ``(O, C/g, k, k)`` by the same transpose;
+- ``…/Dense_k/kernel`` (and RepVGG's ``dense``) ``(in, out)`` → ``….weight``
+  ``(out, in)``;
 - ``…/bias`` of a conv or Dense as is;
-- BatchNorm kinds — ``BatchNorm_k``, and EfficientDet's ``bn`` and
-  ``bn_{i}_level_{l}`` — map ``{scale, bias}`` + ``batch_stats …/{mean, var}``
+- BatchNorm kinds — ``BatchNorm_k``, EfficientDet's ``bn`` and
+  ``bn_{i}_level_{l}``, and RepVGG's ``rbr_identity`` — map ``{scale, bias}`` +
+  ``batch_stats …/{mean, var}``
   → ``weight``/``bias``/``running_mean``/``running_var``, plus
   ``num_batches_tracked`` = 0 (Keras BN: epsilon 1e-3 and momentum 0.99, which
   the port's modules set as torch ``eps=1e-3, momentum=0.01``);
@@ -53,7 +57,9 @@ def _leaves(tree: Mapping[str, Any], prefix=()):
 
 
 _CONV_KINDS = {"Conv", "conv2d", "depthwise", "pointwise"}
-_NAMED_CONVS = {"conv1"}    # an nn.Conv given an explicit name
+# modules given an explicit name: ResNet50V2's stem; RepVGG's convs, identity and head
+_NAMED = {"conv1": "Conv", "conv": "Conv", "rbr_reparam": "Conv",
+          "rbr_identity": "BatchNorm", "dense": "Dense"}
 _BN_KINDS = {"BatchNorm", "bn"}
 _BN_PER_LEVEL = re.compile(r"bn_\d+_level_\d+")
 
@@ -62,8 +68,8 @@ def _kind(module_name: str) -> str:
     """``Conv``, ``BatchNorm`` or the module's class name without its ``_k``."""
     if _BN_PER_LEVEL.fullmatch(module_name):
         return "BatchNorm"
-    if module_name in _NAMED_CONVS:
-        return "Conv"
+    if module_name in _NAMED:
+        return _NAMED[module_name]
     base = re.sub(r"_\d+$", "", module_name)
     if base in _CONV_KINDS:
         return "Conv"

@@ -15,10 +15,15 @@ holds the live module (its parameters and BatchNorm buffers) and its
   whose gradients are averaged before one update, the BatchNorm statistics
   threaded through the micro-batches in order.
 
-``torch.optim.Adam(betas=(0.9, 0.999), eps=1e-8)`` is ``optax.adam``'s update
-and ``torch.optim.SGD(momentum=0.9)`` (no dampening, no Nesterov) is
-``optax.sgd(schedule, momentum=0.9)``'s; a ``lr_schedule`` is read at the step
-count before the update, as optax reads its schedule, and set into the
+``torch.optim.Adam(betas=(0.9, 0.999), eps=1e-8)`` is ``optax.adam``'s update,
+``torch.optim.SGD(momentum=0.9)`` (no dampening, no Nesterov) is
+``optax.sgd(schedule, momentum=0.9)``'s and ``torch.optim.Adadelta(lr, rho=0.9,
+eps=1e-6)`` is ``optax.adadelta(lr)``'s. Two optax rules have no torch
+counterpart and are written here: ``OptaxRMSprop`` (``optax.rmsprop`` adds eps
+inside the square root, torch's ``RMSprop`` outside) and ``OptaxAdagrad``
+(``optax.adagrad`` starts its accumulator at 0.1 and adds eps inside the square
+root; torch's starts at 0 and adds it outside). A ``lr_schedule`` is read at the
+step count before the update, as optax reads its schedule, and set into the
 optimizer's ``param_groups`` before it steps.
 
 ``make_line_search_train_step`` is the reference's experimental "dynamic
@@ -57,6 +62,66 @@ class TrainState:
                              if b.is_floating_point()}
         return cls(model, optimizer, 0, torch.zeros((), dtype=torch.float32, device=device),
                    ema_params, ema_stats)
+
+
+class OptaxRMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop(lr, decay, eps, momentum=momentum)`` (``eps_in_sqrt=True``,
+    ``initial_scale=0``, not centered, no Nesterov): ``ν = decay·ν + (1−decay)·g²``,
+    ``u = −lr · g·rsqrt(ν + eps)``, and the trace ``t = u + momentum·t`` is the
+    update. foreach ops over each group's parameters."""
+
+    def __init__(self, params, lr: float, decay: float, eps: float, momentum: float):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps, momentum=momentum))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                if not self.state[p]:
+                    self.state[p]["nu"] = torch.zeros_like(p)
+                    self.state[p]["trace"] = torch.zeros_like(p)
+            grads = [p.grad for p in params]
+            nus = [self.state[p]["nu"] for p in params]
+            torch._foreach_mul_(nus, group["decay"])
+            torch._foreach_addcmul_(nus, grads, grads, value=1.0 - group["decay"])
+            updates = torch._foreach_add(nus, group["eps"])
+            torch._foreach_rsqrt_(updates)
+            torch._foreach_mul_(updates, grads)
+            torch._foreach_mul_(updates, -group["lr"])
+            traces = [self.state[p]["trace"] for p in params]
+            torch._foreach_mul_(traces, group["momentum"])
+            torch._foreach_add_(traces, updates)
+            torch._foreach_add_(params, traces)
+
+
+class OptaxAdagrad(torch.optim.Optimizer):
+    """``optax.adagrad(lr)``: ``s = s + g²`` from ``s = 0.1``, ``u = −lr ·
+    g·rsqrt(s + 1e-7)``. (optax takes a 0 scale where ``s`` is 0, which a start
+    of 0.1 never reaches.) foreach ops over each group's parameters."""
+
+    def __init__(self, params, lr: float):
+        super().__init__(params, dict(lr=lr))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                if not self.state[p]:
+                    self.state[p]["sum_of_squares"] = torch.full_like(p, 0.1)
+            grads = [p.grad for p in params]
+            sums = [self.state[p]["sum_of_squares"] for p in params]
+            torch._foreach_addcmul_(sums, grads, grads)
+            updates = torch._foreach_add(sums, 1e-7)
+            torch._foreach_rsqrt_(updates)
+            torch._foreach_mul_(updates, grads)
+            torch._foreach_mul_(updates, -group["lr"])
+            torch._foreach_add_(params, updates)
 
 
 def _split(batch, parts: int):

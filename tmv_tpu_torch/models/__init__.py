@@ -1,1 +1,1 @@
-"""Model zoo (so far: YOLOv4) and its predict harness."""
+"""Model zoo (YOLOv4/v3, EfficientDet, UNet, FaceNet) and the detectors' predict harnesses."""

@@ -2,12 +2,12 @@
 
 Port of ``tmv_tpu/ops/losses.py``: ``sigmoid_cross_entropy`` (the YOLO loss's)
 and EfficientDet's ``focal_loss``, ``huber``, ``box_loss``, ``class_focal_loss``
-and ``l2_regularization``, and the UNet family's ``focus_loss``, in the JAX
-package's operation order. The other families' losses (triplet, InfoNCE) come
-with their slices.
+and ``l2_regularization``, the UNet family's ``focus_loss`` and FaceNet's
+``euclidean_distance_sq`` and ``triplet_loss``, in the JAX package's operation
+order. MoCo's InfoNCE comes with its slice.
 """
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -103,3 +103,24 @@ def focus_loss(y_true: torch.Tensor, y_pred_logits: torch.Tensor,
     loss_object = sq_obj / object_num / object_percent
     loss_other = sq_other / other_num / (1.0 - object_percent)
     return (loss_object + loss_other) / float(b)
+
+
+def euclidean_distance_sq(e1: torch.Tensor, e2: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Squared euclidean distance (`facenet_model.py:112-122`)."""
+    return torch.sum(torch.square(e1 - e2), dim=axis)
+
+
+def triplet_loss(anchor: torch.Tensor, positive: torch.Tensor, negative: torch.Tensor,
+                 alpha: float, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``max(pos − neg + α, 0)`` over squared distances, the mean over the batch;
+    with ``valid``, the sum over the valid triplets / ``max(Σ valid, 1)``.
+    ``torch.maximum`` splits the gradient at a hinge of exactly 0 in halves, as
+    ``jnp.maximum`` does."""
+    pos_dist = euclidean_distance_sq(anchor, positive, axis=1)
+    neg_dist = euclidean_distance_sq(anchor, negative, axis=1)
+    hinge = pos_dist - neg_dist + alpha
+    basic = torch.maximum(hinge, torch.zeros_like(hinge))
+    if valid is None:
+        return torch.mean(basic)
+    valid_f = valid.to(basic.dtype)
+    return torch.sum(basic * valid_f) / torch.clamp(torch.sum(valid_f), min=1.0)
