@@ -11,7 +11,9 @@ then each model's trainer and eval CLI; then YOLOv3 @416 and the ResNet50V2
 YOLO tower (phases 15-17), whose IoU NMS goes through the same sweep kernel;
 then YOLOv4 @608 mosaic training with the staging cache and ``--remat``, UNet
 @128 training, and the WSGI entry and detect CLI (phases 18-20); then the FaceNet
-family (phase 21), which launches neither kernel.
+family (phase 21), which launches neither kernel; then MoCo pretraining, export
+and fine-tune, and teacher→student distillation, whose pseudo-labeler sweeps
+through the NMS kernel (phase 22).
 Phases, each printing its own lines:
 
 1. environment: torch/CUDA/nvcc versions and the card (nvidia-smi);
@@ -156,7 +158,27 @@ Phases, each printing its own lines:
     checkpoint, the step continues); one step each with ADAGRAD, ADADELTA and
     RMSPROP; ``cli/validate_on_lfw.py`` (its four lines; the accuracy equals
     ``lfw.evaluate`` on recomputed embeddings) and ``cli/facenet_distance.py``
-    (symmetric, zero diagonal, the embeddings' squared distances).
+    (symmetric, zero diagonal, the embeddings' squared distances);
+22. MoCo and distillation on ResNetYoloV3 @416, float32 (TF32 off), on phase
+    11's 64 JPEGs: ``cli/train_moco.py`` pretrain at b8, ``--outFilters 21``, K =
+    100 (D = 74,529) for 20 steps with a checkpoint (step, queue and pointer), a
+    resume for 2 more (the step, the pointer, the 16 written queue rows and the
+    key tower continue; the other rows stay), ``export_k`` (the key tower,
+    weights only) and ``finetune`` for 10 steps (exactly the output convs' 6
+    tensors skipped by the graft); the MoCo step by CUDA events and in parts
+    (key forward, query forward and loss, backward, SGD, momentum blend,
+    enqueue), its kernels' device time and busy share, its peak above the
+    resident state; one float32 step on the card and on the CPU against the
+    CPU's float64 step at B = 2 by phase 11's rule (loss, gradients, blended
+    key tower, written queue rows) and a wrapping push equal on card and CPU;
+    ``cli/train_distill.py`` train_teacher (5 steps) and promote (the teacher
+    = the student), with neither kernel launched on the MoCo and teacher paths;
+    then dump_labels and train_students (10 steps) with the seeded ResNetYoloV3
+    of phase 15 as the teacher (box rows scaled): one sweep launch per labeler
+    call, every sweep's whole kept mask equal to the plain sweep's and with
+    suppressions, the dumped file identical with the plain sweep's, a box in
+    every pseudo-label batch; the labeler's forward and post-process per b8
+    batch, the student step and the dump's images/s.
 
 The serving weights are seeded (``--randomInit --seed 0`` of each family), adjusted so
 that NMS has real work: YOLOv4's three output convs' box rows are scaled by
@@ -219,6 +241,13 @@ LFW_IMAGES = 6
 LFW_PAIRS = 60
 MINING_PEOPLE = 45
 MINING_IMAGES = 40
+MOCO_FILTERS = 21
+MOCO_QUEUE = 100
+MOCO_DIM = (13 ** 2 + 26 ** 2 + 52 ** 2) * MOCO_FILTERS    # at 416
+MOCO_STEPS = 20
+FINETUNE_STEPS = 10
+TEACHER_STEPS = 5
+STUDENT_STEPS = 10
 NMS_SOURCE = "tmv_tpu_torch/csrc/nms_sweep.cu"
 NMS_REPLACES = "tmv_tpu/kernels/nms_pallas.py:90"
 DW_SOURCE = "tmv_tpu_torch/csrc/dwconv_bn_swish.cu"
@@ -2977,6 +3006,425 @@ def phase_facenet(card):
             "numbers": numbers, "parts": parts, "card_err": card_err, "cpu_err": cpu_err}
 
 
+# ---------------------------------------------------------------- MoCo and distillation
+
+class CheckedSweep(SweepLog):
+    """``SweepLog`` over the kernel that also runs the plain sweep on each call's
+    inputs (on the card; it launches no kernel) and records whether the two
+    whole masks agree."""
+
+    def __init__(self):
+        from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep
+
+        super().__init__(greedy_sweep)
+        self.agree = []
+
+    def __call__(self, boxes, eligible, *args):
+        import torch
+
+        from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep_reference
+
+        kept = super().__call__(boxes, eligible, *args)
+        self.agree.append(bool(torch.equal(kept, greedy_sweep_reference(boxes, eligible, *args))))
+        return kept
+
+
+def moco_step_parts(state, batch, reps):
+    """Medians over ``reps`` MoCo steps of each part by CUDA events: the key
+    forward, the query forward and loss, the backward, SGD, the momentum blend
+    and the enqueue (the step of ``models/moco.py``, split)."""
+    import torch
+
+    from tmv_tpu_torch.models.moco import flatten_normalize, momentum_update, push_queue
+    from tmv_tpu_torch.ops.losses import moco_info_nce_loss
+
+    names = ("key forward", "query forward + loss", "backward", "SGD", "momentum blend",
+             "enqueue")
+    parts = {k: [] for k in names}
+    moco, model, optimizer = state.extra, state.model, state.optimizer
+    for _ in range(reps):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        events[0].record()
+        moco.key_model.eval()
+        with torch.no_grad():
+            y_k = moco.key_model(batch["key"])
+        events[1].record()
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        loss = moco_info_nce_loss(model(batch["query"]), y_k, moco.queue, 0.07)
+        events[2].record()
+        loss.backward()
+        events[3].record()
+        optimizer.step()
+        events[4].record()
+        momentum_update(moco.key_model, model, state.step, 0.999, 1000)
+        events[5].record()
+        moco.queue, moco.queue_ptr = push_queue(moco.queue, moco.queue_ptr,
+                                                flatten_normalize(y_k))
+        events[6].record()
+        torch.cuda.synchronize()
+        state.step += 1
+        for k, (a, b) in zip(names, zip(events, events[1:])):
+            parts[k].append(a.elapsed_time(b))
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def moco_f32_step(card, images):
+    """One MoCo step in float32 (TF32 off) on the card and on the CPU, and in
+    float64 on the CPU, from one query tower, one key tower (another seed), one
+    queue (pointer 95 of 100, so the push wraps) and one two-crop batch at 416,
+    B = 2, at step 500 of a 1000-step warm-up (decay 0.5). The card's loss
+    within 1e-3 of the CPU's float32 loss; its gradients, blended key tower and
+    written queue rows as close to float64 as the CPU's float32 are (within 2x,
+    plus 1e-4). Then one push of the same keys into the same queue on the card
+    and on the CPU: bit-equal."""
+    import copy
+
+    import torch
+
+    from tmv_tpu_torch.cli.train_moco import build_tower, two_crop_batches
+    from tmv_tpu_torch.core.train_state import TrainState
+    from tmv_tpu_torch.models.moco import MocoState, make_moco_train_step, push_queue
+
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 must stay off for the float32 comparison")
+    query0 = build_tower(MOCO_FILTERS, "cpu", False, seed=4)
+    key0 = build_tower(MOCO_FILTERS, "cpu", False, seed=5)
+    gen = torch.Generator().manual_seed(6)
+    dim = MOCO_DIM
+    queue0 = torch.nn.functional.normalize(torch.rand((MOCO_QUEUE, dim), generator=gen), dim=1)
+    batch = next(two_crop_batches(images, 2, TRAIN_IMAGE, seed=7))
+    results = {}
+    for name, device, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                                ("cpu f64", "cpu", torch.float64)):
+        model, key = (copy.deepcopy(m).to(device, dtype) for m in (query0, key0))
+        model.dtype = key.dtype = dtype
+        moco = MocoState(key, queue0.to(device, dtype), MOCO_QUEUE - 5)
+        state = TrainState.create(model, torch.optim.SGD(model.parameters(), lr=1e-3,
+                                                         momentum=0.9), extra=moco)
+        state.step = 500
+        metrics = make_moco_train_step()(state, {k: torch.from_numpy(v).to(device, dtype)
+                                                 for k, v in batch.items()})
+        results[name] = (float(metrics["loss"]), grads_of(model),
+                         {n: t.detach().cpu().double()
+                          for n, t in key.state_dict().items() if t.is_floating_point()},
+                         moco.queue.detach().cpu().double())
+        check(moco.queue_ptr == (MOCO_QUEUE - 5 + 2) % MOCO_QUEUE,
+              f"queue pointer {moco.queue_ptr} after the push")
+        del state, model, key, moco
+    (card_loss, card_g, card_k, card_q), (cpu_loss, cpu_g, cpu_k, cpu_q), \
+        (ref_loss, ref_g, ref_k, ref_q) = (results[k] for k in ("card", "cpu", "cpu f64"))
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    card_err, cpu_err = rel_l2(card_g, ref_g), rel_l2(cpu_g, ref_g)
+    card_key, cpu_key = rel_l2(card_k, ref_k), rel_l2(cpu_k, ref_k)
+    rows = [(MOCO_QUEUE - 5 + i) % MOCO_QUEUE for i in range(2)]
+    card_rows = float((card_q[rows] - ref_q[rows]).abs().max())
+    cpu_rows = float((cpu_q[rows] - ref_q[rows]).abs().max())
+    check(loss_rel <= 1e-3, f"MoCo f32 loss card {card_loss} vs CPU {cpu_loss}")
+    check(card_err[0] <= 2 * cpu_err[0] + 1e-4 and card_err[1] <= 2 * cpu_err[1] + 1e-4,
+          f"MoCo f32 gradients: card vs float64 {card_err}, CPU vs float64 {cpu_err}")
+    check(card_key[0] <= 2 * cpu_key[0] + 1e-4 and card_key[1] <= 2 * cpu_key[1] + 1e-4,
+          f"MoCo f32 key tower: card vs float64 {card_key}, CPU vs float64 {cpu_key}")
+    check(card_rows <= 2 * cpu_rows + 1e-4,
+          f"MoCo f32 queue rows: card {card_rows}, CPU {cpu_rows}")
+    items = torch.nn.functional.normalize(torch.rand((TRAIN_BATCH, dim), generator=gen), dim=1)
+    pushed = [push_queue(queue0.clone().to(device), MOCO_QUEUE - 3, items.to(device))
+              for device in ("cuda", "cpu")]
+    check(torch.equal(pushed[0][0].cpu(), pushed[1][0]) and pushed[0][1] == pushed[1][1] == 5,
+          "the card's queue after a push differs from the CPU's")
+    print(f"phase 22 MoCo f32 step card vs CPU (TF32 off, ResNetYoloV3 --outFilters "
+          f"{MOCO_FILTERS} @{TRAIN_IMAGE} B=2, queue {MOCO_QUEUE} x {dim} from pointer "
+          f"{MOCO_QUEUE - 5}, decay 0.5): InfoNCE loss card {card_loss:.6f}, CPU {cpu_loss:.6f} "
+          f"(relative {loss_rel:.3g}, tolerance 1e-3), CPU float64 {ref_loss:.6f}; against the "
+          f"CPU float64 step (relative L2 overall, worst tensor): gradients card "
+          f"{card_err[0]:.3g}, {card_err[1]:.3g}, CPU float32 {cpu_err[0]:.3g}, "
+          f"{cpu_err[1]:.3g}; blended key tower card {card_key[0]:.3g}, {card_key[1]:.3g}, CPU "
+          f"float32 {cpu_key[0]:.3g}, {cpu_key[1]:.3g}; written queue rows max |diff| card "
+          f"{card_rows:.3g}, CPU {cpu_rows:.3g} (tolerance: the card within 2x the CPU's + "
+          f"1e-4); a push of 8 keys from pointer {MOCO_QUEUE - 3} (wrapping to 5): card queue "
+          f"= CPU queue bit for bit on [{card}]", flush=True)
+    return {"loss_rel": loss_rel, "card_err": card_err, "cpu_err": cpu_err}
+
+
+def phase_moco(card, files):
+    """Phase 22, MoCo: cli/train_moco.py pretrain at the CLI's defaults (@416,
+    --outFilters 21, K = 100) at b8 with checkpoints, a resume, export_k and
+    finetune; the step's parts, kernels and memory; float32 against float64.
+    Neither hand-written kernel runs here."""
+    import torch
+
+    from tmv_tpu_torch.cli import train_moco
+    from tmv_tpu_torch.core.checkpoint import CheckpointManager, read_weights
+    from tmv_tpu_torch.kernels import dwconv, nms_sweep
+    from tmv_tpu_torch.models.moco import make_moco_train_step
+
+    nms_sweep.launches = dwconv.launches = 0
+    moco_dir = os.path.join(WORK, "moco")
+    export_dir = os.path.join(WORK, "moco_k")
+    det_dir = os.path.join(WORK, "moco_det")
+    for d in (moco_dir, export_dir, det_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    base = ["--trainImagePath", files["images"], "--batchSize", str(TRAIN_BATCH), "--imageSize",
+            str(TRAIN_IMAGE), "--queueSize", str(MOCO_QUEUE), "--outFilters", str(MOCO_FILTERS),
+            "--modelPath", moco_dir, "--exportPath", export_dir, "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = train_moco.main(["--mode", "pretrain", "--steps", str(MOCO_STEPS)] + base)
+    wall = time.perf_counter() - t0
+    cli_peak = torch.cuda.max_memory_allocated() / 2**30
+    mgr = CheckpointManager(moco_dir)
+    saved = torch.load(mgr.path(MOCO_STEPS), map_location="cpu", weights_only=True)
+    check(first["step"] == MOCO_STEPS and first["feature_dim"] == MOCO_DIM,
+          f"pretrain: step {first['step']}, feature dim {first['feature_dim']}")
+    check(all(np.isfinite(first["losses"])), "a non-finite InfoNCE loss")
+    ptr = MOCO_STEPS * TRAIN_BATCH % MOCO_QUEUE
+    check(saved["step"] == MOCO_STEPS and saved["extra"]["queue_ptr"] == ptr
+          and tuple(saved["extra"]["queue"].shape) == (MOCO_QUEUE, MOCO_DIM),
+          "the pretrain checkpoint's step, pointer or queue")
+    print(f"phase 22 MoCo pretrain CLI: ResNetYoloV3 --outFilters {MOCO_FILTERS} @{TRAIN_IMAGE} "
+          f"b{TRAIN_BATCH} f32, queue {MOCO_QUEUE} x {first['feature_dim']} "
+          f"({MOCO_QUEUE * MOCO_DIM * 4 / 1e6:.1f} MB), {MOCO_STEPS} steps in {wall:.1f} s (two "
+          f"crops decoded and augmented on the host, a producer thread); InfoNCE loss first "
+          f"{first['losses'][0]:.4f}, last {first['losses'][-1]:.4f}; checkpoint step "
+          f"{saved['step']}, pointer {ptr}; peak memory {cli_peak:.2f} GiB on [{card}]",
+          flush=True)
+
+    again = train_moco.main(["--mode", "pretrain", "--steps", str(MOCO_STEPS + 2)] + base)
+    last = torch.load(mgr.path(MOCO_STEPS + 2), map_location="cpu", weights_only=True)
+    moved = sum(not torch.equal(last["extra"]["key_model"][k], v)
+                for k, v in saved["extra"]["key_model"].items() if v.is_floating_point())
+    written = [(ptr + i) % MOCO_QUEUE for i in range(2 * TRAIN_BATCH)]
+    kept = [i for i in range(MOCO_QUEUE) if i not in written]
+    check(again["step"] == MOCO_STEPS + 2 and len(again["losses"]) == 2
+          and last["extra"]["queue_ptr"] == (ptr + 2 * TRAIN_BATCH) % MOCO_QUEUE
+          and moved > 0
+          and not torch.equal(last["extra"]["queue"][written], saved["extra"]["queue"][written])
+          and torch.equal(last["extra"]["queue"][kept], saved["extra"]["queue"][kept]),
+          "the resume did not continue the step, the pointer, the queue and the key tower")
+    exported = train_moco.main(["--mode", "export_k"] + base)
+    weights, step = read_weights(export_dir)
+    check(exported["step"] == step == MOCO_STEPS + 2
+          and all(torch.equal(weights[k], v) for k, v in last["extra"]["key_model"].items()),
+          "export_k did not write the key tower")
+    t0 = time.perf_counter()
+    tuned = train_moco.main(["--mode", "finetune", "--steps", str(FINETUNE_STEPS),
+                             "--trainData", files["labels"], "--classesFile", files["classes"],
+                             "--anchorsFile", files["anchors"], "--modelPath", det_dir]
+                            + base[:6] + ["--exportPath", export_dir, "--device", "cuda"])
+    tune_wall = time.perf_counter() - t0
+    heads = sorted(f"DarknetConv_{i}.Conv_0.{p}" for i in range(3) for p in ("weight", "bias"))
+    check(sorted(tuned["skipped"]) == heads, f"finetune skipped {tuned['skipped']}")
+    check(tuned["step"] == FINETUNE_STEPS and all(np.isfinite(tuned["losses"])),
+          "finetune: steps or a non-finite loss")
+    mgr.close()
+    print(f"phase 22 MoCo resume, export and finetune: resumed at step {MOCO_STEPS} to "
+          f"{again['step']} (pointer {ptr} -> {last['extra']['queue_ptr']}, the 16 written rows "
+          f"changed and the other {len(kept)} kept, {moved} key-tower tensors moved); export_k "
+          f"wrote the key tower at step {step} (= the checkpoint's, {len(weights)} tensors); "
+          f"finetune grafted {len(tuned['copied'])} tensors and skipped exactly the 6 of the "
+          f"output convs (80 classes: 255 filters against {MOCO_FILTERS}), "
+          f"{FINETUNE_STEPS} CIoU + Adam + shadow-loss steps in {tune_wall:.1f} s, raw loss "
+          f"{tuned['losses'][0]:.2f} -> {tuned['losses'][-1]:.2f} on [{card}]", flush=True)
+
+    args = train_moco.parse_args(base)
+    state, _ = train_moco.moco_train_state(args, torch.device("cuda"))
+    crops = train_moco.two_crop_batches(files["images"], TRAIN_BATCH, TRAIN_IMAGE, seed=1)
+    batch = train_moco.to_device(next(crops), "cuda")
+    step = make_moco_train_step()
+    for _ in range(3):
+        step(state, batch)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 10
+    step_ms = cuda_ms(lambda: step(state, batch), reps)
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    parts = moco_step_parts(state, batch, 5)
+    kernel_ms = step_kernel_ms(lambda: step(state, batch), 3)
+    host = host_ms(lambda: next(crops), 3)
+    print(f"phase 22 MoCo step on [{card}]: ResNetYoloV3 @{TRAIN_IMAGE} b{TRAIN_BATCH} f32 "
+          f"(TF32 off), K = {MOCO_QUEUE}: {step_ms:.2f} ms per step by CUDA events over {reps} "
+          f"steps after 3 of warm-up = {TRAIN_BATCH * 1e3 / step_ms:.1f} images/s; parts (CUDA "
+          f"events, median of 5): " + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
+          + "; kernels' device time per step (torch.profiler, 3 steps) "
+          + (f"{kernel_ms:.2f} ms, busy share {kernel_ms / step_ms:.3f}" if kernel_ms else
+             "not measured (the profiler traced no kernel)")
+          + f"; peak above the resident state {peak:.2f} GiB (resident {resident / 2**30:.2f} "
+          f"GiB: query, key, SGD momentum, queue); host two-crop batch (decode + augment, one "
+          f"thread, median of 3) {host:.2f} ms", flush=True)
+    del state, batch
+    f32 = moco_f32_step(card, files["images"])
+    check((nms_sweep.launches, dwconv.launches) == (0, 0),
+          "the MoCo path launched a hand-written kernel")
+    return {"step_ms": step_ms, "parts": parts, "kernel_ms": kernel_ms, "peak": peak,
+            "f32": f32}
+
+
+def labeler_readings(card, model, files, anchors, classes_num, reps=10):
+    """The labeler's forward and post-process per b8 batch by CUDA events, and
+    the student step (Adam, shadow loss) on one labelled batch with its kernels'
+    device time."""
+    import torch
+
+    from tmv_tpu_torch.cli.train_distill import staged_images
+    from tmv_tpu_torch.core.train_state import TrainState, make_train_step
+    from tmv_tpu_torch.data.yolo_targets import make_yolo_targets
+    from tmv_tpu_torch.models.detector_harness import make_yolo_loss_fn
+    from tmv_tpu_torch.models.distill import draw_confidence, make_pseudo_label_fn
+    from tmv_tpu_torch.models.moco import ResNetYoloV3
+    from tmv_tpu_torch.ops.yolo import nms_boxes_batched
+
+    image_wh = (TRAIN_IMAGE, TRAIN_IMAGE)
+    paths = sorted(os.path.join(files["images"], f) for f in os.listdir(files["images"]))
+    images = torch.from_numpy(staged_images(paths[:TRAIN_BATCH], image_wh)).cuda()
+    conf = draw_confidence(TRAIN_BATCH, torch.Generator(device="cuda").manual_seed(0))
+    model.eval()
+    with torch.no_grad():
+        heads = model(images)
+        forward_ms = cuda_ms(lambda: model(images), reps)
+        post_ms = cuda_ms(lambda: nms_boxes_batched(
+            heads, anchors, image_wh, classes_num, confidence_thresh=conf, scores_thresh=0.3,
+            iou_thresh=0.5, iou_type="iou", max_output_size=100), reps)
+    boxes, ids, valid = make_pseudo_label_fn(model, anchors, image_wh, classes_num)(
+        images, conf=conf)
+    batch = {"image": images,
+             "targets": make_yolo_targets(boxes, ids, valid, anchors, image_wh, classes_num)}
+    student = ResNetYoloV3(3 * (5 + classes_num), device="cuda")
+    student.load_state_dict(model.state_dict())
+    student = student.to(memory_format=torch.channels_last)
+    state = TrainState.create(student, torch.optim.Adam(student.parameters(), lr=1e-4))
+    step = make_train_step(make_yolo_loss_fn(image_wh, anchors), shadow_loss=True)
+    for _ in range(3):
+        step(state, batch)
+    step_ms = cuda_ms(lambda: step(state, batch), reps)
+    kernel_ms = step_kernel_ms(lambda: step(state, batch), 3)
+    del state, student
+    return {"forward_ms": forward_ms, "post_ms": post_ms, "step_ms": step_ms,
+            "kernel_ms": kernel_ms, "boxes": int(valid.sum())}
+
+
+def phase_distill(card, files):
+    """Phase 22, distillation: cli/train_distill.py train_teacher and promote
+    (no kernel), then dump_labels and train_students with the seeded,
+    box-row-scaled ResNetYoloV3 as the teacher, every pseudo-label sweep through
+    the NMS kernel and held against the plain sweep. Returns the kernel's
+    launches on this path."""
+    import torch
+
+    from tmv_tpu_torch.cli import train_distill
+    from tmv_tpu_torch.core.checkpoint import read_weights
+    from tmv_tpu_torch.data.loaders import load_anchors
+    from tmv_tpu_torch.kernels import dwconv, nms_sweep
+    from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep, greedy_sweep_reference
+
+    teacher_dir = os.path.join(WORK, "distill_teacher")
+    promoted_dir = os.path.join(WORK, "distill_promoted")
+    student_dir = os.path.join(WORK, "distill_student")
+    for d in (teacher_dir, promoted_dir, student_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    base = ["--trainImagePath", files["images"], "--classesFile", files["classes"],
+            "--anchorsFile", files["anchors"], "--batchSize", str(TRAIN_BATCH), "--imageSize",
+            str(TRAIN_IMAGE), "--device", "cuda"]
+    nms_sweep.launches = dwconv.launches = 0
+    t0 = time.perf_counter()
+    teacher = train_distill.main(["--mode", "train_teacher", "--trainData", files["labels"],
+                                  "--steps", str(TEACHER_STEPS), "--teacherPath", teacher_dir]
+                                 + base)
+    teacher_wall = time.perf_counter() - t0
+    check(teacher["step"] == TEACHER_STEPS and all(np.isfinite(teacher["losses"])),
+          "train_teacher: steps or a non-finite loss")
+    train_distill.main(["--mode", "promote", "--studentPath", teacher_dir, "--teacherPath",
+                        promoted_dir] + base)
+    (promoted, p_step), (trained, _) = read_weights(promoted_dir), read_weights(teacher_dir)
+    check(p_step == 0 and promoted.keys() == trained.keys()
+          and all(torch.equal(promoted[k], v) for k, v in trained.items()),
+          "promote did not copy the student into the teacher")
+    check((nms_sweep.launches, dwconv.launches) == (0, 0),
+          "the teacher's training launched a hand-written kernel")
+    print(f"phase 22 distill train_teacher + promote: ResNetYoloV3 80 classes @{TRAIN_IMAGE} "
+          f"b{TRAIN_BATCH} f32, {TEACHER_STEPS} steps in {teacher_wall:.1f} s, raw loss "
+          f"{teacher['losses'][0]:.2f} -> {teacher['losses'][-1]:.2f}; promote: the teacher at "
+          f"step 0 = the student's {len(trained)} tensors; no hand-written kernel launched on "
+          f"[{card}]", flush=True)
+
+    model, _, factor, box_max = seeded_v3("resnet", "cuda")
+    seeded = os.path.join(WORK, "resnet_teacher_seed0.pt")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, seeded)
+    dump = base + ["--teacherPath", seeded, "--seed", "3"]
+    outputs, logs, walls = {}, {}, {}
+    for name, sweep in (("kernel", greedy_sweep), ("plain", greedy_sweep_reference)):
+        logs[name] = SweepLog(sweep)
+        nms_sweep.launches = 0
+        t0 = time.perf_counter()
+        with logs[name].patch():
+            out = train_distill.main(["--mode", "dump_labels", "--labelsOut",
+                                      os.path.join(WORK, f"pseudo_{name}.txt")] + dump)
+        walls[name] = time.perf_counter() - t0
+        outputs[name] = out
+        if name == "kernel":
+            dump_launches = nms_sweep.launches
+        check(name == "kernel" or nms_sweep.launches == 0, "the plain sweep launched the kernel")
+    with open(outputs["kernel"]["path"]) as f:
+        kernel_lines = f.readlines()
+    with open(outputs["plain"]["path"]) as f:
+        plain_lines = f.readlines()
+    batches = -(-TRAIN_SET // TRAIN_BATCH)
+    check(kernel_lines == plain_lines, "the dumped labels differ between kernel and plain sweep")
+    check(logs["kernel"].same_masks(logs["plain"]),
+          "dump_labels: the sweeps' whole kept masks differ between kernel and plain")
+    check(dump_launches == len(logs["kernel"].masks) == batches,
+          f"{dump_launches} sweep launches for {batches} labeler calls")
+    swept, eligible = logs["kernel"].kept(), logs["kernel"].eligibles()
+    check(all(k < e for k, e in zip(swept, eligible)),
+          f"a dump sweep suppressed nothing (kept {swept} of {eligible})")
+    per_batch = [sum(line.count("|") - 1 for line in kernel_lines[i:i + TRAIN_BATCH])
+                 for i in range(0, len(kernel_lines), TRAIN_BATCH)]
+    check(len(kernel_lines) == TRAIN_SET and min(per_batch) >= 1,
+          f"a pseudo-label batch without a box: boxes per batch {per_batch}")
+    print(f"phase 22 distill dump_labels: the seeded ResNetYoloV3 (80 classes, box rows x "
+          f"{factor:g}; largest box logit {box_max:.3g} unscaled) labels the {TRAIN_SET} images "
+          f"in {batches} b{TRAIN_BATCH} batches: {dump_launches} sweep launches (one per "
+          f"labeler call), the file identical with the plain sweep's ({outputs['kernel']['boxes']}"
+          f" boxes), the whole kept masks identical; per image the sweep kept "
+          f"{min(swept)}-{max(swept)} of {min(eligible)}-{max(eligible)} eligible; boxes per "
+          f"batch {per_batch}; {TRAIN_SET / walls['kernel']:.1f} images/s through the CLI "
+          f"(host clock: decode, resize, label, write) with the kernel, "
+          f"{TRAIN_SET / walls['plain']:.1f} with the plain sweep on [{card}]", flush=True)
+
+    log = CheckedSweep()
+    nms_sweep.launches = 0
+    t0 = time.perf_counter()
+    with log.patch():
+        students = train_distill.main(["--mode", "train_students", "--steps", str(STUDENT_STEPS),
+                                       "--teacherPath", seeded, "--studentPath", student_dir]
+                                      + base)
+    student_wall = time.perf_counter() - t0
+    student_launches = nms_sweep.launches
+    kept = [sum(m.sum(1)) for m in log.masks]
+    check(students["step"] == STUDENT_STEPS and all(np.isfinite(students["losses"])),
+          "train_students: steps or a non-finite loss")
+    check(student_launches == len(log.masks) == STUDENT_STEPS and all(log.agree),
+          f"train_students: {student_launches} launches for {STUDENT_STEPS} labeler calls, "
+          f"masks equal to the plain sweep's {log.agree}")
+    check(min(kept) >= 1 and all(k < e for k, e in zip(log.kept(), log.eligibles())),
+          f"train_students: a batch without a pseudo-label or a sweep without a suppression")
+    numbers = labeler_readings(card, model, files, load_anchors(files["anchors"]), 80)
+    print(f"phase 22 distill train_students: {STUDENT_STEPS} steps in {student_wall:.1f} s (host "
+          f"clock, each with its b{TRAIN_BATCH} decode, labeler call and targets on the card, and "
+          f"the plain sweep of the check), {student_launches} sweep launches, every whole mask = "
+          f"the plain sweep's, kept per batch {min(kept)}-{max(kept)}; raw loss "
+          f"{students['losses'][0]:.2f} -> {students['losses'][-1]:.2f}. Labeler per b"
+          f"{TRAIN_BATCH} batch (CUDA events, mean of 10): forward {numbers['forward_ms']:.2f} "
+          f"ms, post-process (decode, top-k, class-aware IoU sweep, gathers) "
+          f"{numbers['post_ms']:.2f} ms; student step (Adam, shadow loss) "
+          f"{numbers['step_ms']:.2f} ms, kernels "
+          + (f"{numbers['kernel_ms']:.2f} ms (busy {numbers['kernel_ms'] / numbers['step_ms']:.3f})"
+             if numbers["kernel_ms"] else "not measured") + f" on [{card}]", flush=True)
+    del model
+    return {"launches": dump_launches + student_launches, "dump": dump_launches,
+            "students": student_launches, "numbers": numbers}
+
+
 def main():
     import torch
 
@@ -3009,10 +3457,14 @@ def main():
     phase_unet(card)
     extras = phase_serving_extras(card, files, mosaic, d0_train["ckpt"])
     phase_facenet(card)
+    t22 = time.perf_counter()
+    phase_moco(card, files)
+    distill = phase_distill(card, files)
+    print(f"phase 22 took {time.perf_counter() - t22:.1f} s on [{card}]", flush=True)
     nms_launches = (yolo_launches["nms_sweep"] + d0_launches["nms_sweep"]
                     + train["val_launches"] + eval_launches + d0_eval["nms_sweep"]
                     + v3_serving["launches"] + v3_train["launches"] + mosaic["val_launches"]
-                    + extras["nms_sweep"])
+                    + extras["nms_sweep"] + distill["launches"])
     dw_launches = (d0_launches["dwconv_bn_swish"] + d0_eval["dwconv_bn_swish"]
                    + extras["dwconv_bn_swish"])
     dw = dw_sums[64]
@@ -3025,10 +3477,11 @@ def main():
           f"({d0_eval['nms_sweep']}), the YOLOv3 trainer's val passes ({v3_train['val']}), the "
           f"YOLOv3 eval CLI ({v3_train['eval']}) and the YOLOv3 server on the trained "
           f"checkpoint ({v3_train['serve']}), the YOLOv4 @608 mosaic trainer's val passes "
-          f"({mosaic['val_launches']}) and the WSGI apps and detect CLI of phase 20 "
-          f"({extras['nms_sweep']}); dwconv_bn_swish summed over the 16 launches of "
-          f"one D0 bf16 forward at B=64, launches over the D0 served path "
-          f"({d0_launches['dwconv_bn_swish']}), the D0 eval CLI "
+          f"({mosaic['val_launches']}), the WSGI apps and detect CLI of phase 20 "
+          f"({extras['nms_sweep']}) and phase 22's pseudo-labeler (dump_labels "
+          f"{distill['dump']}, train_students {distill['students']}); dwconv_bn_swish "
+          f"summed over the 16 launches of one D0 bf16 forward at B=64, launches over the D0 "
+          f"served path ({d0_launches['dwconv_bn_swish']}), the D0 eval CLI "
           f"({d0_eval['dwconv_bn_swish']}) and phase 20's D0 WSGI app and detect CLI "
           f"({extras['dwconv_bn_swish']})", flush=True)
     print(json.dumps({"kernels": [

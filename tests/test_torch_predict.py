@@ -167,8 +167,10 @@ def test_port_imports_no_jax(tmp_path):
     detect CLI's and UNet trainer's arguments, the UNet dataset, the mosaic and
     cached YOLO pipelines, a remat step, and FaceNet's three CLIs' arguments, an
     IRv1 with remat, its padded embeddings, the mining, the optax-rule optimizers
-    and the LFW evaluation leave ``tmv_tpu`` (and jax, flax, jaxlib, optax and
-    sklearn) out of ``sys.modules``; h5py may be loaded."""
+    and the LFW evaluation, the MoCo and distillation CLIs' arguments, a MoCo
+    train state (query and key towers, queue) and the pseudo-labeler, and the
+    visualize package leave ``tmv_tpu`` (and jax, flax, jaxlib, optax, sklearn
+    and matplotlib) out of ``sys.modules``; h5py may be loaded."""
     yolo = _write_inputs(tmp_path) + ["--randomInit", "--imageSize", "32", "--device", "cpu",
                                       "--batch", "2"]
     det = _write_inputs(tmp_path)[:2] + ["--family", "efficientdet", "--randomInit",
@@ -281,8 +283,19 @@ def test_port_imports_no_jax(tmp_path):
             "train_facenet.make_optimizer('RMSPROP', 1e-3, net.parameters())\n"
             "train_facenet.make_optimizer('ADAGRAD', 1e-3, net.parameters())\n"
             "lfw.evaluate(np.random.default_rng(0).normal(size=(40, 8)), [True, False] * 10)\n"
+            "from tmv_tpu_torch.cli import train_distill, train_moco\n"
+            "from tmv_tpu_torch.models.distill import make_pseudo_label_fn\n"
+            "mo = train_moco.parse_args(['--imageSize', '32', '--queueSize', '4',\n"
+            "                            '--outFilters', '18', '--device', 'cpu'])\n"
+            "ms, dim = train_moco.moco_train_state(mo, torch.device(mo.device))\n"
+            "assert dim == 21 * 18 and ms.extra.queue.shape == (4, dim)\n"
+            "di = train_distill.parse_args(['--mode', 'dump_labels', '--device', 'cpu'])\n"
+            "out = make_pseudo_label_fn(ms.model, load_anchors(a.anchorsFile), (32, 32), 1)(\n"
+            "    torch.zeros(1, 32, 32, 3), conf=torch.full((1,), 0.4))\n"
+            "assert out[0].shape == (1, 100, 4)\n"
+            "import tmv_tpu_torch.visualize\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "             ('tmv_tpu', 'jax', 'flax', 'jaxlib', 'optax', 'sklearn'))\n"
+            "             ('tmv_tpu', 'jax', 'flax', 'jaxlib', 'optax', 'sklearn', 'matplotlib'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -239,13 +239,15 @@ def by_torch_name(tree):
     return out
 
 
-def hold_against_flax(flax_module, torch_module, shape, seed=0):
+def hold_against_flax(flax_module, torch_module, shape, seed=0, flax_module64=None):
     """Hold ``torch_module`` (NCHW in and out, or 2-D out) against
     ``flax_module`` (NHWC) on seeded variables bridged by ``flax_to_state_dict``
     and a seeded input of NHWC ``shape``: in eval mode in float32 within
     1e-5·max|ref|, and in train mode in float64 within 1e-10·max|ref| with every
     BatchNorm statistic after the forward within 1e-10 of its largest entry.
-    Returns the flax variables."""
+    The float64 module is ``flax_module.clone(dtype=float64)`` unless
+    ``flax_module64`` is given (for a module without a ``dtype``). Returns the
+    flax variables."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -273,7 +275,7 @@ def hold_against_flax(flax_module, torch_module, shape, seed=0):
 
     x64 = x.astype(np.float64) + rng.normal(0, 1e-3, shape)
     with jax.enable_x64(True):
-        module = flax_module.clone(dtype=jnp.float64)
+        module = flax_module64 or flax_module.clone(dtype=jnp.float64)
         cast = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
         want, mutated = jax.jit(lambda v, a: module.apply(v, a, train=True,
                                                           mutable=["batch_stats"]))(cast, x64)
@@ -288,3 +290,59 @@ def hold_against_flax(flax_module, torch_module, shape, seed=0):
     for key, w in stats.items():
         assert np.abs(state[key].numpy() - w).max() <= 1e-10 * np.abs(w).max(), key
     return variables
+
+
+def tiny_flax_detector(out_filters):
+    """The three-scale flax stand-in of ``tests/test_moco_distill.py``: a
+    stride-8 conv + BatchNorm + relu, then heads at strides 8, 16 and 32, each
+    a 1 × 1 conv of ``out_filters``; returns (h1, h2, h3), coarsest first."""
+    import flax.linen as nn
+
+    class Tiny(nn.Module):
+        out_filters: int
+
+        @nn.compact
+        def __call__(self, x, train: bool = False):
+            h = nn.Conv(8, (3, 3), strides=(8, 8), padding="SAME")(x)
+            h = nn.BatchNorm(use_running_average=not train, momentum=0.99, epsilon=1e-3)(h)
+            h = nn.relu(h)
+            h3 = nn.Conv(self.out_filters, (1, 1))(h)
+            h = nn.relu(nn.Conv(8, (3, 3), strides=(2, 2), padding="SAME")(h))
+            h2 = nn.Conv(self.out_filters, (1, 1))(h)
+            h = nn.relu(nn.Conv(8, (3, 3), strides=(2, 2), padding="SAME")(h))
+            h1 = nn.Conv(self.out_filters, (1, 1))(h)
+            return h1, h2, h3
+
+    return Tiny(out_filters)
+
+
+def tiny_torch_detector(out_filters):
+    """The torch twin of ``tiny_flax_detector`` under flax's names, NHWC images
+    in, NHWC heads out, ``channels_last`` inside like the port's towers."""
+    import torch
+    import torch.nn as tnn
+    import torch.nn.functional as F
+
+    from tmv_tpu_torch.models.layers.common import BatchNorm, conv2d_same
+
+    class TinyTorch(tnn.Module):
+        def __init__(self):
+            super().__init__()
+            self.Conv_0 = tnn.Conv2d(3, 8, 3)
+            self.BatchNorm_0 = BatchNorm(8, eps=1e-3, momentum=0.01)
+            for i, cin in ((1, 8), (3, 8), (5, 8)):
+                self.add_module(f"Conv_{i}", tnn.Conv2d(cin, out_filters, 1))
+            self.Conv_2 = tnn.Conv2d(8, 8, 3)
+            self.Conv_4 = tnn.Conv2d(8, 8, 3)
+
+        def forward(self, images):
+            x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            h = F.relu(self.BatchNorm_0(conv2d_same(x, self.Conv_0.weight, self.Conv_0.bias, 8)))
+            h3 = self.Conv_1(h)
+            h = F.relu(conv2d_same(h, self.Conv_2.weight, self.Conv_2.bias, 2))
+            h2 = self.Conv_3(h)
+            h = F.relu(conv2d_same(h, self.Conv_4.weight, self.Conv_4.bias, 2))
+            h1 = self.Conv_5(h)
+            return tuple(t.permute(0, 2, 3, 1) for t in (h1, h2, h3))
+
+    return TinyTorch()

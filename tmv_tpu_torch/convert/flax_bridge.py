@@ -15,7 +15,8 @@ the bridge is a walk over paths, not a table:
   ``(out, in)``;
 - ``…/bias`` of a conv or Dense as is;
 - BatchNorm kinds — ``BatchNorm_k``, EfficientDet's ``bn`` and
-  ``bn_{i}_level_{l}``, and RepVGG's ``rbr_identity`` — map ``{scale, bias}`` +
+  ``bn_{i}_level_{l}``, RepVGG's ``rbr_identity`` and ``AttentionConv2D``'s
+  ``bn1`` — map ``{scale, bias}`` +
   ``batch_stats …/{mean, var}``
   → ``weight``/``bias``/``running_mean``/``running_var``, plus
   ``num_batches_tracked`` = 0 (Keras BN: epsilon 1e-3 and momentum 0.99, which
@@ -35,6 +36,10 @@ the parameters, so a JAX ``TrainState`` resumes in the port.
 ``TraceState`` momentum ``trace`` becomes each parameter's ``momentum_buffer``
 of a ``torch.optim.SGD`` (the step count lives in the train state, the learning
 rate in its schedule).
+
+``moco_state_from_flax`` maps a JAX ``MocoState`` (``TrainState.extra`` of the
+MoCo trainer) onto the port's: the key tower's params and ``batch_stats`` into
+the key module, the queue and the pointer as they are.
 """
 
 import re
@@ -57,9 +62,12 @@ def _leaves(tree: Mapping[str, Any], prefix=()):
 
 
 _CONV_KINDS = {"Conv", "conv2d", "depthwise", "pointwise"}
-# modules given an explicit name: ResNet50V2's stem; RepVGG's convs, identity and head
+# modules given an explicit name: ResNet50V2's stem; RepVGG's convs, identity and
+# head; AttentionConv2D's convs and BatchNorm
 _NAMED = {"conv1": "Conv", "conv": "Conv", "rbr_reparam": "Conv",
-          "rbr_identity": "BatchNorm", "dense": "Dense"}
+          "rbr_identity": "BatchNorm", "dense": "Dense", "bn1": "BatchNorm", "conv2": "Conv",
+          "W1_1": "Conv", "W1_2": "Conv", "V1": "Conv", "W2_1": "Conv", "W2_2": "Conv",
+          "V2": "Conv"}
 _BN_KINDS = {"BatchNorm", "bn"}
 _BN_PER_LEVEL = re.compile(r"bn_\d+_level_\d+")
 
@@ -235,3 +243,20 @@ def optax_adam_state_dict(opt_state, model: torch.nn.Module,
         for group in out["param_groups"]:
             group["lr"] = lr
     return out
+
+
+def moco_state_from_flax(moco_state, key_model: torch.nn.Module):
+    """A ``models.moco.MocoState`` from JAX's (``key_params``,
+    ``key_batch_stats``, ``queue``, ``queue_ptr``): the key tower's variables
+    loaded strictly into ``key_model`` (on its device), the queue and pointer
+    as they are."""
+    from tmv_tpu_torch.models.moco import MocoState
+
+    device = next(key_model.parameters()).device
+    state = flax_to_state_dict({"params": moco_state.key_params,
+                                "batch_stats": moco_state.key_batch_stats}, key_model)
+    key_model.load_state_dict(state, strict=True)
+    for p in key_model.parameters():
+        p.requires_grad_(False)
+    queue = torch.tensor(np.asarray(moco_state.queue, np.float32), device=device)
+    return MocoState(key_model, queue, int(np.asarray(moco_state.queue_ptr)))

@@ -3,24 +3,26 @@
 Port of ``tmv_tpu/core/checkpoint.py::CheckpointManager`` (orbax there). A
 checkpoint ``<directory>/<step>.pt`` holds the module's ``state_dict``
 (parameters and BatchNorm buffers), the optimizer's ``state_dict``, the step,
-the shadow loss and the EMA tensors when present. It is written to a temporary
-name and renamed, so a process killed mid-save leaves the last complete
-checkpoint. ``save(wait=False)`` copies the state to host memory at once and
-writes the file on a background thread; ``wait_until_finished`` and ``close``
-drain the writes. A save at a step already saved is skipped, and only the newest
-``max_to_keep`` checkpoints stay. A state without an optimizer saves a
-weights-only checkpoint (``cli/convert_darknet.py``); restoring it leaves the
-optimizer fresh.
+the shadow loss, the EMA tensors when present and the state's ``extra``
+(``extra.state_dict()``, e.g. MoCo's key tower, queue and pointer). It is
+written to a temporary name and renamed, so a process killed mid-save leaves
+the last complete checkpoint. ``save(wait=False)`` copies the state to host
+memory at once and writes the file on a background thread;
+``wait_until_finished`` and ``close`` drain the writes. A save at a step already
+saved is skipped, and only the newest ``max_to_keep`` checkpoints stay. A state
+without an optimizer saves a weights-only checkpoint (``cli/convert_darknet.py``,
+``cli/train_moco.py --mode export_k``); restoring it leaves the optimizer fresh.
 
 ``load_weights`` is the inference CLIs' loader (``cli/serve.py``,
 ``cli/eval_map.py``), the JAX package's ``restore_weights``: a checkpoint
-directory (its latest step) or a bare ``state_dict`` ``.pt``.
+directory (its latest step) or a bare ``state_dict`` ``.pt``; ``read_weights``
+returns that ``state_dict`` without a module (the MoCo fine-tune grafts it).
 """
 
 import os
 import re
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -77,6 +79,7 @@ class CheckpointManager:
                 "shadow_loss": state.shadow_loss,
                 "ema_params": state.ema_params,
                 "ema_batch_stats": state.ema_batch_stats,
+                "extra": None if state.extra is None else state.extra.state_dict(),
             })
             self._pending.append(self._writer.submit(self._write, step, payload))
             self._last_saved_step = step
@@ -97,8 +100,8 @@ class CheckpointManager:
 
     def restore(self, state, step: Optional[int] = None):
         """Load the checkpoint at ``step`` (default: the latest) into ``state``'s
-        module and optimizer and set its step, shadow loss and EMA. Returns
-        ``state``, unchanged where there is no checkpoint."""
+        module and optimizer and set its step, shadow loss, EMA and ``extra``.
+        Returns ``state``, unchanged where there is no checkpoint."""
         raw = self._load(step)
         if raw is None:
             return state
@@ -111,6 +114,10 @@ class CheckpointManager:
         for name in ("ema_params", "ema_batch_stats"):
             if raw.get(name) is not None:
                 setattr(state, name, {k: v.to(device) for k, v in raw[name].items()})
+        if (raw.get("extra") is None) != (state.extra is None):
+            raise KeyError("the checkpoint's extra state and the train state's differ")
+        if state.extra is not None:
+            state.extra.load_state_dict(raw["extra"])
         return state
 
     def restore_weights(self, model: torch.nn.Module, step: Optional[int] = None) -> Optional[int]:
@@ -128,21 +135,29 @@ class CheckpointManager:
         self._writer.shutdown()
 
 
+def read_weights(model_path: str) -> Tuple[Dict[str, torch.Tensor], Optional[int]]:
+    """``(state_dict, step)`` of ``model_path`` on the CPU: a checkpoint
+    directory's latest step (the optimizer state is not returned) or a bare
+    ``state_dict`` ``.pt`` (step None); raises for a directory without a
+    checkpoint."""
+    if not os.path.isdir(model_path):
+        return torch.load(model_path, map_location="cpu", weights_only=True), None
+    mgr = CheckpointManager(model_path)
+    try:
+        raw = mgr._load(None)
+    finally:
+        mgr.close()
+    if raw is None:
+        raise FileNotFoundError(f"{model_path} holds no checkpoint")
+    return raw["model"], int(raw["step"])
+
+
 def load_weights(model: torch.nn.Module, model_path: str) -> Optional[int]:
     """Load ``model_path`` into ``model`` strictly: a checkpoint directory of the
     port's trainers or ``cli/convert_darknet.py`` (its latest step; the
     optimizer state is not read), or a bare ``state_dict`` ``.pt``. Returns the
     checkpoint's step, None for a ``.pt``; raises for a directory without a
     checkpoint."""
-    if not os.path.isdir(model_path):
-        model.load_state_dict(torch.load(model_path, map_location="cpu", weights_only=True),
-                              strict=True)
-        return None
-    mgr = CheckpointManager(model_path)
-    try:
-        step = mgr.restore_weights(model)
-    finally:
-        mgr.close()
-    if step is None:
-        raise FileNotFoundError(f"{model_path} holds no checkpoint")
+    state, step = read_weights(model_path)
+    model.load_state_dict(state, strict=True)
     return step

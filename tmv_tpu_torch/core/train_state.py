@@ -32,7 +32,7 @@ gradient, the learning rate shrunk until the loss improves.
 """
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -48,11 +48,15 @@ class TrainState:
     shadow_loss: Optional[torch.Tensor] = None
     ema_params: Optional[Dict[str, torch.Tensor]] = None
     ema_batch_stats: Optional[Dict[str, torch.Tensor]] = None
+    extra: Optional[Any] = None   # family state with state_dict/load_state_dict (MoCo's)
 
     @classmethod
     def create(cls, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-               ema_decay: Optional[float] = None, ema_batch_stats: bool = False):
-        """``ema_batch_stats=True`` also shadows the BatchNorm statistics."""
+               ema_decay: Optional[float] = None, ema_batch_stats: bool = False,
+               extra: Optional[Any] = None):
+        """``ema_batch_stats=True`` also shadows the BatchNorm statistics;
+        ``extra`` (e.g. ``models.moco.MocoState``) is saved and restored with the
+        state by ``core/checkpoint.py``."""
         device = next(model.parameters()).device
         ema_params = ema_stats = None
         if ema_decay:
@@ -61,7 +65,7 @@ class TrainState:
                 ema_stats = {n: b.detach().clone() for n, b in model.named_buffers()
                              if b.is_floating_point()}
         return cls(model, optimizer, 0, torch.zeros((), dtype=torch.float32, device=device),
-                   ema_params, ema_stats)
+                   ema_params, ema_stats, extra)
 
 
 class OptaxRMSprop(torch.optim.Optimizer):

@@ -7,10 +7,10 @@ after each, and a final separable ``predict`` conv; outputs reshaped to
 
 With a ``survival_prob`` (0.8 in every D-config) the residual ``image +
 original`` for ``i > 0`` is added in eval too; only ``drop_connect`` (stochastic
-depth) is train-only. Its uniform draws come from the ``torch.Generator`` the
-caller passes to ``forward`` (on the activations' device), as flax draws them
-from the ``dropout`` rng; train mode with a ``survival_prob`` below 1 and no
-generator raises. The class prior bias ``−log((1 − 0.01) / 0.01)`` of the
+depth, ``ops/regularizers.py``) is train-only. Its uniform draws come from the
+``torch.Generator`` the caller passes to ``forward`` (on the activations'
+device), as flax draws them from the ``dropout`` rng; train mode with a
+``survival_prob`` below 1 and no generator raises. The class prior bias ``−log((1 − 0.01) / 0.01)`` of the
 ClassNet predict conv is set by ``net.init_weights``, as the JAX package sets it
 after ``init`` (``init_class_prior_bias``).
 """
@@ -23,17 +23,7 @@ import torch.nn as nn
 from tmv_tpu_torch.models.efficientdet.backbone import batch_norm
 from tmv_tpu_torch.models.efficientdet.bifpn import SeparableConv
 from tmv_tpu_torch.ops.activations import swish
-
-
-def drop_connect(x: torch.Tensor, survival_prob: float, uniform: torch.Tensor) -> torch.Tensor:
-    """Stochastic depth (``tmv_tpu/ops/regularizers.py::drop_connect``, train
-    time only): ``x / p · floor(p + u)`` with ``u`` the ``(B, 1, …)`` uniform
-    [0, 1) draws and ``p = survival_prob`` rounded to x's dtype, as JAX rounds
-    the Python scalar, so each sample's branch is dropped or divided by ``p``."""
-    if survival_prob >= 1.0:
-        return x
-    p = uniform.new_full((), survival_prob)
-    return x / p * torch.floor(p + uniform)
+from tmv_tpu_torch.ops.regularizers import drop_connect
 
 
 def draw_uniform(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

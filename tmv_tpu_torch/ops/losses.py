@@ -2,9 +2,9 @@
 
 Port of ``tmv_tpu/ops/losses.py``: ``sigmoid_cross_entropy`` (the YOLO loss's)
 and EfficientDet's ``focal_loss``, ``huber``, ``box_loss``, ``class_focal_loss``
-and ``l2_regularization``, the UNet family's ``focus_loss`` and FaceNet's
-``euclidean_distance_sq`` and ``triplet_loss``, in the JAX package's operation
-order. MoCo's InfoNCE comes with its slice.
+and ``l2_regularization``, the UNet family's ``focus_loss``, FaceNet's
+``euclidean_distance_sq`` and ``triplet_loss``, MoCo's ``moco_info_nce_loss``
+and the dormant ``smooth_l1_loss``, in the JAX package's operation order.
 """
 
 from typing import Optional, Sequence
@@ -105,6 +105,12 @@ def focus_loss(y_true: torch.Tensor, y_pred_logits: torch.Tensor,
     return (loss_object + loss_other) / float(b)
 
 
+def smooth_l1_loss(y_true: torch.Tensor, y_pred: torch.Tensor, beta: float = 0.5) -> torch.Tensor:
+    """β-smooth-L1, elementwise (`utils/smooth_l1_loss.py:10-14`)."""
+    a = torch.abs(y_pred - y_true)
+    return torch.where(a < beta, 0.5 * a ** 2 / beta, a - 0.5 * beta)
+
+
 def euclidean_distance_sq(e1: torch.Tensor, e2: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """Squared euclidean distance (`facenet_model.py:112-122`)."""
     return torch.sum(torch.square(e1 - e2), dim=axis)
@@ -124,3 +130,31 @@ def triplet_loss(anchor: torch.Tensor, positive: torch.Tensor, negative: torch.T
         return torch.mean(basic)
     valid_f = valid.to(basic.dtype)
     return torch.sum(basic * valid_f) / torch.clamp(torch.sum(valid_f), min=1.0)
+
+
+def flatten_heads(heads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``(N, D)``: each head ``(N, h, w, c)`` flattened in NHWC logical order
+    (``reshape`` of the NHWC view, whatever its memory layout), the scales
+    concatenated in order, as ``jnp.reshape`` flattens JAX's NHWC heads."""
+    n = heads[0].shape[0]
+    return torch.cat([h.reshape(n, -1) for h in heads], dim=-1)
+
+
+def l2_normalize_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x / ‖x‖₂`` per row (no epsilon, as JAX divides)."""
+    return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+
+
+def moco_info_nce_loss(y_q: Sequence[torch.Tensor], y_k: Sequence[torch.Tensor],
+                       queue: torch.Tensor, temperature: float = 0.07) -> torch.Tensor:
+    """MoCo InfoNCE over l2-normalised flattened multi-scale features
+    (`momentum_contrast/model.py:316-348`): ``l_pos = q·k`` per sample, ``l_neg
+    = q @ queueᵀ`` over the K queued keys, ``−log_softmax(logits / T)[:, 0]``
+    averaged over the batch. The heads are NHWC (the port's towers return an
+    NHWC view of their ``channels_last`` output)."""
+    q = l2_normalize_rows(flatten_heads(y_q))
+    k = l2_normalize_rows(flatten_heads(y_k))
+    l_pos = torch.sum(q * k, dim=1, keepdim=True)
+    l_neg = q @ queue.T
+    logits = torch.cat([l_pos, l_neg], dim=1) / temperature
+    return torch.mean(-torch.log_softmax(logits, dim=1)[:, 0])

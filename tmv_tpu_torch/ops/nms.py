@@ -7,7 +7,8 @@ B images' sweeps in one kernel launch.
 
 The sort, the eligibility mask and the cumsum/scatter compaction are torch ops;
 the suppression sweep is ``kernels.nms_sweep.greedy_sweep`` (the CUDA kernel on
-a CUDA tensor, the plain loop on a CPU tensor).
+a CUDA tensor, the plain loop on a CPU tensor). ``soft_nms`` (Gaussian decay,
+dormant in the reference) is plain torch: no TPU kernel stands behind it.
 """
 
 from typing import Optional
@@ -15,6 +16,7 @@ from typing import Optional
 import torch
 
 from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep
+from tmv_tpu_torch.ops.iou import iou_xyxy, iou_yxyx
 
 _NEG_INF = float("-inf")
 
@@ -83,3 +85,30 @@ def nms_by_classes(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Ten
         valid = torch.ones(scores.shape, dtype=torch.bool, device=scores.device)
     return _greedy_nms(boxes, scores, valid, classes, max_output_size, iou_threshold,
                        score_threshold, iou_type, coord)
+
+
+def soft_nms(boxes: torch.Tensor, scores: torch.Tensor, valid: Optional[torch.Tensor] = None,
+             max_output_size: int = 500, sigma: float = 0.5, score_threshold: float = 0.001,
+             coord: str = "yxyx"):
+    """Gaussian soft-NMS over ``(N, 4)`` boxes: ``max_output_size`` sequential
+    picks of the best live score; each pick whose score reaches
+    ``score_threshold`` decays every live score by ``exp(−IoU² / sigma)`` and
+    leaves the pool. Returns ``(indices int32, scores, valid)``, each
+    ``(max_output_size,)``; a pick below the threshold gives index 0, score 0
+    and valid False (`utils/nms_np.py`'s capability)."""
+    iou = {"xyxy": iou_xyxy, "yxyx": iou_yxyx}[coord]
+    if valid is None:
+        valid = torch.ones(scores.shape, dtype=torch.bool, device=scores.device)
+    live = torch.where(valid, scores, torch.full_like(scores, _NEG_INF))
+    out_idx, out_score, out_ok = [], [], []
+    for _ in range(max_output_size):
+        top = torch.argmax(live)           # the first maximum, as jnp.argmax
+        top_score = live[top]
+        ok = top_score >= score_threshold
+        decay = torch.exp(-(iou(boxes[top][None, :], boxes) ** 2) / sigma)
+        live = torch.where(ok, live * decay, live)
+        live[top] = _NEG_INF
+        out_idx.append(torch.where(ok, top, 0).to(torch.int32))
+        out_score.append(torch.where(ok, top_score, 0.0))
+        out_ok.append(ok)
+    return torch.stack(out_idx), torch.stack(out_score), torch.stack(out_ok)

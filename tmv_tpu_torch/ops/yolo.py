@@ -14,7 +14,7 @@ The port's decode of bf16 heads equals the JAX decode of the same heads widened
 to float32.
 """
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -160,7 +160,7 @@ def nms_boxes_batched(
     anchors_wh,
     image_wh: Tuple[int, int],
     classes_num: int,
-    confidence_thresh: float = 0.5,
+    confidence_thresh: Union[float, torch.Tensor] = 0.5,
     scores_thresh: float = 0.3,
     iou_thresh: float = 0.5,
     iou_type: str = "iou",
@@ -169,10 +169,15 @@ def nms_boxes_batched(
 ):
     """``nms_boxes`` over a leading image axis: heads ``(B, h, w, A*(5+C))``.
 
+    ``confidence_thresh`` is one float or a ``(B, 1)`` tensor of per-image
+    thresholds (the distillation labeler's draws); it only gates the candidates.
+
     Returns (boxes, classes_id, scores, classes, confidence, valid), each with a
     leading batch axis and padded to ``max_output_size``.
     """
     device = heads[0].device
+    if torch.is_tensor(confidence_thresh):
+        confidence_thresh = confidence_thresh.to(device=device, dtype=torch.float32)
     image_wh_f = torch.tensor(image_wh, dtype=torch.float32, device=device)
     anchors_wh_f = torch.as_tensor(anchors_wh, dtype=torch.float32, device=device)
     a_num = anchors_wh_f.shape[1]

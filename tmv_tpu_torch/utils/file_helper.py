@@ -1,7 +1,7 @@
-"""Regex-filtered recursive file listing.
+"""Regex-filtered recursive file listing and directory listing.
 
-The port's own copy of ``tmv_tpu/utils/file_helper.py::read_file_list`` (the
-reference's ``ReadFileList``, `utils/file_helper.py:4-67`).
+The port's own copy of ``tmv_tpu/utils/file_helper.py`` (the reference's
+``ReadFileList`` and ``ReadDirList``, `utils/file_helper.py:4-67`).
 """
 
 import os
@@ -25,3 +25,15 @@ def read_file_list(dir_path: str, pattern: Optional[str] = None,
             if os.path.isfile(p) and (matcher is None or matcher.search(f)):
                 out.append(p)
     return out
+
+
+def read_dir_list(dir_path: str, pattern: Optional[str] = None) -> List[str]:
+    """The subdirectories of ``dir_path`` (not recursive), sorted, whose name
+    matches ``pattern``."""
+    matcher = re.compile(pattern) if pattern else None
+    return [
+        os.path.join(dir_path, d)
+        for d in sorted(os.listdir(dir_path))
+        if os.path.isdir(os.path.join(dir_path, d))
+        and (matcher is None or matcher.search(d))
+    ]

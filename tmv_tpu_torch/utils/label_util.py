@@ -1,0 +1,42 @@
+"""Dataset id→name label maps.
+
+The port's own copy of ``tmv_tpu/utils/label_util.py``.
+
+Parity surface: `AIServer/ai_api/ai_models/utils/label_util.py` (dead code
+in the reference): COCO and VOC class-id maps plus a ``get_label_map``
+selector.  The 80-class COCO list (in the 1..90 sparse id scheme) and the
+20-class VOC list are standard public label vocabularies.
+"""
+
+coco_label_map = {
+    1: "person", 2: "bicycle", 3: "car", 4: "motorcycle", 5: "airplane",
+    6: "bus", 7: "train", 8: "truck", 9: "boat", 10: "traffic light",
+    11: "fire hydrant", 13: "stop sign", 14: "parking meter", 15: "bench",
+    16: "bird", 17: "cat", 18: "dog", 19: "horse", 20: "sheep", 21: "cow",
+    22: "elephant", 23: "bear", 24: "zebra", 25: "giraffe", 27: "backpack",
+    28: "umbrella", 31: "handbag", 32: "tie", 33: "suitcase", 34: "frisbee",
+    35: "skis", 36: "snowboard", 37: "sports ball", 38: "kite",
+    39: "baseball bat", 40: "baseball glove", 41: "skateboard",
+    42: "surfboard", 43: "tennis racket", 44: "bottle", 46: "wine glass",
+    47: "cup", 48: "fork", 49: "knife", 50: "spoon", 51: "bowl",
+    52: "banana", 53: "apple", 54: "sandwich", 55: "orange", 56: "broccoli",
+    57: "carrot", 58: "hot dog", 59: "pizza", 60: "donut", 61: "cake",
+    62: "chair", 63: "couch", 64: "potted plant", 65: "bed",
+    67: "dining table", 70: "toilet", 72: "tv", 73: "laptop", 74: "mouse",
+    75: "remote", 76: "keyboard", 77: "cell phone", 78: "microwave",
+    79: "oven", 80: "toaster", 81: "sink", 82: "refrigerator", 84: "book",
+    85: "clock", 86: "vase", 87: "scissors", 88: "teddy bear",
+    89: "hair drier", 90: "toothbrush",
+}
+
+voc_label_map = {
+    1: "aeroplane", 2: "bicycle", 3: "bird", 4: "boat", 5: "bottle",
+    6: "bus", 7: "car", 8: "cat", 9: "chair", 10: "cow",
+    11: "diningtable", 12: "dog", 13: "horse", 14: "motorbike",
+    15: "person", 16: "pottedplant", 17: "sheep", 18: "sofa", 19: "train",
+    20: "tvmonitor",
+}
+
+
+def get_label_map(name: str):
+    return {"coco": coco_label_map, "voc": voc_label_map}[name]
