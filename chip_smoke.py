@@ -13,14 +13,16 @@ then YOLOv4 @608 mosaic training with the staging cache and ``--remat``, UNet
 @128 training, and the WSGI entry and detect CLI (phases 18-20); then the FaceNet
 family (phase 21), which launches neither kernel; then MoCo pretraining, export
 and fine-tune, and teacher→student distillation, whose pseudo-labeler sweeps
-through the NMS kernel (phase 22).
+through the NMS kernel (phase 22); then int8 serving and eval through the two int8
+conv kernels (phase 23).
 Phases, each printing its own lines:
 
 1. environment: torch/CUDA/nvcc versions and the card (nvidia-smi);
-2. build: both kernels at once (one nvcc each, started together), with each
-   build's time, registers per thread and shared memory per block of every
-   instantiation (ptxas for the NMS stages, the CUDA runtime for the depthwise
-   kernel, with its spills and resident blocks per SM);
+2. build: the three kernel sources at once (one nvcc each, started together),
+   with each build's time, registers per thread and shared memory per block of
+   every instantiation (ptxas for the NMS stages and the int8 depthwise, the CUDA
+   runtime for the float depthwise kernel, with its spills and resident blocks per
+   SM, and for the int8 conv, with its spills);
 3. the NMS sweep kernel (a mask kernel and a scan kernel) against its plain
    version (``greedy_sweep_reference``): kept masks exactly equal over N in
    {1, 127, 128, 1000, 1024, 3000}, B in {1, 16}, iou/diou, xyxy/yxyx, with and
@@ -178,7 +180,25 @@ Phases, each printing its own lines:
     call, every sweep's whole kept mask equal to the plain sweep's and with
     suppressions, the dumped file identical with the plain sweep's, a box in
     every pseudo-label batch; the labeler's forward and post-process per b8
-    batch, the student step and the dump's images/s.
+    batch, the student step and the dump's images/s;
+23. int8 (~30 s): the seeded YOLOv4 @640 (phase 4's weights, bf16) served by
+    ``cli/serve.py --int8Static DIR --int8PerChannel`` (16 scene JPEGs calibrate it)
+    at ``--batch`` 1 and 16 and by ``--int8`` at b1: 6 requests each, 107
+    ``int8_conv`` launches per forward; the forward's b1 p50 and b16 images/s by
+    CUDA events against the same model in bf16, and the share of bf16's kept boxes
+    that int8 keeps (printed, not gated); every distinct ``int8_conv`` /
+    ``int8_dwconv`` call of a YOLOv4 b1 per-channel forward and of a D0 @512 b1
+    per-tensor forward, again in f32 per-tensor, and edge cases (Cin = 3, ragged
+    Cout and K, odd H and W at stride 2, H = W = 1; f32 and bf16, per-tensor and
+    per-channel) against the plain versions: int32 accumulators identical,
+    outputs within 1e-6·max|plain|; ``cli/eval_map.py --int8Static
+    --int8PerChannel`` on phase 11's checkpoint and ``--family efficientdet
+    --int8Static`` on phase 13's (``int8_dwconv`` launched, ``dwconv_bn_swish``
+    not); the kernels' times summed over one YOLOv4 b16 forward (107
+    ``int8_conv``) and one D0 b64 forward (70 ``int8_dwconv``) beside their plain
+    versions, the library route (quantize + int8 im2col + ``torch._int_mm`` +
+    dequant; cuDNN's f32 grouped conv of the int8 values for the depthwise),
+    cuDNN's bf16 convs of the same shapes and the bound.
 
 The serving weights are seeded (``--randomInit --seed 0`` of each family), adjusted so
 that NMS has real work: YOLOv4's three output convs' box rows are scaled by
@@ -194,6 +214,7 @@ non-zero, and without a CUDA device nothing is run.
 """
 
 import base64
+import contextlib
 import io
 import json
 import os
@@ -252,10 +273,18 @@ NMS_SOURCE = "tmv_tpu_torch/csrc/nms_sweep.cu"
 NMS_REPLACES = "tmv_tpu/kernels/nms_pallas.py:90"
 DW_SOURCE = "tmv_tpu_torch/csrc/dwconv_bn_swish.cu"
 DW_REPLACES = "tmv_tpu/kernels/dwconv_pallas.py:110"   # _fused_s1; _fused_s2 at :170
+INT8_SOURCE = "tmv_tpu_torch/csrc/int8_conv.cu"
+# XLA's int8 conv_general_dilated (preferred_element_type=int32): the JAX package has
+# no Pallas kernel there; the dynamic path's is at tmv_tpu/quant/dynamic.py:85
+INT8_REPLACES = "tmv_tpu/quant/static.py:212"
+# phase 23's served readings: b1 requests one at a time, b16 requests from 16 clients
+SERVED_B1_REQUESTS = 30
+SERVED_B16_REQUESTS = 64
 PREDICT_KW = dict(confidence_thresh=0.5, scores_thresh=0.2, iou_thresh=0.5, iou_type="diou")
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
 # operations of one class-aware xyxy DIoU pair in the sweep (compare, class
 # test, intersection, areas, union, division, enclosing box, centres, the
 # 0.6 power as log/mul/exp, threshold)
@@ -469,9 +498,10 @@ def ptxas_entries(log):
 def phase_build(card):
     import torch
 
-    from tmv_tpu_torch.kernels import dwconv, nms_sweep
+    from tmv_tpu_torch.kernels import dwconv, int8_conv, nms_sweep
 
-    libraries = {NMS_SOURCE: nms_sweep.LIBRARY, DW_SOURCE: dwconv.LIBRARY}
+    libraries = {NMS_SOURCE: nms_sweep.LIBRARY, DW_SOURCE: dwconv.LIBRARY,
+                 INT8_SOURCE: int8_conv.LIBRARY}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         for future in [pool.submit(lib.load) for lib in libraries.values()]:
@@ -499,7 +529,22 @@ def phase_build(card):
                 if k == 5:
                     max_k5 = max(max_k5, info["registers"])
     check(max_k5 <= 128, f"a k = 5 depthwise instantiation uses {max_k5} registers")
-    print(f"phase 2 build: both kernels built in parallel in {wall:.2f} s on [{card}]", flush=True)
+    for block_n in (64, 128):
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            for vec in (True, False):
+                info = int8_conv.kernel_info(block_n, dtype, vec)
+                print(f"phase 2 build: int8_conv {name} BN={block_n} "
+                      f"{'8-channel loads' if vec else 'element loads'}: {info['registers']} "
+                      f"registers per thread, {info['smem_bytes']} bytes shared memory per "
+                      f"block (two stages), {info['spill_bytes']} bytes spilled, "
+                      f"{info['threads']} threads on [{card}]", flush=True)
+                check(info["spill_bytes"] == 0, f"int8_conv {name} BN={block_n} spills")
+    for kernel, args, regs, smem in ptxas_entries(int8_conv.LIBRARY.log):
+        if kernel.endswith("dwconv_kernel"):
+            print(f"phase 2 build: int8_dwconv ({args[0]} channels a thread): {regs} registers "
+                  f"per thread (ptxas) on [{card}]", flush=True)
+    print(f"phase 2 build: the three kernel sources built in parallel in {wall:.2f} s on "
+          f"[{card}]", flush=True)
 
 
 def sweep_bound_ms(boxes, eligible, classes, iou_threshold):
@@ -651,28 +696,47 @@ def phase_slice(card):
     return model, weights
 
 
-def drive_server(app, count, seed):
-    """Serve ``app`` on a free localhost port, post ``count`` seeded JPEGs
-    (read=1 and read=0 in turns, 375x500 … 1080x1920), check each answer, and
-    return (latencies, latencies by read, boxes seen, kernel launches in the run).
-    The launch counts are set to 0 just before the first request."""
-    from wsgiref.simple_server import WSGIRequestHandler, make_server
-
-    from tmv_tpu_torch.kernels import dwconv, nms_sweep
+@contextlib.contextmanager
+def local_server(app, clients=0):
+    """``app`` served on a free localhost port (a thread per request and a listen
+    backlog for ``clients`` at once when ``clients``) → the predict URL; the
+    server stops when the block ends."""
+    import socketserver
+    from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server
 
     class Quiet(WSGIRequestHandler):
         def log_message(self, *a):
             pass
 
-    server = make_server("127.0.0.1", 0, app, handler_class=Quiet)
+    class Threaded(socketserver.ThreadingMixIn, WSGIServer):
+        daemon_threads = True
+        request_queue_size = 2 * clients
+
+    server = make_server("127.0.0.1", 0, app, handler_class=Quiet,
+                         server_class=Threaded if clients else WSGIServer)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
-    url = f"http://127.0.0.1:{server.server_address[1]}/ai_api/object_detection/predict"
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}/ai_api/object_detection/predict"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+
+
+def drive_server(app, count, seed):
+    """Serve ``app`` on a free localhost port, post ``count`` seeded JPEGs
+    (read=1 and read=0 in turns, 375x500 … 1080x1920), check each answer, and
+    return (latencies, latencies by read, boxes seen, kernel launches in the run).
+    The launch counts are set to 0 just before the first request."""
+    from tmv_tpu_torch.kernels import dwconv, int8_conv, nms_sweep
+
     rng = np.random.default_rng(seed)
     sizes = [(480, 640), (720, 1280), (640, 640), (375, 500), (1080, 1920)]
     latencies, by_read, boxes_seen = [], {0: [], 1: []}, 0
-    try:
+    with local_server(app) as url:
         nms_sweep.launches = dwconv.launches = 0
+        int8_conv.launches.update(int8_conv=0, int8_dwconv=0)
         for i in range(count):
             h, w = sizes[i % len(sizes)]
             read = 1 if i % 2 == 0 else 0
@@ -694,12 +758,55 @@ def drive_server(app, count, seed):
             check(len(out["boxes"]) == len(out["classes"]), f"request {i}: boxes/classes")
             check(bool(out["result_img"]) == bool(read), f"request {i}: read={read} images")
             boxes_seen += len(out["boxes"])
-        launches = {"nms_sweep": nms_sweep.launches, "dwconv_bn_swish": dwconv.launches}
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=10)
+        launches = {"nms_sweep": nms_sweep.launches, "dwconv_bn_swish": dwconv.launches,
+                    **int8_conv.launches}
     return latencies, by_read, boxes_seen, launches
+
+
+def drive_server_concurrent(app, count, clients, seed):
+    """Serve ``app`` on a threaded localhost server and post ``count`` seeded JPEGs
+    (read=0, 480x640 … 1080x1920, encoded before the clock starts) from ``clients``
+    threads at once, so that a batching server can fill its batches; check each
+    answer → (seconds from the first post to the last answer, latencies, boxes seen,
+    kernel launches in the run). The launch counts are set to 0 just before the
+    first request."""
+    from tmv_tpu_torch.kernels import dwconv, int8_conv, nms_sweep
+
+    rng = np.random.default_rng(seed)
+    sizes = [(480, 640), (720, 1280), (640, 640), (375, 500), (1080, 1920)]
+    bodies = [json.dumps({"img_data": "data:image/jpeg;base64," + base64.b64encode(
+        scene_jpeg(rng, *sizes[i % len(sizes)])).decode(), "read": 0}).encode()
+        for i in range(count)]
+
+    def post(url, i):
+        request = urllib.request.Request(url, bodies[i], {"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(request, timeout=120) as resp:
+                status, out = resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            raise RuntimeError(f"chip_smoke: request {i}: HTTP {e.code} "
+                               f"{e.read()[:2000]!r}") from e
+        return (time.perf_counter() - t0) * 1000, status, out
+
+    with local_server(app, clients) as url:
+        nms_sweep.launches = dwconv.launches = 0
+        int8_conv.launches.update(int8_conv=0, int8_dwconv=0)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(clients) as pool:
+            answers = list(pool.map(lambda i: post(url, i), range(count)))
+        wall = time.perf_counter() - t0
+        launches = {"nms_sweep": nms_sweep.launches, "dwconv_bn_swish": dwconv.launches,
+                    **int8_conv.launches}
+    boxes_seen = 0
+    for i, (_, status, out) in enumerate(answers):
+        check(status == 200, f"request {i}: HTTP {status}")
+        check(set(out) == {"boxes", "classes", "random_img", "result_img"},
+              f"request {i}: keys {sorted(out)}")
+        check(len(out["boxes"]) == len(out["classes"]) and not out["result_img"],
+              f"request {i}: boxes/classes/read=0")
+        boxes_seen += len(out["boxes"])
+    return wall, [ms for ms, _, _ in answers], boxes_seen, launches
 
 
 def phase_serving(card, weights):
@@ -3425,6 +3532,533 @@ def phase_distill(card, files):
             "students": student_launches, "numbers": numbers}
 
 
+# ---------------------------------------------------------------- int8 serving
+
+class Int8Calls:
+    """Within the block, every ``int8_conv`` / ``int8_dwconv`` call made by
+    ``quant/static.py`` and ``quant/dynamic.py`` is kept (its arguments, tensors
+    included) and then run as it would be; with ``distinct``, only the first call
+    of each ``call_key``, so that a long run keeps a bounded set of tensors."""
+
+    def __init__(self, distinct=False):
+        self.calls, self.distinct, self._seen = [], distinct, set()
+
+    def __enter__(self):
+        from tmv_tpu_torch.kernels import int8_conv as kernels
+
+        def keep(name, fn):
+            def call(*args, **kwargs):
+                key = call_key(name, int8_call_args(name, args, kwargs))
+                if not self.distinct or key not in self._seen:
+                    self._seen.add(key)
+                    self.calls.append((name, args, kwargs))
+                return fn(*args, **kwargs)
+            return call
+
+        self._patches = [
+            mock.patch("tmv_tpu_torch.quant.static.int8_conv", keep("int8_conv", kernels.int8_conv)),
+            mock.patch("tmv_tpu_torch.quant.static.int8_dwconv",
+                       keep("int8_dwconv", kernels.int8_dwconv)),
+            mock.patch("tmv_tpu_torch.quant.dynamic.int8_conv",
+                       keep("int8_conv", kernels.int8_conv))]
+        for p in self._patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._patches:
+            p.stop()
+
+
+def int8_call_args(name, args, kwargs):
+    """(x, kernel_q, in_absmax, deq, offset, kernel size, stride, pads, out dtype) of a
+    kept call."""
+    names = (("x", "kernel_q", "in_absmax", "deq", "offset", "kernel_size", "stride", "pads")
+             if name == "int8_conv" else
+             ("x", "kernel_q", "in_absmax", "deq", "offset", "k", "stride", "pads"))
+    bound = dict(zip(names, args), **kwargs)
+    ks = bound["kernel_size"] if name == "int8_conv" else (bound["k"], bound["k"])
+    import torch
+
+    return (bound["x"], bound["kernel_q"], bound["in_absmax"], bound["deq"], bound.get("offset"),
+            tuple(ks), bound.get("stride", 1), tuple(bound.get("pads", (0, 0, 0, 0))),
+            bound.get("out_dtype", torch.float32))
+
+
+def int8_run(name, x, kq, absmax, deq, offset, ks, stride, pads, out_dtype=None, plain=False,
+             acc=False):
+    import torch
+
+    from tmv_tpu_torch.kernels import int8_conv as kernels
+
+    out_dtype = out_dtype or torch.float32
+    if name == "int8_conv":
+        fn = kernels.int8_conv_reference if plain else kernels.int8_conv
+        return fn(x, kq, absmax, deq, offset, ks, stride, pads, return_acc=acc,
+                  out_dtype=out_dtype)
+    fn = kernels.int8_dwconv_reference if plain else kernels.int8_dwconv
+    return fn(x, kq, absmax, deq, offset, ks[0], stride, pads, return_acc=acc,
+              out_dtype=out_dtype)
+
+
+def int8_bound_ms(name, x, kq, ks, stride, pads, out_dtype):
+    """Least time of one int8 conv: the larger of its bytes (the activation read
+    once, int8 weights, the per-channel vectors, the output written once in its
+    type) over the HBM rate and its operations (2 per int8 product over the real K,
+    not the padded one) over the int8 tensor-core rate."""
+    import torch
+
+    b, c, h, w = x.shape
+    top, left, bottom, right = pads
+    h_out = (h + top + bottom - ks[0]) // stride + 1
+    w_out = (w + left + right - ks[1]) // stride + 1
+    cout = kq.shape[0] if name == "int8_conv" else c
+    k = ks[0] * ks[1] * (c if name == "int8_conv" else 1)
+    out_bytes = 2 if out_dtype == torch.bfloat16 else 4
+    nbytes = (x.numel() * x.element_size() + cout * k + 3 * 4 * max(cout, c)
+              + b * h_out * w_out * cout * out_bytes)
+    ops = 2 * b * h_out * w_out * cout * k
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", ops
+
+
+def library_int8(name, x, kq, absmax, deq, offset, ks, stride, pads, out_dtype):
+    """The library route for the same function, which the port never calls: the
+    quantize in torch ops, then for a dense conv an int8 im2col (padded, strided
+    slices stacked) and ``torch._int_mm`` (cuBLASLt's int8 GEMM, K and N padded to
+    multiples of 8), for a depthwise conv cuDNN's grouped ``F.conv2d`` on the int8
+    values held in float32 (exact: |acc| < 2^24, TF32 off); then the dequant."""
+    import torch
+    import torch.nn.functional as F
+
+    from tmv_tpu_torch.kernels.int8_conv import quantize_reference, unpack_dense
+
+    top, left, bottom, right = pads
+    b, c, h, w = x.shape
+    if name == "int8_conv":
+        kh, kw = ks
+        weight = unpack_dense(kq, kh, kw, c).reshape(kh * kw * c, -1)     # (K, N)
+        k_real, n = weight.shape
+        k_pad, n_pad = max(32, -(-k_real // 8) * 8), -(-n // 8) * 8
+        weight = F.pad(weight, (0, n_pad - n, 0, k_pad - k_real)).contiguous()
+
+        def call():
+            xq = quantize_reference(x, absmax).permute(0, 2, 3, 1)        # NHWC int8
+            xq = F.pad(xq, (0, 0, left, right, top, bottom))
+            h_out = (h + top + bottom - kh) // stride + 1
+            w_out = (w + left + right - kw) // stride + 1
+            cols = torch.cat([xq[:, dy:dy + (h_out - 1) * stride + 1:stride,
+                                 dx:dx + (w_out - 1) * stride + 1:stride]
+                              for dy in range(kh) for dx in range(kw)], dim=-1)
+            cols = F.pad(cols.reshape(-1, k_real), (0, k_pad - k_real))
+            acc = torch._int_mm(cols, weight)[:, :n]
+            y = acc.float() * deq
+            if offset is not None:
+                y = y + offset
+            return y.to(out_dtype).reshape(b, h_out, w_out, n).permute(0, 3, 1, 2)
+        return call
+    k = ks[0]
+    weight = kq.t().reshape(c, 1, k, k).float()
+
+    def call():
+        xq = quantize_reference(x, absmax).float()
+        acc = F.conv2d(F.pad(xq, (left, right, top, bottom)), weight, stride=stride, groups=c)
+        y = acc * deq.view(1, -1, 1, 1)
+        return (y if offset is None else y + offset.view(1, -1, 1, 1)).to(out_dtype)
+    return call
+
+
+def cudnn_bf16(name, x, kq, ks, stride, pads):
+    """The float route the int8 conv replaces: cuDNN's bf16 ``F.conv2d`` of the
+    same shapes (random bf16 weights), on the activation in bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    b, c, h, w = x.shape
+    top, left, bottom, right = pads
+    xb = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    cout, groups = (kq.shape[0], 1) if name == "int8_conv" else (c, c)
+    weight = torch.randn((cout, c // groups) + tuple(ks), device=x.device, dtype=torch.bfloat16)
+    weight = weight.contiguous(memory_format=torch.channels_last)
+    if (top, left) == (bottom, right):
+        return lambda: F.conv2d(xb, weight, None, stride, (top, left), groups=groups)
+    return lambda: F.conv2d(F.pad(xb, (left, right, top, bottom)), weight, None, stride,
+                            groups=groups)
+
+
+def check_int8_call(name, x, kq, absmax, deq, offset, ks, stride, pads, out_dtype):
+    """The kernel against its plain version on one call's inputs: the int32
+    accumulators identical, the float32 outputs within 1e-6·max|plain|, and in
+    the call's own output type (bf16: the cast fused) within one bf16 step of the
+    plain value plus 1e-6·max|plain| → max |diff| of the float32 outputs."""
+    import torch
+
+    args = (name, x, kq, absmax, deq, offset, ks, stride, pads)
+    acc = int8_run(*args, acc=True)
+    want_acc = int8_run(*args, plain=True, acc=True)
+    y = int8_run(*args)
+    want = int8_run(*args, plain=True)
+    torch.cuda.synchronize()
+    what = (f"{name} {tuple(x.shape)} {str(x.dtype)[6:]} k={ks} s={stride} pads={pads} "
+            f"{'per-channel' if absmax.dim() else 'per-tensor'}")
+    check(acc.shape == want_acc.shape and torch.equal(acc, want_acc),
+          f"{what}: int32 accumulator differs from the plain version's")
+    check(y.dtype == torch.float32 and y.is_contiguous(memory_format=torch.channels_last),
+          f"{what}: output layout")
+    err = float((y - want).abs().max())
+    check(err <= 1e-6 * float(want.abs().max()), f"{what}: max |diff| {err:.3g}")
+    if out_dtype == torch.bfloat16:
+        got = int8_run(*args, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bfloat16 and within_one_bf16_step(got, want),
+              f"{what}: bf16 output beyond one bf16 step of the plain value")
+    return err
+
+
+def int8_edge_calls(gen):
+    """Edge cases of both kernels on the card: Cin = 3 (K = 27), ragged Cout and K
+    (16, 24, 40), odd H and W at stride 2 under Darknet's and TF-SAME pads, H = W = 1,
+    in f32 and bf16, per-tensor and per-channel."""
+    import torch
+
+    from tmv_tpu_torch.kernels.int8_conv import pack_dense
+
+    dense = [(1, 17, 13, 3, 32, 3, 1, (1, 1, 1, 1)), (2, 15, 11, 3, 24, 3, 2, (0, 0, 1, 1)),
+             (2, 9, 7, 16, 40, 1, 1, (0, 0, 0, 0)), (1, 13, 13, 24, 112, 1, 1, (0, 0, 0, 0)),
+             (3, 33, 35, 40, 24, 3, 2, (1, 1, 0, 0)), (1, 1, 1, 24, 112, 3, 1, (1, 1, 1, 1)),
+             (1, 1, 1, 64, 8, 3, 2, (1, 1, 1, 1)), (2, 19, 21, 64, 130, 3, 1, (1, 1, 1, 1))]
+    depthwise = [(2, 17, 15, 32, 3, 1, (1, 1, 1, 1)), (1, 33, 31, 6, 5, 2, (1, 1, 2, 2)),
+                 (1, 1, 1, 240, 5, 1, (2, 2, 2, 2)), (2, 9, 10, 24, 3, 2, (0, 0, 1, 1))]
+    for dtype in (torch.float32, torch.bfloat16):
+        for per_channel in (False, True):
+            for b, h, w, cin, cout, k, s, pads in dense:
+                x = torch.randn((b, h, w, cin), generator=gen, device="cuda").permute(0, 3, 1, 2)
+                x = (x * 2).to(dtype).contiguous(memory_format=torch.channels_last)
+                kq = pack_dense(torch.randint(-127, 128, (k, k, cin, cout), generator=gen,
+                                              device="cuda").to(torch.int8))
+                yield ("int8_conv", x, kq, int8_absmax(gen, cin, per_channel),
+                       torch.rand((cout,), generator=gen, device="cuda") * 1e-3,
+                       torch.randn((cout,), generator=gen, device="cuda"), (k, k), s, pads,
+                       dtype)
+            for b, h, w, c, k, s, pads in depthwise:
+                x = torch.randn((b, h, w, c), generator=gen, device="cuda").permute(0, 3, 1, 2)
+                x = (x * 2).to(dtype).contiguous(memory_format=torch.channels_last)
+                kq = torch.randint(-127, 128, (k * k, c), generator=gen, device="cuda").to(torch.int8)
+                yield ("int8_dwconv", x, kq, int8_absmax(gen, c, per_channel),
+                       torch.rand((c,), generator=gen, device="cuda") * 1e-3, None, (k, k), s, pads,
+                       dtype)
+
+
+def int8_absmax(gen, c, per_channel):
+    import torch
+
+    if per_channel:
+        return torch.rand((c,), generator=gen, device="cuda") * 4 + 0.5
+    return torch.rand((), generator=gen, device="cuda") * 4 + 0.5
+
+
+def call_key(name, call):
+    """(kernel, shapes, dtype, pads, scale kind, output type) of a call's arguments."""
+    x, kq, absmax, _, _, ks, stride, pads, out_dtype = call
+    return (name, tuple(x.shape), x.dtype, tuple(kq.shape), ks, stride, pads, absmax.dim(),
+            out_dtype)
+
+
+def distinct_calls(calls):
+    """The kept calls with one of each ``call_key``, as check_int8_call's cases."""
+    seen, out = set(), []
+    for name, args, kwargs in calls:
+        call = int8_call_args(name, args, kwargs)
+        key = call_key(name, call)
+        if key not in seen:
+            seen.add(key)
+            out.append((name,) + call)
+    return out
+
+
+def int8_calibration_set(count=16):
+    """``count`` seeded scene JPEGs of mixed sizes for ``--int8Static``."""
+    root = os.path.join(WORK, "int8_calib")
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(23)
+    sizes = [(480, 640), (720, 1280), (640, 640), (375, 500)]
+    for i in range(count):
+        with open(os.path.join(root, f"scene_{i:02d}.jpg"), "wb") as f:
+            f.write(scene_jpeg(rng, *sizes[i % len(sizes)]))
+    return root
+
+
+def box_agreement(want, got):
+    """Share of ``want``'s kept boxes that ``got`` keeps too: a box of the same
+    class at IoU ≥ 0.5, per image, pooled."""
+    from tmv_tpu_torch.ops.iou import iou_xyxy
+
+    import torch
+
+    matched = total = 0
+    for wb, wi, wv, gb, gi, gv in zip(want[0], want[1], want[3], got[0], got[1], got[3]):
+        wb, wi, gb, gi = wb[wv], wi[wv], gb[gv], gi[gv]
+        total += len(wb)
+        for box, cls in zip(wb, wi):
+            same = gb[gi == cls]
+            if len(same) and float(iou_xyxy(torch.from_numpy(box[None]),
+                                            torch.from_numpy(same)).max()) >= 0.5:
+                matched += 1
+    return matched / max(total, 1), total
+
+
+def forward_readings(model, quant, batch=16):
+    """(b1 forward p50 ms, each of 30 forwards between CUDA events; b``batch``
+    forward images/s by CUDA events over 10 back-to-back forwards), after warm-up."""
+    import torch
+
+    from tmv_tpu_torch.quant import quantized
+
+    rng = np.random.default_rng(29)
+    one = torch.from_numpy(rng.uniform(0, 1, (1, IMAGE, IMAGE, 3)).astype(np.float32)).cuda()
+    many = torch.from_numpy(rng.uniform(0, 1, (batch, IMAGE, IMAGE, 3)).astype(np.float32)).cuda()
+    with torch.inference_mode(), quantized(quant):
+        for _ in range(3):
+            model(one), model(many)
+        samples = []
+        for _ in range(30):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            model(one)
+            end.record()
+            torch.cuda.synchronize()
+            samples.append(start.elapsed_time(end))
+        ms = cuda_ms(lambda: model(many), 10)
+    return statistics.median(samples), batch * 1000 / ms
+
+
+def sum_int8_times(card, calls, label):
+    """Kernel, plain, library and cuDNN bf16 milliseconds and the bound, summed
+    over one forward's kept calls; each call's kernel is first held against its
+    plain version (check_int8_call) → also the largest |kernel - plain|."""
+    import torch
+
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, cudnn_ms=0.0, bound_ms=0.0, ops=0,
+                 by={"bytes": 0.0, "operations": 0.0}, launches=len(calls), max_err=0.0)
+    each = []
+    for name, args, kwargs in calls:
+        call = int8_call_args(name, args, kwargs)
+        x, kq, absmax, deq, offset, ks, stride, pads, out_dtype = call
+        total["max_err"] = max(total["max_err"], check_int8_call(name, *call))
+        kernel = lambda: int8_run(name, *call)  # noqa: E731
+        plain = lambda: int8_run(name, *call, plain=True)  # noqa: E731
+        library = library_int8(name, *call)
+        lib_out, ref = library(), plain()
+        check(torch.equal(lib_out.float(), ref.float()) or within_one_bf16_step(lib_out, ref),
+              f"the library route computes another function at {tuple(x.shape)} {ks}")
+        cudnn = cudnn_bf16(name, x, kq, ks, stride, pads)
+        kernel(), cudnn()
+        k_ms, p_ms, _ = turns(plain, kernel, 1, 5)
+        bound, by, ops = int8_bound_ms(name, x, kq, ks, stride, pads, out_dtype)
+        cudnn_ms = cuda_ms(cudnn, 5)
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", cuda_ms(library, 2)),
+                       ("cudnn_ms", cudnn_ms), ("bound_ms", bound), ("ops", ops)):
+            total[key] += v
+        each.append((k_ms, tuple(x.shape), kq.shape[0] if name == "int8_conv" else x.shape[1],
+                     ks, stride, cudnn_ms, bound, by))
+        total["by"][by] += bound
+        del lib_out, ref
+    print(f"phase 23 {label} on [{card}]: {total['launches']} launches, kernel "
+          f"{total['ms']:.4f} ms ({total['ops'] / total['ms'] / 1e9:.1f} TOP/s), plain "
+          f"{total['plain_ms']:.4f} ms, library (quantize + int8 im2col + torch._int_mm + dequant; "
+          f"cuDNN f32 grouped conv for depthwise) {total['library_ms']:.4f} ms, cuDNN bf16 "
+          f"{total['cudnn_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms (kernel at "
+          f"{total['bound_ms'] / total['ms']:.1%} of the bound); every launch's int32 "
+          f"accumulator identical to the plain version's, outputs within 1e-6·max|plain| "
+          f"(max |kernel - plain| {total['max_err']:.3g})", flush=True)
+    for k_ms, shape, cout, ks, stride, cudnn_ms, bound, by in sorted(each, reverse=True)[:5]:
+        print(f"phase 23 {label}, a slowest launch: x {shape} (B, C, H, W) -> {cout} channels "
+              f"k={ks} s={stride}: kernel {k_ms:.4f} ms, cuDNN bf16 {cudnn_ms:.4f} ms, bound "
+              f"{bound:.4f} ms by {by}", flush=True)
+    return total
+
+
+def phase_int8(card, weights, files, ckpt, d0_ckpt):
+    """Phase 23: the int8 kernels against their plain versions on the card, at
+    every distinct call of the paths below; YOLOv4 @640 served in static
+    (per-channel) int8 at b1 and b16 and dynamic int8 at b1, beside bf16; the int8
+    eval CLI for YOLOv4 and D0; the kernels' times over one forward."""
+    import torch
+
+    from tmv_tpu_torch.cli import eval_map, serve
+    from tmv_tpu_torch.kernels import dwconv, int8_conv, nms_sweep
+    from tmv_tpu_torch.models.detector_harness import make_yolo_predict_batched
+    from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS
+    from tmv_tpu_torch.quant import calibrate_model, prepare_static_int8, quantized
+
+    t0 = time.perf_counter()
+    classes_file, anchors_file = write_inputs(COCO_CLASSES, COCO_ANCHORS)
+    calib = int8_calibration_set()
+    serve_base = ["--modelPath", weights, "--classesFile", classes_file, "--anchorsFile",
+                  anchors_file, "--imageSize", str(IMAGE), "--bf16", "--device", "cuda"]
+    launches = {"int8_conv": 0, "int8_dwconv": 0}
+
+    # 1. YOLOv4 @640 served in bf16, static per-channel and dynamic int8 at b1 (one
+    #    request at a time); in bf16 and static per-channel at b16, from 16 clients at once
+    served, served_calls = {}, []
+    static = ["--int8Static", calib, "--int8PerChannel"]
+    for label, extra in (("bf16 b1", []), ("static b1", static), ("dynamic b1", ["--int8"]),
+                         ("bf16 b16", ["--batch", "16"]),
+                         ("static b16", static + ["--batch", "16"])):
+        app, service, model = serve.build_app(serve.parse_args(serve_base + extra))
+        try:
+            with Int8Calls(distinct=True) as kept_calls:
+                if service.batcher is None:
+                    latencies, _, boxes, counts = drive_server(app, SERVED_B1_REQUESTS, 31)
+                    forwards, wall = len(latencies), None
+                else:
+                    wall, latencies, boxes, counts = drive_server_concurrent(
+                        app, SERVED_B16_REQUESTS, 16, 37)
+                    forwards = service.batcher.dispatch_count
+        finally:
+            if service.batcher is not None:
+                service.batcher.close()
+        per_forward = 0 if label.startswith("bf16") else 107
+        check(counts["int8_conv"] == per_forward * forwards,
+              f"{label}: {counts['int8_conv']} int8_conv launches for {forwards} forwards")
+        check(counts["nms_sweep"] >= forwards, f"{label}: NMS launches")
+        if wall:
+            check(forwards < len(latencies),
+                  f"{label}: {forwards} forwards for {len(latencies)} concurrent requests")
+        launches["int8_conv"] += counts["int8_conv"]
+        served_calls += distinct_calls(kept_calls.calls)
+        served[label] = (statistics.median(latencies), len(latencies) / wall if wall else None)
+        rate = (f", {served[label][1]:.1f} images/s in {forwards} forwards (mean batch "
+                f"{len(latencies) / forwards:.1f})" if wall else "")
+        print(f"phase 23 serving YOLOv4 @{IMAGE} {label}: {len(latencies)} requests -> HTTP 200, "
+              f"{boxes} boxes, int8_conv.launches {counts['int8_conv']} ({per_forward} per "
+              f"forward), served p50 {served[label][0]:.2f} ms{rate} on [{card}]", flush=True)
+        if label == "static b16":
+            static_model = model
+        del app, service, model, kept_calls
+    model = static_model
+    check(model.ConvBN_0.in_absmax.shape == (3,), "the served model is not per-channel")
+
+    # 2. readings by CUDA events against the same model in bf16; box agreement
+    readings = {quant: forward_readings(model, quant) for quant in ("off", "int8_static")}
+    from PIL import Image
+
+    images = np.stack([np.asarray(Image.open(os.path.join(calib, f)).convert("RGB").resize(
+        (IMAGE, IMAGE)), np.float32) / 255.0 for f in sorted(os.listdir(calib))])
+    outs = {quant: make_yolo_predict_batched(model, (IMAGE, IMAGE), COCO_ANCHORS, 80, quant=quant,
+                                             **PREDICT_KW)(None, images)
+            for quant in ("off", "int8_static")}
+    agreement, kept = box_agreement(outs["off"], outs["int8_static"])
+    print(f"phase 23 numbers YOLOv4 80 classes @{IMAGE} on [{card}]: forward by CUDA events, "
+          f"bf16 b1 p50 {readings['off'][0]:.2f} ms, b16 {readings['off'][1]:.1f} images/s; "
+          f"int8 static per-channel b1 p50 {readings['int8_static'][0]:.2f} ms, b16 "
+          f"{readings['int8_static'][1]:.1f} images/s; served p50 at b1 ({SERVED_B1_REQUESTS} "
+          f"requests) bf16 {served['bf16 b1'][0]:.2f} ms, static {served['static b1'][0]:.2f} ms, "
+          f"dynamic {served['dynamic b1'][0]:.2f} ms; served at b16 ({SERVED_B16_REQUESTS} "
+          f"requests from 16 clients) bf16 {served['bf16 b16'][1]:.1f} images/s (p50 "
+          f"{served['bf16 b16'][0]:.2f} ms), static {served['static b16'][1]:.1f} images/s (p50 "
+          f"{served['static b16'][0]:.2f} ms); int8 keeps {agreement:.3f} of bf16's "
+          f"{kept} boxes on the 16 calibration scenes (class and IoU >= 0.5; not gated)",
+          flush=True)
+
+    # 3. every distinct call of the served forwards and edge cases: kernel = plain
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with Int8Calls() as yolo_b1, torch.inference_mode(), quantized("int8_static"):
+        model(torch.rand((1, IMAGE, IMAGE, 3), generator=gen, device="cuda"))
+    d0, _ = seeded_d0(torch.bfloat16, "cuda")
+    d0_images = torch.rand((1, D0_IMAGE, D0_IMAGE, 3), generator=gen, device="cuda")
+    prepare_static_int8(d0, calibrate_model(d0, [d0_images]))
+    with Int8Calls() as d0_b1, torch.inference_mode(), quantized("int8_static"):
+        d0(d0_images)
+    cases = distinct_calls(yolo_b1.calls) + distinct_calls(d0_b1.calls)
+    f32_cases = [(n, x.float(), kq, a.max(), deq, off, ks, s, p, torch.float32)
+                 for n, x, kq, a, deq, off, ks, s, p, _ in cases]
+    max_err, count = {"int8_conv": 0.0, "int8_dwconv": 0.0}, {"int8_conv": 0, "int8_dwconv": 0}
+
+    def hold(calls):
+        with torch.inference_mode():
+            for case in calls:
+                max_err[case[0]] = max(max_err[case[0]], check_int8_call(*case))
+                count[case[0]] += 1
+
+    hold(cases + f32_cases + served_calls + list(int8_edge_calls(gen)))
+    print(f"phase 23 kernels vs plain on [{card}]: int8_conv {count['int8_conv']} cases, "
+          f"int8_dwconv {count['int8_dwconv']} cases (every distinct call of a YOLOv4 @{IMAGE} "
+          f"b1 bf16 per-channel forward and a D0 @{D0_IMAGE} b1 bf16 per-tensor forward, again "
+          f"in f32 per-tensor, of the four int8 served paths, and the edge cases in f32/bf16 x "
+          f"per-tensor/per-channel): int32 accumulators identical, outputs within "
+          f"1e-6·max|plain| (max |kernel - plain| int8_conv {max_err['int8_conv']:.3g}, "
+          f"int8_dwconv {max_err['int8_dwconv']:.3g})", flush=True)
+    del d0, yolo_b1, d0_b1, cases, f32_cases, served_calls
+
+    # 4. the eval CLI: YOLOv4 per-channel on phase 11's checkpoint, D0 on phase 13's
+    yolo_eval = ["--family", "yolo", "--version", "v4", "--imagePath", files["images"],
+                 "--classesFile", files["classes"], "--anchorsFile", files["anchors"],
+                 "--imageSize", str(TRAIN_IMAGE), "--confidenceThresh", "0.2",
+                 "--scoresThresh", "0.05", "--batchSize", "8", "--bf16", "--device", "cuda",
+                 "--modelPath", ckpt, "--labelFile", files["labels"]]
+    float_map = eval_map.main(yolo_eval)["mAP"]
+    int8_conv.launches.update(int8_conv=0, int8_dwconv=0)
+    with Int8Calls(distinct=True) as yolo_kept:
+        result = eval_map.main(yolo_eval + ["--int8Static", "--int8PerChannel"])
+    yolo_launches = int8_conv.launches["int8_conv"]
+    check(result["quant"] == "int8_static" and result["images"] == TRAIN_SET,
+          f"YOLOv4 int8 eval: {result}")
+    check(yolo_launches == 107 * TRAIN_SET // 8, f"YOLOv4 int8 eval: {yolo_launches} launches")
+    launches["int8_conv"] += yolo_launches
+    d0_eval = ["--family", "efficientdet", "--modelName", "efficientdet-d0", "--imagePath",
+               files["images"], "--classesFile", files["classes"], "--imageSize", str(D0_IMAGE),
+               "--batchSize", str(D0_TRAIN_BATCH), "--device", "cuda", "--modelPath", d0_ckpt,
+               "--labelFile", files["labels"]]
+    d0_float = eval_map.main(d0_eval)["mAP"]
+    int8_conv.launches.update(int8_conv=0, int8_dwconv=0)
+    dwconv.launches = nms_sweep.launches = 0
+    with Int8Calls(distinct=True) as d0_kept:
+        d0_result = eval_map.main(d0_eval + ["--int8Static"])
+    d0_counts = dict(int8_conv.launches, dwconv_bn_swish=dwconv.launches,
+                     nms_sweep=nms_sweep.launches)
+    eval_cases = distinct_calls(yolo_kept.calls) + distinct_calls(d0_kept.calls)
+    hold(eval_cases)
+    check(d0_counts["int8_dwconv"] > 0 and d0_counts["dwconv_bn_swish"] == 0,
+          f"D0 int8 eval launches: {d0_counts}")
+    check(d0_result["quant"] == "int8_static" and d0_result["images"] == TRAIN_SET,
+          f"D0 int8 eval: {d0_result}")
+    for key in launches:
+        launches[key] += d0_counts[key]
+    print(f"phase 23 eval on [{card}]: cli.eval_map --int8Static --int8PerChannel, YOLOv4 "
+          f"@{TRAIN_IMAGE} bf16 b8 on phase 11's checkpoint: mAP {result['mAP']:.4f} (bf16 "
+          f"{float_map:.4f}), int8_conv.launches {yolo_launches}; --family efficientdet "
+          f"--int8Static, D0 @{D0_IMAGE} f32 b{D0_TRAIN_BATCH} on phase 13's checkpoint: mAP "
+          f"{d0_result['mAP']:.4f} (float {d0_float:.4f}), launches {d0_counts}; the "
+          f"{len(eval_cases)} distinct calls of both evals held to the plain versions "
+          f"(accumulators identical; max |kernel - plain| int8_conv {max_err['int8_conv']:.3g}, "
+          f"int8_dwconv {max_err['int8_dwconv']:.3g} over every case of the phase)", flush=True)
+    del yolo_kept, d0_kept, eval_cases
+
+    # 5. times over one forward: YOLOv4 @640 b16 (107 int8_conv), D0 @512 b64 (int8_dwconv)
+    with Int8Calls() as yolo_b16, torch.inference_mode(), quantized("int8_static"):
+        model(torch.rand((16, IMAGE, IMAGE, 3), generator=gen, device="cuda"))
+    check(len(yolo_b16.calls) == 107, f"{len(yolo_b16.calls)} int8 calls in a YOLOv4 forward")
+    with torch.inference_mode():
+        conv_times = sum_int8_times(card, yolo_b16.calls,
+                                    f"int8_conv per YOLOv4 @{IMAGE} b16 bf16 forward")
+    del yolo_b16, model
+    d0, _ = seeded_d0(torch.bfloat16, "cuda")
+    prepare_static_int8(d0, calibrate_model(d0, [d0_images]))
+    with Int8Calls() as d0_b64, torch.inference_mode(), quantized("int8_static"):
+        d0(torch.rand((64, D0_IMAGE, D0_IMAGE, 3), generator=gen, device="cuda"))
+    dw_calls = [c for c in d0_b64.calls if c[0] == "int8_dwconv"]
+    with torch.inference_mode():
+        dw_times = sum_int8_times(card, dw_calls, f"int8_dwconv per D0 @{D0_IMAGE} b64 bf16 forward")
+    del d0, d0_b64, dw_calls
+    torch.cuda.empty_cache()
+    print(f"phase 23 took {time.perf_counter() - t0:.1f} s on [{card}]", flush=True)
+    for name, times in (("int8_conv", conv_times), ("int8_dwconv", dw_times)):
+        max_err[name] = max(max_err[name], times["max_err"])
+    return {"launches": launches, "max_err": max_err, "int8_conv": conv_times,
+            "int8_dwconv": dw_times}
+
+
 def main():
     import torch
 
@@ -3461,6 +4095,7 @@ def main():
     phase_moco(card, files)
     distill = phase_distill(card, files)
     print(f"phase 22 took {time.perf_counter() - t22:.1f} s on [{card}]", flush=True)
+    int8 = phase_int8(card, weights, files, train["ckpt"], d0_train["ckpt"])
     nms_launches = (yolo_launches["nms_sweep"] + d0_launches["nms_sweep"]
                     + train["val_launches"] + eval_launches + d0_eval["nms_sweep"]
                     + v3_serving["launches"] + v3_train["launches"] + mosaic["val_launches"]
@@ -3468,6 +4103,7 @@ def main():
     dw_launches = (d0_launches["dwconv_bn_swish"] + d0_eval["dwconv_bn_swish"]
                    + extras["dwconv_bn_swish"])
     dw = dw_sums[64]
+    i8, i8dw = int8["int8_conv"], int8["int8_dwconv"]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s on [{card}]; kernels "
           f"line: nms_sweep at N=1024 B=1 (ms: device time by CUDA graph, mask + scan "
           f"kernels), launches over the served paths (YOLOv4 "
@@ -3483,7 +4119,13 @@ def main():
           f"summed over the 16 launches of one D0 bf16 forward at B=64, launches over the D0 "
           f"served path ({d0_launches['dwconv_bn_swish']}), the D0 eval CLI "
           f"({d0_eval['dwconv_bn_swish']}) and phase 20's D0 WSGI app and detect CLI "
-          f"({extras['dwconv_bn_swish']})", flush=True)
+          f"({extras['dwconv_bn_swish']}); int8_conv summed over the 107 launches of one "
+          f"YOLOv4 @640 b16 bf16 per-channel forward, launches over phase 23's served paths "
+          f"and eval CLIs; int8_dwconv summed over the {i8dw['launches']} launches of one D0 "
+          f"@512 b64 bf16 forward, launches in the D0 int8 eval CLI; their library_ms the "
+          f"quantize + int8 im2col + torch._int_mm + dequant route (cuDNN f32 grouped conv of the "
+          f"int8 values for the depthwise), cuDNN bf16 of the same convs {i8['cudnn_ms']:.4f} "
+          f"and {i8dw['cudnn_ms']:.4f} ms", flush=True)
     print(json.dumps({"kernels": [
         {"name": "nms_sweep", "route": "cuda", "source": NMS_SOURCE, "replaces": NMS_REPLACES,
          "launches": nms_launches,
@@ -3494,6 +4136,15 @@ def main():
          "max_abs_err": dw_err, "ms": dw["ms"], "plain_ms": dw["plain_ms"],
          "bound_ms": dw["bound_ms"], "bound_by": max(dw["by"], key=dw["by"].get),
          "library_ms": dw["library_ms"]},
+        {"name": "int8_conv", "route": "cuda", "source": INT8_SOURCE, "replaces": INT8_REPLACES,
+         "launches": int8["launches"]["int8_conv"], "max_abs_err": int8["max_err"]["int8_conv"],
+         "ms": i8["ms"], "plain_ms": i8["plain_ms"], "bound_ms": i8["bound_ms"],
+         "bound_by": max(i8["by"], key=i8["by"].get), "library_ms": i8["library_ms"]},
+        {"name": "int8_dwconv", "route": "cuda", "source": INT8_SOURCE,
+         "replaces": INT8_REPLACES, "launches": int8["launches"]["int8_dwconv"],
+         "max_abs_err": int8["max_err"]["int8_dwconv"], "ms": i8dw["ms"],
+         "plain_ms": i8dw["plain_ms"], "bound_ms": i8dw["bound_ms"],
+         "bound_by": max(i8dw["by"], key=i8dw["by"].get), "library_ms": i8dw["library_ms"]},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

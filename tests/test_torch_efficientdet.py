@@ -18,7 +18,8 @@ run the same numpy inputs in float32. Tolerance: max|port − JAX| ≤
 - The whole ``EfficientDetNet`` at D0 width and depth (81 classes) at 64 and 80.
 - The bridge consumes every leaf of the D0 tree (709) exactly once.
 - The port's server with ``--family efficientdet`` answers the reference's
-  contract on the CPU and refuses the JAX-only flags by name.
+  contract on the CPU, refuses the int8 flags as the JAX server does (int8 serving
+  is YOLO-family) and the unported flags by name.
 """
 
 import base64
@@ -342,8 +343,11 @@ def test_efficientdet_serve_path_answers_the_reference_contract(tmp_path, rng, b
 def test_efficientdet_serve_refuses_unported_flags(tmp_path, capsys):
     base = _classes_file(tmp_path) + ["--randomInit"]
     for extra in (["--int8"], ["--int8Static", "calib"], ["--int8Margin", "0.5"],
-                  ["--int8PerChannel"], ["--dp", "2"], ["--spatial", "2"],
-                  ["--artifact", "a.tmvx"]):
+                  ["--int8PerChannel"]):
+        with pytest.raises(SystemExit):
+            serve.parse_args(base + extra)
+        assert "int8 serving is yolo-family" in capsys.readouterr().err
+    for extra in (["--dp", "2"], ["--spatial", "2"], ["--artifact", "a.tmvx"]):
         with pytest.raises(SystemExit):
             serve.parse_args(base + extra)
         assert "not yet ported" in capsys.readouterr().err

@@ -13,7 +13,9 @@
   set, leaving checkpoints that ``cli/eval_map.py`` reads; a rerun resumes at
   the saved step.
 - Both CLIs refuse the flags they do not port and default to ``--device cuda``,
-  which raises without a card.
+  which raises without a card; ``cli/eval_map.py --int8Static`` (per-tensor,
+  ``--int8PerChannel``, ``--int8Margin 0.5``) calibrates on 16 images and records
+  ``quant`` (and the margin) on the CPU.
 - EfficientDet-D0 (64 px, 3 classes + background): ``cli/eval_map.py --family
   efficientdet`` in both modes × three variants against the JAX CLI on the same
   weights (a JAX orbax checkpoint and its bridged ``.pt``), on PNGs labelled
@@ -213,11 +215,13 @@ def test_clis_refuse_unported_flags_and_need_a_card(tiny_set, capsys):
     ported = train_yolo.parse_args(train + ["--version", "v3", "--darknetWeights", "x.weights",
                                             "--warmupSteps", "5"])
     assert (ported.version, ported.darknetWeights, ported.warmupSteps) == ("v3", "x.weights", 5)
-    for extra in (["--int8Static"], ["--int8PerChannel"], ["--int8Margin", "0.5"]):
-        with pytest.raises(SystemExit):
-            eval_map.parse_args(cli_files(root) + extra)
-        err = capsys.readouterr().err
-        assert "not yet ported" in err and "ROADMAP.md queue 5: int8" in err
+    for extra in (["--int8Static"], ["--int8Static", "--int8PerChannel"],
+                  ["--int8Static", "--int8Margin", "0.5"]):
+        got = eval_map.main(cli_files(root) + ["--modelPath", str(root / "model.pt"),
+                                               "--device", "cpu", "--maxImages", "2"] + extra)
+        assert got["quant"] == "int8_static" and got["images"] == 2 and 0 <= got["mAP"] <= 1
+        assert got.get("int8_margin") == (0.5 if "--int8Margin" in extra else None)
+        assert "calibrating int8 scales on 16 images" in capsys.readouterr().out
     assert eval_map.parse_args(cli_files(root) + ["--cacheDir", "c"]).cacheDir == "c"
     for version in ("v3", "resnet"):
         assert eval_map.parse_args(cli_files(root) + ["--version", version]).version == version

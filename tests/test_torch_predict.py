@@ -135,12 +135,23 @@ def test_serve_path_answers_the_reference_contract(tmp_path, rng, batch):
 
 def test_serve_refuses_unported_flags_and_missing_weights(tmp_path, capsys):
     base = _write_inputs(tmp_path)
-    for extra in (["--int8"], ["--int8Static", "calib"], ["--dp", "2"], ["--spatial", "2"],
-                  ["--artifact", "a.tmvx"]):
+    for extra in (["--dp", "2"], ["--spatial", "2"], ["--artifact", "a.tmvx"]):
         with pytest.raises(SystemExit):
             serve.parse_args(base + ["--randomInit"] + extra)
         err = capsys.readouterr().err
-        assert "not yet ported" in err and "ROADMAP.md queue" in err
+        assert "not yet ported" in err and "ROADMAP.md queue 6" in err
+    # the int8 flags follow the JAX server's rules
+    for extra, why in ((["--int8", "--int8Static", "calib"], "mutually exclusive"),
+                       (["--int8", "--batch", "2"], "only supported with --batch 1")):
+        with pytest.raises(SystemExit):
+            serve.parse_args(base + ["--randomInit"] + extra)
+        assert why in capsys.readouterr().err
+    assert serve.quant_of(serve.parse_args(base + ["--randomInit", "--int8"])) == "int8"
+    args = serve.parse_args(base + ["--randomInit", "--int8Static", "calib", "--batch", "16"])
+    assert serve.quant_of(args) == "int8_static" and args.int8Margin == 1.0
+    assert "per-TENSOR scales loses" in capsys.readouterr().out
+    serve.parse_args(base + ["--randomInit", "--int8Static", "calib", "--int8PerChannel"])
+    assert "WARNING" not in capsys.readouterr().out
     for version in ("v3", "resnet"):
         assert serve.parse_args(base + ["--randomInit", "--version", version]).version == version
     with pytest.raises(SystemExit):
@@ -159,8 +170,9 @@ def test_device_cuda_without_a_card_raises(tmp_path):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Every module of the package, a whole server build of each family (YOLO v4,
-    v3 and resnet, EfficientDet), the converters' call-order trace, a cfg net,
+    """Every module of the package (``quant/*`` and ``kernels/int8_conv.py`` among
+    them), a whole server build of each family (YOLO v4 in float and in
+    ``--int8Static --int8PerChannel``, v3 and resnet, EfficientDet), the converters' call-order trace, a cfg net,
     ``freeze_mask``, and the trainers', converter's and eval CLI's arguments,
     pipelines (EfficientDet's host and device augmentation), train states and
     D0's loss at a tiny size, the WSGI module built from the environment, the
@@ -199,6 +211,7 @@ def test_port_imports_no_jax(tmp_path):
             "for m in pkgutil.walk_packages(tmv_tpu_torch.__path__, 'tmv_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "import torch\n"
+            "torch.set_num_threads(1)   # no OpenMP spinning under parallel test workers\n"
             "from tmv_tpu_torch.cli import eval_map, serve, train_yolo\n"
             "from tmv_tpu_torch.core.train_state import TrainState, make_train_step\n"
             "from tmv_tpu_torch.data.loaders import load_anchors\n"
@@ -206,6 +219,9 @@ def test_port_imports_no_jax(tmp_path):
             "from tmv_tpu_torch.models.detector_harness import build_yolo_model\n"
             f"_, service, _ = serve.build_app(serve.parse_args({yolo!r}))\n"
             "service.batcher.close()\n"
+            f"_, service, model = serve.build_app(serve.parse_args({yolo!r} + ['--int8Static', {str(tmp_path)!r}, '--int8PerChannel']))\n"
+            "service.batcher.close()\n"
+            "assert model.ConvBN_0.kernel_q.dtype == torch.int8\n"
             "for version in ('v3', 'resnet'):\n"
             f"    _, service, _ = serve.build_app(serve.parse_args({yolo!r} + ['--version', version]))\n"
             "    service.batcher.close()\n"
@@ -227,7 +243,6 @@ def test_port_imports_no_jax(tmp_path):
             "model, _ = build_yolo_model('v4', p.classes_num, device='cpu')\n"
             "state = TrainState.create(model, torch.optim.Adam(model.parameters()))\n"
             "assert batch['image'].shape == (2, 32, 32, 3) and state.step == 0\n"
-            "torch.set_num_threads(1)   # D0 at 64 px: no OpenMP spinning under test workers\n"
             "from tmv_tpu_torch.cli import train_efficientdet\n"
             "from tmv_tpu_torch.core.train_state import make_line_search_train_step\n"
             "from tmv_tpu_torch.data.efficientdet_pipeline import EfficientDetPipeline\n"

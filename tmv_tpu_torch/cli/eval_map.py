@@ -22,6 +22,12 @@ JAX CLI) stages the set through the memmap cache of ``data/stage_cache.py``,
 so a repeated evaluation of the same set decodes nothing. ``--device cuda``
 (the default) raises where there is no GPU.
 
+``--int8Static`` scores the static int8 serving path: activation scales are
+calibrated on the first 16 images of the set (``--int8PerChannel``,
+``--int8Margin`` as the server's), then every ConvBN (YOLO) or backbone, BiFPN and
+head conv site (EfficientDet; the head ``predict`` stays float) runs through the
+int8 conv kernels; the result records ``quant`` and, off 1.0, ``int8_margin``.
+
 Usage:
     python -m tmv_tpu_torch.cli.eval_map --family yolo --version v4 \\
         --imagePath imgs/ --labelFile labels.txt --classesFile classes.txt \\
@@ -35,12 +41,6 @@ import argparse
 import json
 
 import numpy as np
-
-_NOT_PORTED = {
-    "--int8Static": (lambda a: a.int8Static, "ROADMAP.md queue 5: int8"),
-    "--int8Margin": (lambda a: a.int8Margin is not None, "ROADMAP.md queue 5: int8"),
-    "--int8PerChannel": (lambda a: a.int8PerChannel, "ROADMAP.md queue 5: int8"),
-}
 
 
 def parse_args(argv=None):
@@ -69,15 +69,15 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--cacheDir", default=None,
                    help="staging cache directory (yolo family only; data/stage_cache.py)")
-    p.add_argument("--int8Static", action="store_true")
-    p.add_argument("--int8Margin", type=float, default=None)
-    p.add_argument("--int8PerChannel", action="store_true")
+    p.add_argument("--int8Static", action="store_true",
+                   help="score the static int8 path: calibrate activation scales on the "
+                        "first 16 images, then predict through the int8 conv kernels")
+    p.add_argument("--int8Margin", type=float, default=1.0,
+                   help="multiplier on the calibrated activation absmax (<1 clips outliers)")
+    p.add_argument("--int8PerChannel", action="store_true",
+                   help="per-input-channel activation scales (folded into the weights)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    refused = [f"{flag} ({where})" for flag, (given, where) in _NOT_PORTED.items()
-               if given(args)]
-    if refused:
-        p.error(f"not yet ported to tmv_tpu_torch: {'; '.join(refused)}")
     if args.family == "yolo" and args.anchorsFile is None:
         p.error("--anchorsFile is required for --family yolo")
     if args.cacheDir and args.family != "yolo":
@@ -122,6 +122,25 @@ def load_weights(args, model):
     return model.to(memory_format=torch.channels_last).eval()
 
 
+def calibrate(args, model, pipeline) -> str:
+    """With ``--int8Static``, calibrate ``model`` on the first 16 images of
+    ``pipeline`` and prepare its int8 sites → the predictors' ``quant``."""
+    if not args.int8Static:
+        return "off"
+    from tmv_tpu_torch.quant.static import calibrate_model, prepare_static_int8
+
+    batches = iter(pipeline)
+    try:
+        calib = [next(batches)["image"]
+                 for _ in range(max(1, (16 + args.batchSize - 1) // args.batchSize))]
+    finally:
+        batches.close()
+    print(f"calibrating int8 scales on {sum(len(c) for c in calib)} images...", flush=True)
+    prepare_static_int8(model, calibrate_model(model, calib), margin=args.int8Margin,
+                        per_channel=args.int8PerChannel)
+    return "int8_static"
+
+
 def load_model(args, classes_num: int, anchors_per_scale: int, device):
     """The YOLO (``--version``) of ``--modelPath`` on ``device`` in eval mode →
     (model, iou_type)."""
@@ -154,7 +173,8 @@ def predict_records(args):
     model, iou_type = load_model(args, classes_num, anchors.shape[1], device)
     predict_b = make_yolo_predict_batched(
         model, image_wh, anchors, classes_num, confidence_thresh=args.confidenceThresh,
-        scores_thresh=args.scoresThresh, iou_thresh=args.iouThresh, iou_type=iou_type)
+        scores_thresh=args.scoresThresh, iou_thresh=args.iouThresh, iou_type=iou_type,
+        quant=calibrate(args, model, pipeline))
 
     n = args.maxImages or pipeline.labels_num
     data = []
@@ -207,7 +227,7 @@ def efficientdet_records(args):
                                     args.batchSize, anchors, num_classes, image_size=size,
                                     augment=False, label_mean=False, with_raw_boxes=True,
                                     device=device)
-    collect = make_efficientdet_pred_gt(model, anchors)
+    collect = make_efficientdet_pred_gt(model, anchors, quant=calibrate(args, model, pipeline))
     n = args.maxImages or pipeline.labels_num
     data = []
     batches = iter(pipeline)
@@ -233,7 +253,9 @@ def main(argv=None):
     args = parse_args(argv)
     result = eval_yolo(args) if args.family == "yolo" else eval_efficientdet(args)
     result.update({"family": args.family, "mode": args.mode, "variant": args.variant,
-                   "quant": "off"})
+                   "quant": "int8_static" if args.int8Static else "off"})
+    if args.int8Static and args.int8Margin != 1.0:
+        result["int8_margin"] = args.int8Margin
     print(json.dumps(result), flush=True)
     return result
 

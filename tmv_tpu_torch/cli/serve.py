@@ -19,6 +19,17 @@ port's module (from a JAX checkpoint: ``tools/export_torch_weights.py`` through
 the flax bridge), loaded by ``core.checkpoint.load_weights``. ``--randomInit --seed
 N`` serves seeded random weights instead, for trying the path without a
 checkpoint. ``--device cuda`` (the default) raises where there is no GPU.
+
+int8 serving (YOLO family only, as the JAX server): ``--int8Static CALIB_DIR``
+calibrates activation scales over the images of ``CALIB_DIR`` (letterboxed, the
+first 32), quantizes the weights once (``--int8PerChannel``: per-input-channel
+activation scales; ``--int8Margin``: a multiplier on the calibrated absmax) and
+serves every ConvBN through the int8 conv kernel; ``--int8`` quantizes dynamically
+at each call (batch 1 only). Usage:
+
+    python -m tmv_tpu_torch.cli.serve --modelPath yolov4.pt --classesFile c.txt \
+        --anchorsFile a.txt --imageSize 640 --bf16 --int8Static calib/ --int8PerChannel \
+        --batch 16
 """
 
 import argparse
@@ -26,10 +37,6 @@ import argparse
 # JAX-only flags, accepted by the parser so that they can be refused by name
 # → the ROADMAP.md item that holds them.
 _NOT_PORTED = {
-    "--int8": (lambda a: a.int8, "ROADMAP.md queue 5: int8"),
-    "--int8Static": (lambda a: a.int8Static is not None, "ROADMAP.md queue 5: int8"),
-    "--int8Margin": (lambda a: a.int8Margin is not None, "ROADMAP.md queue 5: int8"),
-    "--int8PerChannel": (lambda a: a.int8PerChannel, "ROADMAP.md queue 5: int8"),
     "--dp": (lambda a: a.dp is not None, "ROADMAP.md queue 6: multi-GPU training"),
     "--spatial": (lambda a: a.spatial is not None, "ROADMAP.md queue 6: multi-GPU training"),
     "--artifact": (lambda a: a.artifact is not None, "ROADMAP.md queue 6: export"),
@@ -59,10 +66,16 @@ def parse_args(argv=None):
     p.add_argument("--family", default="yolo", choices=["yolo", "efficientdet"])
     p.add_argument("--modelName", default="efficientdet-d0",
                    help="EfficientDet config name (--family efficientdet)")
-    p.add_argument("--int8", action="store_true")
-    p.add_argument("--int8Static", default=None)
-    p.add_argument("--int8Margin", type=float, default=None)
-    p.add_argument("--int8PerChannel", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="dynamic int8 convs (per-call absmax; --batch 1 only)")
+    p.add_argument("--int8Static", metavar="CALIB_DIR", default=None,
+                   help="static-calibration int8: calibrate activation scales over the "
+                        "images in CALIB_DIR, pre-quantize the weights, serve the int8 "
+                        "predictor")
+    p.add_argument("--int8Margin", type=float, default=1.0,
+                   help="multiplier on the calibrated activation absmax (<1 clips outliers)")
+    p.add_argument("--int8PerChannel", action="store_true",
+                   help="per-input-channel activation scales")
     p.add_argument("--dp", type=int, default=None)
     p.add_argument("--spatial", type=int, default=None)
     p.add_argument("--artifact", default=None)
@@ -78,14 +91,45 @@ def parse_args(argv=None):
         p.error("--anchorsFile is required for --family yolo")
     if args.batch < 1:
         p.error("--batch must be >= 1")
+    if args.family == "efficientdet":
+        # JAX refuses --int8 and --int8Static here; the two flags that only tune them
+        # are refused with them rather than ignored
+        bad = [f for f, on in (("--int8", args.int8), ("--int8Static", bool(args.int8Static)),
+                               ("--int8Margin", args.int8Margin != 1.0),
+                               ("--int8PerChannel", args.int8PerChannel)) if on]
+        if bad:
+            p.error(f"{', '.join(bad)} are not supported with --family efficientdet (int8 "
+                    "serving is yolo-family; see PARITY §6 — D0 measured 0.73x)")
+    else:
+        if args.int8 and args.int8Static:
+            p.error("--int8 and --int8Static are mutually exclusive")
+        if args.int8Static and args.version == "v4" and not args.int8PerChannel:
+            # measured on the JAX package's converged 256-image run
+            # (converged_map_v4.json): per-tensor static int8 takes YOLOv4's mAP
+            # from 0.904 to 0.547; outlier Mish activations in the PAN layers
+            # dominate the per-tensor absmax (int8_v4_probe.json)
+            print("WARNING: --int8Static with per-TENSOR scales loses ~0.36 mAP on YOLOv4 "
+                  "(0.904 -> 0.547 measured, converged_map_v4.json). Add --int8PerChannel, "
+                  "or use bf16 for v4.", flush=True)
+        if args.int8 and args.batch > 1:
+            p.error("--int8 (dynamic) is only supported with --batch 1; use --int8Static "
+                    "for batched throughput serving")
     return args
+
+
+def quant_of(args) -> str:
+    """The predictors' ``quant`` mode the int8 flags ask for (``off`` for argument
+    sets without them: ``cli/detect.py``, ``serving/wsgi.py``)."""
+    if getattr(args, "int8Static", None):
+        return "int8_static"
+    return "int8" if getattr(args, "int8", False) else "off"
 
 
 def _build_model(args, classes_num, dtype, thresholds=None):
     """``(model, make_batched, init)`` of the family: the module, a factory of
-    its batched predictor and its seeded init. ``thresholds`` (``confidence``,
-    ``scores``, ``iou``) replace the server's (the JAX server's 0.5, 0.2, 0.5
-    for YOLO; the predictor's own for EfficientDet)."""
+    its batched predictor (``make_batched(quant)``) and its seeded init.
+    ``thresholds`` (``confidence``, ``scores``, ``iou``) replace the server's (the
+    JAX server's 0.5, 0.2, 0.5 for YOLO; the predictor's own for EfficientDet)."""
     if args.family == "efficientdet":
         from tmv_tpu_torch.models.efficientdet.harness import (
             build_efficientdet, make_efficientdet_predict_batched,
@@ -98,7 +142,8 @@ def _build_model(args, classes_num, dtype, thresholds=None):
         kw = ({} if thresholds is None else
               dict(iou_threshold=thresholds["iou"], score_threshold=thresholds["scores"]))
         return (model,
-                lambda: make_efficientdet_predict_batched(model, anchors, args.imageSize, **kw),
+                lambda quant: make_efficientdet_predict_batched(model, anchors, args.imageSize,
+                                                                quant=quant, **kw),
                 init_weights)
 
     from tmv_tpu_torch.data.loaders import load_anchors
@@ -112,7 +157,8 @@ def _build_model(args, classes_num, dtype, thresholds=None):
     t = thresholds or dict(confidence=0.5, scores=0.2, iou=0.5)
     kw = dict(confidence_thresh=t["confidence"], scores_thresh=t["scores"], iou_thresh=t["iou"],
               iou_type=iou_type)
-    return (model, lambda: make_yolo_predict_batched(model, image_wh, anchors, classes_num, **kw),
+    return (model, lambda quant: make_yolo_predict_batched(model, image_wh, anchors, classes_num,
+                                                           quant=quant, **kw),
             init_weights)
 
 
@@ -143,8 +189,19 @@ def build_service(args, thresholds=None):
         if step is not None:
             print(f"checkpoint at step {step}", flush=True)
     model = model.to(device=device, memory_format=torch.channels_last).eval()
+    quant = quant_of(args)
+    if quant == "int8_static":
+        from tmv_tpu_torch.quant.static import calibrate_directory
 
-    batched = make_batched()
+        print(f"calibrating int8 scales from {args.int8Static}...", flush=True)
+        try:
+            calibrate_directory(model, args.int8Static, image_wh, margin=args.int8Margin,
+                                per_channel=args.int8PerChannel)
+        except ValueError as e:
+            raise SystemExit(f"--int8Static: {e}")
+        print("int8 calibration done", flush=True)
+
+    batched = make_batched(quant)
     batcher = None
     # warm before accepting traffic (import-time parity)
     batched(None, np.zeros((args.batch, image_wh[1], image_wh[0], 3), np.float32))
@@ -157,7 +214,7 @@ def build_service(args, thresholds=None):
     else:
         def predict_fn(variables, image):
             return tuple(o[0] for o in batched(variables, image))
-    print(f"predictor warm on {device} ({dtype})", flush=True)
+    print(f"predictor warm on {device} ({dtype}, quant {quant})", flush=True)
     service = DetectionService(predict_fn, None, classes_name, image_wh)
     service.batcher = batcher
     return service, model

@@ -37,6 +37,14 @@ the parameters, so a JAX ``TrainState`` resumes in the port.
 of a ``torch.optim.SGD`` (the step count lives in the train state, the learning
 rate in its schedule).
 
+``quant_from_flax`` maps the JAX ``quant`` collection of static int8 (HWIO
+``kernel_q``, scalar or per-channel ``in_absmax``, ``w_absmax`` per site, at the
+paths of ``tmv_tpu/quant/static.py``) onto the port's non-persistent site buffers
+(``quant/static.py::install_site``), and ``quant_stats_from_flax`` a JAX
+``quant_stats`` calibration tree onto the flat dict the port's
+``calibrate_model`` returns, so that both packages can be prepared from one
+calibration.
+
 ``moco_state_from_flax`` maps a JAX ``MocoState`` (``TrainState.extra`` of the
 MoCo trainer) onto the port's: the key tower's params and ``batch_stats`` into
 the key module, the queue and the pointer as they are.
@@ -260,3 +268,40 @@ def moco_state_from_flax(moco_state, key_model: torch.nn.Module):
         p.requires_grad_(False)
     queue = torch.tensor(np.asarray(moco_state.queue, np.float32), device=device)
     return MocoState(key_model, queue, int(np.asarray(moco_state.queue_ptr)))
+
+
+_QUANT_LEAF = re.compile(r"(in_absmax|kernel_q|w_absmax)(_\w+)?")
+
+
+def quant_stats_from_flax(stats: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A JAX ``quant_stats`` tree (``calibrate_model``'s) → the port's
+    ``{module.path.in_absmax[_conv]: absmax}``; 1-tuples from older flax are
+    unwrapped."""
+    out = {}
+    for path, value in _leaves(stats):
+        if isinstance(value, (tuple, list)):
+            value = value[0]
+        out[".".join(path)] = np.asarray(value, np.float32)
+    return out
+
+
+def quant_from_flax(variables: Mapping[str, Any], model: torch.nn.Module) -> torch.nn.Module:
+    """Install the ``quant`` collection of ``variables`` (from
+    ``prepare_static_int8_variables``) into ``model``'s int8 sites → ``model``."""
+    from tmv_tpu_torch.quant.static import install_site
+
+    sites: Dict[tuple, Dict[str, Any]] = {}
+    for path, value in _leaves(variables["quant"]):
+        *modules, leaf = path
+        found = _QUANT_LEAF.fullmatch(leaf)
+        if not found:
+            raise KeyError(f"quant leaf {'/'.join(path)} has no torch counterpart")
+        suffix = found.group(2) or ""
+        sites.setdefault((".".join(modules), suffix), {})[found.group(1)] = np.asarray(value)
+    for (module_path, suffix), leaves in sites.items():
+        if set(leaves) != {"in_absmax", "kernel_q", "w_absmax"}:
+            raise KeyError(f"quant site {module_path}{suffix} lacks "
+                           f"{sorted({'in_absmax', 'kernel_q', 'w_absmax'} - set(leaves))}")
+        install_site(model.get_submodule(module_path), suffix, leaves["in_absmax"],
+                     leaves["kernel_q"], leaves["w_absmax"])
+    return model

@@ -1,0 +1,278 @@
+"""int8 × int8 → int32 convolutions with quantise-on-load: the CUDA kernels, their
+wrappers and their plain versions.
+
+Replaces XLA's int8 ``conv_general_dilated(..., preferred_element_type=int32)`` of
+``tmv_tpu/quant/static.py::static_int8_conv`` (``:212``) and
+``tmv_tpu/quant/dynamic.py::dynamic_int8_conv`` (``:85``); the JAX package has no
+Pallas kernel there, and PyTorch has no int8 convolution on CUDA. The source is
+``tmv_tpu_torch/csrc/int8_conv.cu``, whose header says what bounds each kernel on the
+H100 and what its design does about it. For an output pixel and channel ``o``::
+
+    xq  = clip(rint(x · (127 / a)), −127, 127)          (a: per-tensor or per-channel)
+    acc = Σ_taps Σ_c xq · kernel_q                     (int32, exact)
+    out = float(acc) · deq[o] + offset[o]              (float32, NHWC)
+
+``out_dtype=torch.bfloat16`` rounds the float32 result to bfloat16 in the kernel's
+epilogue: the cast a bf16 model applies next, fused (the same numbers, half the
+bytes written and one pass fewer).
+
+- ``int8_conv`` (groups 1, the Darknet ConvBNs and D0's dense sites) and
+  ``int8_dwconv`` (groups = C, D0's depthwise sites) are the wrappers the port calls.
+  Each checks its inputs on every device, then a CUDA tensor launches the kernel or
+  raises, and a CPU tensor runs the plain version. There is no other route and no
+  switch. ``return_acc=True`` returns the int32 accumulator instead (a test entry).
+- ``int8_conv_reference`` and ``int8_dwconv_reference`` are the plain versions: the
+  same ``xq``, exact integer sums through a float64 ``F.conv2d`` of the int8 values
+  (|acc| < 2⁵³), then the same float32 epilogue (multiply, then add).
+- ``LIBRARY`` builds the source with ``nvcc`` at first use (``kernels/build.py``).
+- ``launches`` counts each kernel's launches, by name.
+- ``kernel_info`` reports what an ``int8_conv`` instantiation uses on the card.
+
+Layouts: activations are channels_last ``(B, C, H, W)`` tensors, float32 or bfloat16.
+``kernel_q`` is int8, for ``int8_conv`` ``(Cout, Kpad)``: row ``o`` holds the weights
+in ``(dy, dx, c)`` order (``K = kh·kw·Cin``) padded with zeros to a multiple of 64
+(``pack_dense``); for ``int8_dwconv`` ``(k·k, C)`` (``pack_depthwise``). ``in_absmax``
+is a 0-d float32 tensor or a ``(Cin,)`` vector; ``deq`` and ``offset`` are ``(Cout,)``
+float32 (``offset`` may be None). ``pads`` are ``(top, left, bottom, right)`` zero pads.
+"""
+
+import ctypes
+import threading
+from pathlib import Path
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from tmv_tpu_torch.kernels.build import SM90A_FLAGS, KernelLibrary
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "int8_conv.cu"
+K_TILE = 64
+
+
+def _bind(lib: ctypes.CDLL):
+    ptr, cint = ctypes.c_void_p, ctypes.c_int
+    lib.tmv_int8_conv.restype = cint
+    lib.tmv_int8_conv.argtypes = ([ptr, ptr, cint, ptr, cint, cint] + [ptr] * 4
+                                  + [cint] * 15 + [ptr])
+    lib.tmv_int8_dwconv.restype = cint
+    lib.tmv_int8_dwconv.argtypes = [ptr, ptr, cint] + [ptr] * 5 + [cint] * 13 + [ptr]
+    lib.tmv_int8_conv_info.restype = cint
+    lib.tmv_int8_conv_info.argtypes = [cint] * 3 + [ctypes.POINTER(cint)]
+
+
+LIBRARY = KernelLibrary(SOURCE, SM90A_FLAGS, _bind)
+launches = {"int8_conv": 0, "int8_dwconv": 0}
+_lock = threading.Lock()
+
+
+def pack_dense(kernel_q_hwio: torch.Tensor) -> torch.Tensor:
+    """HWIO int8 ``(kh, kw, Cin, Cout)`` → the kernel's ``(Cout, Kpad)``."""
+    kh, kw, cin, cout = kernel_q_hwio.shape
+    k = kh * kw * cin
+    rows = kernel_q_hwio.permute(3, 0, 1, 2).reshape(cout, k)
+    return F.pad(rows, (0, -(-k // K_TILE) * K_TILE - k)).contiguous()
+
+
+def unpack_dense(packed: torch.Tensor, kh: int, kw: int, cin: int) -> torch.Tensor:
+    """The kernel's ``(Cout, Kpad)`` → HWIO ``(kh, kw, Cin, Cout)``."""
+    return packed[:, :kh * kw * cin].reshape(-1, kh, kw, cin).permute(1, 2, 3, 0)
+
+
+def pack_depthwise(kernel_q_hwio: torch.Tensor) -> torch.Tensor:
+    """HWIO int8 ``(k, k, 1, C)`` → the kernel's ``(k·k, C)``."""
+    k1, k2, one, c = kernel_q_hwio.shape
+    assert one == 1, kernel_q_hwio.shape
+    return kernel_q_hwio.reshape(k1 * k2, c).contiguous()
+
+
+def true_div(num, den) -> torch.Tensor:
+    """Elementwise IEEE division where one side may be a Python number. PyTorch's
+    ``number / tensor`` is ``tensor.reciprocal() * number``, and its CUDA division by
+    a scalar multiplies by the scalar's reciprocal; either can differ from XLA's
+    division by an ulp, which flips a rounding now and then. A full tensor on each
+    side keeps the division a division."""
+    like = num if torch.is_tensor(num) else den
+    num = num if torch.is_tensor(num) else torch.full_like(like, num)
+    den = den if torch.is_tensor(den) else torch.full_like(like, den)
+    return num / den
+
+
+def quantize_reference(x: torch.Tensor, in_absmax: torch.Tensor) -> torch.Tensor:
+    """``clip(rint(x · (127 / a)), −127, 127)`` as int8, ``a`` per tensor or per channel."""
+    scale = true_div(127.0, in_absmax.float())
+    if scale.dim():
+        scale = scale.view(1, -1, 1, 1)
+    return torch.clamp(torch.round(x.float() * scale), -127, 127).to(torch.int8)
+
+
+def _epilogue(acc: torch.Tensor, deq: torch.Tensor, offset: Optional[torch.Tensor],
+              out_dtype: torch.dtype):
+    y = acc.float() * deq.view(1, -1, 1, 1)
+    if offset is not None:
+        y = y + offset.view(1, -1, 1, 1)
+    return y.to(out_dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _reference(x, kernel_oihw, in_absmax, deq, offset, stride, pads, groups, return_acc,
+               out_dtype):
+    top, left, bottom, right = pads
+    xq = F.pad(quantize_reference(x, in_absmax).double(), (left, right, top, bottom))
+    acc = F.conv2d(xq, kernel_oihw.double(), stride=stride, groups=groups).to(torch.int32)
+    if return_acc:
+        return acc.contiguous(memory_format=torch.channels_last)
+    return _epilogue(acc, deq, offset, out_dtype)
+
+
+def int8_conv_reference(x, kernel_q, in_absmax, deq, offset, kernel_size: Tuple[int, int],
+                        stride: int = 1, pads: Sequence[int] = (0, 0, 0, 0),
+                        return_acc: bool = False,
+                        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of ``int8_conv``."""
+    kh, kw = kernel_size
+    weight = unpack_dense(kernel_q, kh, kw, x.shape[1]).permute(3, 2, 0, 1)
+    return _reference(x, weight, in_absmax, deq, offset, stride, pads, 1, return_acc, out_dtype)
+
+
+def int8_dwconv_reference(x, kernel_q, in_absmax, deq, offset, k: int, stride: int = 1,
+                          pads: Sequence[int] = (0, 0, 0, 0), return_acc: bool = False,
+                          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of ``int8_dwconv``."""
+    c = x.shape[1]
+    weight = kernel_q.t().reshape(c, 1, k, k)
+    return _reference(x, weight, in_absmax, deq, offset, stride, pads, c, return_acc, out_dtype)
+
+
+def _out_size(size: int, k: int, stride: int, before: int, after: int) -> int:
+    return (size + before + after - k) // stride + 1
+
+
+def _check(name, x, kernel_q, kq_shape, in_absmax, deq, offset, cout, stride, pads, out_dtype):
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: x must be a 4-d float32 or bfloat16 tensor, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"{name}: x must be channels_last-contiguous (B, C, H, W)")
+    if (kernel_q.dtype != torch.int8 or tuple(kernel_q.shape) != kq_shape
+            or not kernel_q.is_contiguous()):
+        raise ValueError(f"{name}: kernel_q must be contiguous int8 {kq_shape}, "
+                         f"got {tuple(kernel_q.shape)} {kernel_q.dtype}")
+    cin = x.shape[1]
+    if in_absmax.dtype != torch.float32 or tuple(in_absmax.shape) not in ((), (cin,)):
+        raise ValueError(f"{name}: in_absmax must be float32 () or ({cin},), got "
+                         f"{tuple(in_absmax.shape)} {in_absmax.dtype}")
+    for what, t in (("deq", deq), ("offset", offset)):
+        if t is None and what == "offset":
+            continue
+        if t.dtype != torch.float32 or tuple(t.shape) != (cout,) or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous float32 ({cout},), got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    for what, t in (("kernel_q", kernel_q), ("in_absmax", in_absmax), ("deq", deq),
+                    ("offset", offset)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name}: {what} is on {t.device}, x on {x.device}")
+    if stride < 1 or len(pads) != 4 or min(pads) < 0:
+        raise ValueError(f"{name}: stride {stride}, pads {pads}")
+
+
+def _count(name: str):
+    with _lock:
+        launches[name] += 1
+
+
+def _stream_call(x, fn):
+    if x.device.type != "cuda":
+        raise ValueError(f"no int8 kernel for device {x.device}")
+    lib = LIBRARY.load()
+    with torch.cuda.device(x.device):
+        return lib, fn(lib, torch.cuda.current_stream().cuda_stream)
+
+
+def int8_conv(x: torch.Tensor, kernel_q: torch.Tensor, in_absmax: torch.Tensor,
+              deq: torch.Tensor, offset: Optional[torch.Tensor], kernel_size: Tuple[int, int],
+              stride: int = 1, pads: Sequence[int] = (0, 0, 0, 0),
+              return_acc: bool = False, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Dense int8 conv (groups 1) → ``out_dtype`` channels_last ``(B, Cout, Ho, Wo)``
+    (or its int32 accumulator); the CUDA kernel for CUDA tensors. Does not
+    synchronise."""
+    kh, kw = kernel_size
+    b, cin, h, w = x.shape
+    cout = kernel_q.shape[0]
+    k = kh * kw * cin
+    kpad = -(-k // K_TILE) * K_TILE
+    _check("int8_conv", x, kernel_q, (cout, kpad), in_absmax, deq, offset, cout, stride, pads,
+           out_dtype)
+    if x.device.type == "cpu":
+        return int8_conv_reference(x, kernel_q, in_absmax, deq, offset, kernel_size, stride,
+                                   pads, return_acc, out_dtype)
+    top, left, bottom, right = pads
+    h_out, w_out = _out_size(h, kh, stride, top, bottom), _out_size(w, kw, stride, left, right)
+    out = torch.empty((b, cout, h_out, w_out), dtype=torch.int32 if return_acc else out_dtype,
+                      device=x.device, memory_format=torch.channels_last)
+    if out.numel() == 0:
+        return out
+    vec = cin % 8 == 0 and x.data_ptr() % (8 * x.element_size()) == 0
+    if kernel_q.data_ptr() % 16:
+        raise ValueError("int8_conv: kernel_q must be 16-byte aligned")
+
+    def launch(lib, stream):
+        return lib.tmv_int8_conv(
+            x.data_ptr(), in_absmax.data_ptr(), int(in_absmax.dim() == 1), kernel_q.data_ptr(),
+            k, kpad, deq.data_ptr(), None if offset is None else offset.data_ptr(),
+            None if return_acc else out.data_ptr(), out.data_ptr() if return_acc else None,
+            b, h, w, cin, cout, kh, kw, stride, top, left, h_out, w_out,
+            int(x.dtype == torch.bfloat16), int(vec), int(out_dtype == torch.bfloat16), stream)
+
+    _, err = _stream_call(x, launch)
+    LIBRARY.check(err, "tmv_int8_conv")
+    _count("int8_conv")
+    return out
+
+
+def int8_dwconv(x: torch.Tensor, kernel_q: torch.Tensor, in_absmax: torch.Tensor,
+                deq: torch.Tensor, offset: Optional[torch.Tensor], k: int, stride: int = 1,
+                pads: Sequence[int] = (0, 0, 0, 0), return_acc: bool = False,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Depthwise int8 conv (groups = C) → ``out_dtype`` channels_last ``(B, C, Ho,
+    Wo)`` (or its int32 accumulator); the CUDA kernel for CUDA tensors. Does not
+    synchronise."""
+    b, c, h, w = x.shape
+    _check("int8_dwconv", x, kernel_q, (k * k, c), in_absmax, deq, offset, c, stride, pads,
+           out_dtype)
+    if x.device.type == "cpu":
+        return int8_dwconv_reference(x, kernel_q, in_absmax, deq, offset, k, stride, pads,
+                                     return_acc, out_dtype)
+    top, left, bottom, right = pads
+    h_out, w_out = _out_size(h, k, stride, top, bottom), _out_size(w, k, stride, left, right)
+    out = torch.empty((b, c, h_out, w_out), dtype=torch.int32 if return_acc else out_dtype,
+                      device=x.device, memory_format=torch.channels_last)
+    if out.numel() == 0:
+        return out
+    vec = c % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0 and kernel_q.data_ptr() % 4 == 0
+
+    def launch(lib, stream):
+        return lib.tmv_int8_dwconv(
+            x.data_ptr(), in_absmax.data_ptr(), int(in_absmax.dim() == 1), kernel_q.data_ptr(),
+            deq.data_ptr(), None if offset is None else offset.data_ptr(),
+            None if return_acc else out.data_ptr(), out.data_ptr() if return_acc else None,
+            b, h, w, c, k, stride, top, left, h_out, w_out, int(x.dtype == torch.bfloat16),
+            int(vec), int(out_dtype == torch.bfloat16), stream)
+
+    _, err = _stream_call(x, launch)
+    LIBRARY.check(err, "tmv_int8_dwconv")
+    _count("int8_dwconv")
+    return out
+
+
+def kernel_info(block_n: int, dtype: torch.dtype, vec: bool) -> dict:
+    """What the ``int8_conv`` instantiation for a ``block_n``-wide tile (64 or 128),
+    ``dtype`` activations and the 8-channel load (``vec``) uses on the current card:
+    registers per thread, shared memory per block (the two stages, bytes), spilled
+    bytes per thread and threads per block."""
+    lib = LIBRARY.load()
+    out = (ctypes.c_int * 4)()
+    LIBRARY.check(lib.tmv_int8_conv_info(block_n, int(dtype == torch.bfloat16), int(vec), out),
+                  "tmv_int8_conv_info")
+    return dict(zip(("registers", "smem_bytes", "spill_bytes", "threads"), out))

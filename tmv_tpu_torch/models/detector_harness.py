@@ -13,6 +13,9 @@ batched form replaces ``jax.vmap`` with a batch axis and one NMS launch.
 A predictor keeps the JAX package's signature ``predict(variables, images)`` so
 that ``DetectionService`` and ``MicroBatcher`` drive it unchanged; the weights
 live in the module it was made with, and ``variables`` is not read (pass None).
+``quant`` (``"int8"``, dynamic; ``"int8_static"``, on a model prepared by
+``quant.static.prepare_static_int8``) runs the forward in ``quant.quantized(quant)``,
+entered in the thread that calls the predictor.
 """
 
 import contextlib
@@ -23,6 +26,7 @@ import torch
 
 from tmv_tpu_torch.ops.map_eval import get_map_one
 from tmv_tpu_torch.ops.yolo import nms_boxes_batched, yolo_loss
+from tmv_tpu_torch.quant.dynamic import quantized
 
 
 def check_device(device) -> torch.device:
@@ -86,7 +90,7 @@ def images_to_device(images, model: torch.nn.Module) -> torch.Tensor:
 def make_yolo_predict_batched(model, image_wh: Tuple[int, int], anchors_wh, classes_num: int,
                               confidence_thresh: float = 0.5, scores_thresh: float = 0.3,
                               iou_thresh: float = 0.5, iou_type: str = "iou",
-                              max_output_size: int = 500):
+                              max_output_size: int = 500, quant: str = "off"):
     """Batched predictor: ``(variables, (B, H, W, 3) float images)`` → per-image
     padded (boxes, classes_id, scores, valid) numpy arrays with a leading batch
     axis. Boxes are normalized xyxy."""
@@ -94,7 +98,8 @@ def make_yolo_predict_batched(model, image_wh: Tuple[int, int], anchors_wh, clas
 
     def predict(_variables, images):
         with torch.inference_mode():
-            heads = model(images_to_device(images, model))
+            with quantized(quant):
+                heads = model(images_to_device(images, model))
             boxes, ids, scores, _classes, _conf, valid = nms_boxes_batched(
                 heads, anchors, image_wh, classes_num,
                 confidence_thresh=confidence_thresh, scores_thresh=scores_thresh,

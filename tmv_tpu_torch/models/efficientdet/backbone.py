@@ -23,6 +23,15 @@ that ``convert.flax_bridge`` maps a flax tree onto them by path.
   their running statistics as flax does (biased batch variance).
 - ``remat=True`` runs each MBConv block under ``layers.common.remat_call`` in
   train mode, as the JAX package wraps ``MBConvBlock`` in ``nn.remat``.
+- In eval mode under ``quant.quantized("int8_static")`` the stem (3×3/s2, TF-SAME),
+  the expand and project 1×1s and the depthwise k×k run as the static int8 sites
+  that ``prepare_static_int8`` baked (``Conv_i`` with ``BatchNorm_i`` folded in; the
+  depthwise through ``kernels.int8_conv.int8_dwconv``), each result cast to the
+  input's type in the kernel's epilogue; under ``"calib"`` each site records its
+  input's range. In every quant mode the float depthwise runs on stock torch ops,
+  as the JAX package falls through to its stock path there, so no quantized or
+  calibrating forward launches the fused float kernel. The dynamic ``"int8"`` mode
+  leaves the backbone in float, as in the JAX package.
 """
 
 from typing import List, Sequence
@@ -40,6 +49,8 @@ from tmv_tpu_torch.models.layers.common import (
     BatchNorm, conv2d_same, conv_as_input, remat_call,
 )
 from tmv_tpu_torch.ops.activations import swish
+from tmv_tpu_torch.quant.dynamic import quant_mode
+from tmv_tpu_torch.quant.static import record, static_conv_site
 
 
 def batch_norm(features: int, momentum: float, epsilon: float, device=None) -> BatchNorm:
@@ -75,6 +86,11 @@ class Stem(nn.Module):
         self.BatchNorm_0 = batch_norm(filters, bn_momentum, bn_epsilon, device)
 
     def forward(self, x):
+        mode = quant_mode()
+        if mode == "int8_static" and not self.training:
+            return swish(static_conv_site(self, "_Conv_0", x, (3, 3), 2, out_dtype=x.dtype))
+        if mode == "calib":
+            record(self, "in_absmax_Conv_0", x)
         return swish(self.BatchNorm_0(conv2d_same(x, self.Conv_0.weight.to(x.dtype), None, 2)))
 
 
@@ -107,19 +123,39 @@ class MBConvBlock(nn.Module):
 
     def forward(self, x):
         ci = self.dw_index
+        mode = quant_mode()
+        static, calib = mode == "int8_static" and not self.training, mode == "calib"
+        dtype = x.dtype
         if self.expand:
-            x = swish(self.BatchNorm_0(conv_as_input(self.Conv_0, x)))
+            if static:
+                x = swish(static_conv_site(self, "_Conv_0", x, (1, 1), out_dtype=dtype))
+            else:
+                if calib:
+                    record(self, "in_absmax_Conv_0", x)
+                x = swish(self.BatchNorm_0(conv_as_input(self.Conv_0, x)))
         conv, bn = getattr(self, f"Conv_{ci}"), getattr(self, f"BatchNorm_{ci}")
-        if self.training:
+        k = conv.kernel_size[0]
+        if static:
+            x = swish(static_conv_site(self, f"_Conv_{ci}", x, (k, k), self.stride,
+                                       out_dtype=dtype))
+        elif self.training or mode != "off":
+            # the stock path, as in JAX: in calibration (and dynamic int8, which
+            # leaves the backbone float) the fused kernel is not launched
+            if calib:
+                record(self, f"in_absmax_Conv_{ci}", x)
             x = conv2d_same(x, conv.weight.to(x.dtype), None, self.stride, groups=conv.groups)
             x = swish(bn(x))
         else:
-            k, c = conv.kernel_size[0], conv.out_channels
+            c = conv.out_channels
             scale = bn.weight / torch.sqrt(bn.running_var + bn.eps)
             offset = bn.bias - bn.running_mean * scale
             taps = conv.weight.view(c, k * k).t().contiguous().view(k, k, c)
             x = fused_dw_bn_swish(x, taps, scale, offset, self.stride)
         x = self.SE_0(x)
+        if static:
+            return static_conv_site(self, f"_Conv_{ci + 1}", x, (1, 1), out_dtype=dtype)
+        if calib:
+            record(self, f"in_absmax_Conv_{ci + 1}", x)
         return getattr(self, f"BatchNorm_{ci + 1}")(
             conv_as_input(getattr(self, f"Conv_{ci + 1}"), x))
 

@@ -7,6 +7,11 @@ carry the flax names (``ResampleFeatureMap_i/{conv2d,bn}``,
 
 - ``SeparableConv``: depthwise 3×3 then 1×1 with bias, on stock torch convs
   (these depthwise convs were outside any Pallas kernel in the JAX package too).
+  In eval mode under ``quant.quantized("int8_static")`` both run as the static int8
+  sites ``depthwise`` and ``pointwise`` (``kernels.int8_conv``; the depthwise's
+  float32 output goes into the pointwise uncast, then one cast to the input's
+  type); ``quantize=False`` pins a SeparableConv to float (the head ``predict``).
+  Under ``"calib"`` both sites record their inputs' ranges.
 - ``ResampleFeatureMap``: 1×1 conv + BatchNorm iff the channels differ, then a
   3×3 stride-2 SAME max-pool if taller than the target (padded explicitly with
   -inf, asymmetrically where SAME says so) or a nearest resize if shorter.
@@ -30,6 +35,8 @@ import torch.nn.functional as F
 from tmv_tpu_torch.models.efficientdet.backbone import batch_norm
 from tmv_tpu_torch.models.layers.common import conv2d_same, conv_as_input, max_pool_same
 from tmv_tpu_torch.ops.activations import swish
+from tmv_tpu_torch.quant.dynamic import quant_mode
+from tmv_tpu_torch.quant.static import record, static_conv_site
 
 WEIGHT_METHODS = ("fastattn", "sum", "attn", "channel_attn", "channel_fastattn")
 
@@ -38,16 +45,25 @@ class SeparableConv(nn.Module):
     """SeparableConv2D(depth_multiplier=1): depthwise k×k then 1×1."""
 
     def __init__(self, in_features: int, filters: int, kernel_size: int = 3,
-                 use_bias: bool = True, dtype=torch.float32, device=None):
+                 use_bias: bool = True, dtype=torch.float32, device=None, quantize: bool = True):
         super().__init__()
+        self.quantize = quantize
         kw = dict(dtype=dtype, device=device)
         self.depthwise = nn.Conv2d(in_features, in_features, kernel_size, groups=in_features,
                                    bias=False, **kw)
         self.pointwise = nn.Conv2d(in_features, filters, 1, bias=use_bias, **kw)
 
     def forward(self, x):
+        mode = quant_mode() if self.quantize else "off"
+        if mode == "int8_static" and not self.training:
+            y = static_conv_site(self, "_depthwise", x, self.depthwise.kernel_size)
+            return static_conv_site(self, "_pointwise", y, (1, 1), out_dtype=x.dtype)
+        if mode == "calib":
+            record(self, "in_absmax_depthwise", x)
         x = conv2d_same(x, self.depthwise.weight.to(x.dtype), None, 1,
                         groups=self.depthwise.groups)
+        if mode == "calib":
+            record(self, "in_absmax_pointwise", x)
         return conv_as_input(self.pointwise, x)
 
 

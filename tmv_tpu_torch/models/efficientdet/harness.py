@@ -13,6 +13,8 @@ boxes as **normalized xyxy** (the yxyx letterbox pixels divided by
 background id 0 removed by the shift of −1), padded to 200. The heads are
 decoded in float32. The batched form replaces ``jax.vmap`` with one NMS launch
 per batch. ``variables`` is not read (pass None): the weights live in the module.
+``quant="int8_static"`` runs the forward in ``quant.quantized("int8_static")`` on a
+model prepared by ``quant.static.prepare_static_int8``.
 """
 
 import numpy as np
@@ -23,6 +25,7 @@ from tmv_tpu_torch.models.efficientdet.config import get_efficientdet_config
 from tmv_tpu_torch.models.efficientdet.net import EfficientDetNet
 from tmv_tpu_torch.ops.anchors import Anchors
 from tmv_tpu_torch.ops.map_eval import get_map_one
+from tmv_tpu_torch.quant.dynamic import quantized
 
 
 def efficientdet_config(model_name: str, num_classes: int, image_size: int):
@@ -57,14 +60,15 @@ def make_efficientdet_predict_batched(model, anchors: Anchors, image_size: int,
                                       max_output_size: int = 200,
                                       iou_threshold: float = 0.5,
                                       score_threshold: float = 0.0001,
-                                      iou_type: str = "diou"):
+                                      iou_type: str = "diou", quant: str = "off"):
     """Batched predictor: ``(variables, (B, H, W, 3) float images)`` → per-image
     padded (boxes, classes_id, scores, valid) numpy arrays with a leading batch
     axis."""
 
     def predict(_variables, images):
         with torch.inference_mode():
-            boxes_out, classes_out = model(images_to_device(images, model))
+            with quantized(quant):
+                boxes_out, classes_out = model(images_to_device(images, model))
             decoded = anchors.convert_outputs_boxes([b.float() for b in boxes_out])
             boxes, ids, scores, valid = anchors.convert_outputs_one(
                 decoded, [c.float() for c in classes_out], max_output_size=max_output_size,
@@ -89,7 +93,7 @@ def make_efficientdet_predict(model, anchors: Anchors, image_size: int, **kwargs
     return predict
 
 
-def make_efficientdet_pred_gt(model, anchors: Anchors):
+def make_efficientdet_pred_gt(model, anchors: Anchors, quant: str = "off"):
     """``collect(batch) -> [(pred, gt), ...]`` per image of ``batch``, the model
     in eval mode: ``pred`` rows ``[y1, x1, y2, x2, class_id, score]`` after decode,
     background filter and DIoU-NMS; ``gt`` rows ``[y1, x1, y2, x2, class_id]``
@@ -97,7 +101,8 @@ def make_efficientdet_pred_gt(model, anchors: Anchors):
 
     def collect(batch):
         with torch.inference_mode():
-            boxes_out, classes_out = model(images_to_device(batch["image"], model))
+            with quantized(quant):
+                boxes_out, classes_out = model(images_to_device(batch["image"], model))
             decoded = anchors.convert_outputs_boxes([b.float() for b in boxes_out])
             outs = anchors.convert_outputs_one(decoded, [c.float() for c in classes_out])
             boxes, ids, scores, valid = (t.cpu().numpy() for t in outs)
@@ -114,10 +119,10 @@ def make_efficientdet_pred_gt(model, anchors: Anchors):
     return collect
 
 
-def make_efficientdet_eval(model, anchors: Anchors):
+def make_efficientdet_eval(model, anchors: Anchors, quant: str = "off"):
     """``eval_step(batch) -> {"mAP"}``: the per-image mAP at IoU 0.5 over
     ``model.config.num_classes`` (background included), averaged over the batch."""
-    collect = make_efficientdet_pred_gt(model, anchors)
+    collect = make_efficientdet_pred_gt(model, anchors, quant=quant)
 
     def eval_step(batch):
         maps = [get_map_one(gt.tolist(), pred.tolist(), model.config.num_classes, 0.5)

@@ -47,8 +47,9 @@ class PredictionNet(nn.Module):
         for i in range(repeats):
             self.add_module(f"conv_{i}", SeparableConv(num_filters, num_filters, 3, True,
                                                        dtype, device))
+        # the final logits stay float on the int8 path
         self.predict = SeparableConv(num_filters, out_per_anchor * num_anchors, 3, True,
-                                     dtype, device)
+                                     dtype, device, quantize=False)
         for i in range(repeats):
             for level in range(num_levels):
                 self.add_module(f"bn_{i}_level_{level}",

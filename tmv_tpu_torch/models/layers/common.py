@@ -1,7 +1,6 @@
 """Shared conv building blocks (NCHW inside, ``channels_last`` memory).
 
-Port of ``tmv_tpu/models/layers/common.py`` in float only (its int8 and
-calibration branches are not ported). Submodules carry the flax auto-names
+Port of ``tmv_tpu/models/layers/common.py``. Submodules carry the flax auto-names
 (``DarknetConv_0/Conv_0``, ``BatchNorm_0``) so that ``convert.flax_bridge`` maps
 a flax tree onto them by path.
 
@@ -21,6 +20,12 @@ a flax tree onto them by path.
   backward recomputes the stage's interior instead of storing it. The
   recompute neither updates the BatchNorm statistics a second time nor draws
   other numbers from the explicit generators the stage draws from.
+- ``ConvBN`` in eval mode under ``quant.quantized("int8")`` runs its conv as a
+  dynamic-int8 conv, under ``"int8_static"`` as the site ``prepare_static_int8``
+  baked, both with the BN affine folded into the dequant (the stride-2 conv keeps
+  the top-left pad and VALID); the float32 result is cast to the input's type (in
+  the kernel's epilogue), then activated. Under ``"calib"`` it records its input's
+  range. Train mode ignores the mode.
 """
 
 import contextlib
@@ -34,6 +39,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from tmv_tpu_torch.ops.activations import leaky_relu, mish, swish
+from tmv_tpu_torch.quant.dynamic import dynamic_int8_conv, quant_mode
+from tmv_tpu_torch.quant.static import bn_affine, record, static_conv_site
 
 ACTIVATIONS: Dict[str, Callable] = {"leaky": leaky_relu, "mish": mish, "swish": swish,
                                     "linear": lambda x: x}
@@ -191,6 +198,21 @@ class ConvBN(nn.Module):
                                      device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mode = quant_mode()
+        if mode in ("int8", "int8_static") and not self.training:
+            conv = self.DarknetConv_0
+            # Darknet downsampling: top-left zero pad + VALID
+            pads = (1, 1, 0, 0) if conv.strides == (2, 2) else "SAME"
+            # the float32 result cast to x's type in the kernel's epilogue
+            if mode == "int8_static":
+                y = static_conv_site(self, "", x, conv.kernel_size, conv.strides[0], pads,
+                                     out_dtype=x.dtype)
+            else:
+                y = dynamic_int8_conv(x, conv.Conv_0.weight, conv.strides[0], pads,
+                                      *bn_affine(self.BatchNorm_0), out_dtype=x.dtype)
+            return self.act(y)
+        if mode == "calib":
+            record(self, "in_absmax", x)
         return self.act(self.BatchNorm_0(self.DarknetConv_0(x)))
 
 
