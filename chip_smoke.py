@@ -20,9 +20,10 @@ Phases, each printing its own lines:
 1. environment: torch/CUDA/nvcc versions and the card (nvidia-smi);
 2. build: the three kernel sources at once (one nvcc each, started together),
    with each build's time, registers per thread and shared memory per block of
-   every instantiation (ptxas for the NMS stages and the int8 depthwise, the CUDA
-   runtime for the float depthwise kernel, with its spills and resident blocks per
-   SM, and for the int8 conv, with its spills);
+   every instantiation (ptxas for the NMS stages, the CUDA runtime for the float
+   depthwise kernel and for the int8 kernels, the quantize pass, the GEMM at each
+   tile width and the depthwise kernel at each k and stride, with their spills,
+   none allowed, and resident blocks per SM);
 3. the NMS sweep kernel (a mask kernel and a scan kernel) against its plain
    version (``greedy_sweep_reference``): kept masks exactly equal over N in
    {1, 127, 128, 1000, 1024, 3000}, B in {1, 16}, iou/diou, xyxy/yxyx, with and
@@ -188,17 +189,21 @@ Phases, each printing its own lines:
     CUDA events against the same model in bf16, and the share of bf16's kept boxes
     that int8 keeps (printed, not gated); every distinct ``int8_conv`` /
     ``int8_dwconv`` call of a YOLOv4 b1 per-channel forward and of a D0 @512 b1
-    per-tensor forward, again in f32 per-tensor, and edge cases (Cin = 3, ragged
-    Cout and K, odd H and W at stride 2, H = W = 1; f32 and bf16, per-tensor and
-    per-channel) against the plain versions: int32 accumulators identical,
-    outputs within 1e-6·max|plain|; ``cli/eval_map.py --int8Static
+    per-tensor forward, again in f32 per-tensor, and edge cases (Cin = 3, Cout 32,
+    64 and 255, ragged Cout, K and M tiles, odd H and W at stride 2, H = W = 1, k = 5
+    depthwise at both strides; f32 and bf16, per-tensor and per-channel) against the
+    plain versions: int32 accumulators identical, outputs within 1e-6·max|plain|;
+    ``int8_conv``'s quantize pass alone over the b1 and b16 forwards' calls (device
+    ms, and the host's cost of one launch); ``cli/eval_map.py --int8Static
     --int8PerChannel`` on phase 11's checkpoint and ``--family efficientdet
     --int8Static`` on phase 13's (``int8_dwconv`` launched, ``dwconv_bn_swish``
     not); the kernels' times summed over one YOLOv4 b16 forward (107
     ``int8_conv``) and one D0 b64 forward (70 ``int8_dwconv``) beside their plain
     versions, the library route (quantize + int8 im2col + ``torch._int_mm`` +
     dequant; cuDNN's f32 grouped conv of the int8 values for the depthwise),
-    cuDNN's bf16 convs of the same shapes and the bound.
+    cuDNN's bf16 convs of the same shapes and the bound, and the slowest five
+    ``int8_conv`` launches beside cuDNN's bf16. An ``int8_conv`` call is two launches
+    on the card (the quantize pass and the GEMM), counted once.
 
 The serving weights are seeded (``--randomInit --seed 0`` of each family), adjusted so
 that NMS has real work: YOLOv4's three output convs' box rows are scaled by
@@ -529,20 +534,20 @@ def phase_build(card):
                 if k == 5:
                     max_k5 = max(max_k5, info["registers"])
     check(max_k5 <= 128, f"a k = 5 depthwise instantiation uses {max_k5} registers")
-    for block_n in (64, 128):
-        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            for vec in (True, False):
-                info = int8_conv.kernel_info(block_n, dtype, vec)
-                print(f"phase 2 build: int8_conv {name} BN={block_n} "
-                      f"{'8-channel loads' if vec else 'element loads'}: {info['registers']} "
-                      f"registers per thread, {info['smem_bytes']} bytes shared memory per "
-                      f"block (two stages), {info['spill_bytes']} bytes spilled, "
-                      f"{info['threads']} threads on [{card}]", flush=True)
-                check(info["spill_bytes"] == 0, f"int8_conv {name} BN={block_n} spills")
-    for kernel, args, regs, smem in ptxas_entries(int8_conv.LIBRARY.log):
-        if kernel.endswith("dwconv_kernel"):
-            print(f"phase 2 build: int8_dwconv ({args[0]} channels a thread): {regs} registers "
-                  f"per thread (ptxas) on [{card}]", flush=True)
+    int8_infos = [(f"int8_conv GEMM BN={block_n}", int8_conv.kernel_info("gemm", block_n=block_n))
+                  for block_n in int8_conv.BLOCK_NS]
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        int8_infos.append((f"int8_conv quantize {name}",
+                           int8_conv.kernel_info("quantize", dtype=dtype)))
+        for k, stride in sorted(int8_conv.DW_ROUTES):
+            int8_infos.append((f"int8_dwconv {name} k={k} s={stride}",
+                               int8_conv.kernel_info("dwconv", dtype=dtype, k=k, stride=stride)))
+    for what, info in int8_infos:
+        print(f"phase 2 build: {what}: {info['registers']} registers per thread, "
+              f"{info['smem_bytes']} bytes shared memory per block, {info['spill_bytes']} bytes "
+              f"spilled, {info['blocks_per_sm']} resident blocks of {info['threads']} threads per "
+              f"SM on [{card}]", flush=True)
+        check(info["spill_bytes"] == 0, f"{what} spills")
     print(f"phase 2 build: the three kernel sources built in parallel in {wall:.2f} s on "
           f"[{card}]", flush=True)
 
@@ -3716,9 +3721,11 @@ def check_int8_call(name, x, kq, absmax, deq, offset, ks, stride, pads, out_dtyp
 
 
 def int8_edge_calls(gen):
-    """Edge cases of both kernels on the card: Cin = 3 (K = 27), ragged Cout and K
-    (16, 24, 40), odd H and W at stride 2 under Darknet's and TF-SAME pads, H = W = 1,
-    in f32 and bf16, per-tensor and per-channel."""
+    """Edge cases of both kernels on the card: Cin = 3 (one 16-channel chunk a tap),
+    Cout 32, 64 and 255 and ragged Cout and K (16, 24, 40, 48, 80), M not a multiple of
+    the GEMM's 128-row tile, odd H and W at stride 2 under Darknet's and TF-SAME pads,
+    H = W = 1, k = 5 depthwise at both strides, in f32 and bf16, per-tensor and
+    per-channel."""
     import torch
 
     from tmv_tpu_torch.kernels.int8_conv import pack_dense
@@ -3726,9 +3733,18 @@ def int8_edge_calls(gen):
     dense = [(1, 17, 13, 3, 32, 3, 1, (1, 1, 1, 1)), (2, 15, 11, 3, 24, 3, 2, (0, 0, 1, 1)),
              (2, 9, 7, 16, 40, 1, 1, (0, 0, 0, 0)), (1, 13, 13, 24, 112, 1, 1, (0, 0, 0, 0)),
              (3, 33, 35, 40, 24, 3, 2, (1, 1, 0, 0)), (1, 1, 1, 24, 112, 3, 1, (1, 1, 1, 1)),
-             (1, 1, 1, 64, 8, 3, 2, (1, 1, 1, 1)), (2, 19, 21, 64, 130, 3, 1, (1, 1, 1, 1))]
+             (1, 1, 1, 64, 8, 3, 2, (1, 1, 1, 1)), (2, 19, 21, 64, 130, 3, 1, (1, 1, 1, 1)),
+             # the GEMM's tile edges: Cout 32 / 64 / 255 (a ragged 128-wide tile), Cin 3
+             # at stride 2 on odd sizes, M not a multiple of the 128-row tile, ragged K
+             (1, 21, 17, 3, 32, 3, 2, (1, 1, 0, 0)), (2, 23, 19, 32, 64, 3, 1, (1, 1, 1, 1)),
+             (2, 20, 20, 256, 255, 1, 1, (0, 0, 0, 0)), (1, 11, 9, 80, 255, 3, 2, (1, 1, 0, 0)),
+             (3, 13, 11, 48, 96, 3, 1, (1, 1, 1, 1))]
     depthwise = [(2, 17, 15, 32, 3, 1, (1, 1, 1, 1)), (1, 33, 31, 6, 5, 2, (1, 1, 2, 2)),
-                 (1, 1, 1, 240, 5, 1, (2, 2, 2, 2)), (2, 9, 10, 24, 3, 2, (0, 0, 1, 1))]
+                 (1, 1, 1, 240, 5, 1, (2, 2, 2, 2)), (2, 9, 10, 24, 3, 2, (0, 0, 1, 1)),
+                 # the halo tile's edges: k = 5 at both strides on odd sizes, C past a
+                 # 32-channel chunk
+                 (2, 19, 17, 40, 5, 1, (2, 2, 2, 2)), (1, 23, 21, 144, 5, 2, (1, 1, 2, 2)),
+                 (2, 15, 13, 72, 3, 2, (0, 0, 1, 1))]
     for dtype in (torch.float32, torch.bfloat16):
         for per_channel in (False, True):
             for b, h, w, cin, cout, k, s, pads in dense:
@@ -3838,8 +3854,9 @@ def sum_int8_times(card, calls, label):
     plain version (check_int8_call) → also the largest |kernel - plain|."""
     import torch
 
-    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, cudnn_ms=0.0, bound_ms=0.0, ops=0,
-                 by={"bytes": 0.0, "operations": 0.0}, launches=len(calls), max_err=0.0)
+    total = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, cudnn_ms=0.0,
+                 bound_ms=0.0, ops=0, by={"bytes": 0.0, "operations": 0.0},
+                 launches=len(calls), max_err=0.0)
     each = []
     for name, args, kwargs in calls:
         call = int8_call_args(name, args, kwargs)
@@ -3856,15 +3873,17 @@ def sum_int8_times(card, calls, label):
         k_ms, p_ms, _ = turns(plain, kernel, 1, 5)
         bound, by, ops = int8_bound_ms(name, x, kq, ks, stride, pads, out_dtype)
         cudnn_ms = cuda_ms(cudnn, 5)
-        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", cuda_ms(library, 2)),
-                       ("cudnn_ms", cudnn_ms), ("bound_ms", bound), ("ops", ops)):
+        for key, v in (("ms", k_ms), ("device_ms", graph_ms(kernel, reps=5)), ("plain_ms", p_ms),
+                       ("library_ms", cuda_ms(library, 2)), ("cudnn_ms", cudnn_ms),
+                       ("bound_ms", bound), ("ops", ops)):
             total[key] += v
         each.append((k_ms, tuple(x.shape), kq.shape[0] if name == "int8_conv" else x.shape[1],
                      ks, stride, cudnn_ms, bound, by))
         total["by"][by] += bound
         del lib_out, ref
     print(f"phase 23 {label} on [{card}]: {total['launches']} launches, kernel "
-          f"{total['ms']:.4f} ms ({total['ops'] / total['ms'] / 1e9:.1f} TOP/s), plain "
+          f"{total['ms']:.4f} ms ({total['ops'] / total['ms'] / 1e9:.1f} TOP/s; device time by "
+          f"CUDA-graph replay, without the host's work per call, {total['device_ms']:.4f} ms), plain "
           f"{total['plain_ms']:.4f} ms, library (quantize + int8 im2col + torch._int_mm + dequant; "
           f"cuDNN f32 grouped conv for depthwise) {total['library_ms']:.4f} ms, cuDNN bf16 "
           f"{total['cudnn_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms (kernel at "
@@ -3876,6 +3895,37 @@ def sum_int8_times(card, calls, label):
               f"k={ks} s={stride}: kernel {k_ms:.4f} ms, cuDNN bf16 {cudnn_ms:.4f} ms, bound "
               f"{bound:.4f} ms by {by}", flush=True)
     return total
+
+
+def quantize_share(card, calls, label):
+    """int8_conv's first launch, the quantize pass, alone over a forward's int8_conv
+    calls: each held to its plain version, its device ms summed (CUDA-graph replay),
+    and the host's cost of one such launch (the enqueue of 200 launches of the first
+    call on the host clock) → (ms, host µs)."""
+    import torch
+
+    from tmv_tpu_torch.kernels import int8_conv as kernels
+
+    total, first = 0.0, None
+    for name, args, kwargs in calls:
+        if name != "int8_conv":
+            continue
+        x, _, absmax = int8_call_args(name, args, kwargs)[:3]
+        check(torch.equal(kernels.quantize_padded(x, absmax),
+                          kernels.quantize_padded_reference(x, absmax)),
+              f"the quantize pass differs from its plain version at {tuple(x.shape)}")
+        total += graph_ms(lambda: kernels.quantize_padded(x, absmax), reps=5)
+        first = first or (x, absmax)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        kernels.quantize_padded(*first)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    print(f"phase 23 {label} on [{card}]: the quantize pass of the int8_conv calls, "
+          f"{total:.4f} ms of device time summed (each equal to its plain version); one "
+          f"launch costs the host {host_us:.1f} us to enqueue", flush=True)
+    return total, host_us
 
 
 def phase_int8(card, weights, files, ckpt, d0_ckpt):
@@ -3970,6 +4020,9 @@ def phase_int8(card, weights, files, ckpt, d0_ckpt):
     prepare_static_int8(d0, calibrate_model(d0, [d0_images]))
     with Int8Calls() as d0_b1, torch.inference_mode(), quantized("int8_static"):
         d0(d0_images)
+    with torch.inference_mode():
+        quant_b1 = quantize_share(card, yolo_b1.calls,
+                                  f"YOLOv4 @{IMAGE} b1 bf16 per-channel forward")
     cases = distinct_calls(yolo_b1.calls) + distinct_calls(d0_b1.calls)
     f32_cases = [(n, x.float(), kq, a.max(), deq, off, ks, s, p, torch.float32)
                  for n, x, kq, a, deq, off, ks, s, p, _ in cases]
@@ -4042,6 +4095,9 @@ def phase_int8(card, weights, files, ckpt, d0_ckpt):
     with torch.inference_mode():
         conv_times = sum_int8_times(card, yolo_b16.calls,
                                     f"int8_conv per YOLOv4 @{IMAGE} b16 bf16 forward")
+        conv_times["quantize_ms"], _ = quantize_share(
+            card, yolo_b16.calls, f"YOLOv4 @{IMAGE} b16 bf16 per-channel forward")
+    conv_times["quantize_b1_ms"], conv_times["quantize_host_us"] = quant_b1
     del yolo_b16, model
     d0, _ = seeded_d0(torch.bfloat16, "cuda")
     prepare_static_int8(d0, calibrate_model(d0, [d0_images]))
@@ -4119,9 +4175,10 @@ def main():
           f"summed over the 16 launches of one D0 bf16 forward at B=64, launches over the D0 "
           f"served path ({d0_launches['dwconv_bn_swish']}), the D0 eval CLI "
           f"({d0_eval['dwconv_bn_swish']}) and phase 20's D0 WSGI app and detect CLI "
-          f"({extras['dwconv_bn_swish']}); int8_conv summed over the 107 launches of one "
-          f"YOLOv4 @640 b16 bf16 per-channel forward, launches over phase 23's served paths "
-          f"and eval CLIs; int8_dwconv summed over the {i8dw['launches']} launches of one D0 "
+          f"({extras['dwconv_bn_swish']}); int8_conv summed over the 107 calls of one "
+          f"YOLOv4 @640 b16 bf16 per-channel forward (each the quantize pass, "
+          f"{i8['quantize_ms']:.4f} ms of the sum, and the GEMM), calls over phase 23's served "
+          f"paths and eval CLIs; int8_dwconv summed over the {i8dw['launches']} launches of one D0 "
           f"@512 b64 bf16 forward, launches in the D0 int8 eval CLI; their library_ms the "
           f"quantize + int8 im2col + torch._int_mm + dequant route (cuDNN f32 grouped conv of the "
           f"int8 values for the depthwise), cuDNN bf16 of the same convs {i8['cudnn_ms']:.4f} "

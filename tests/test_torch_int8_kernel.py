@@ -1,7 +1,8 @@
 """The int8 conv kernels' plain versions and wrappers (``kernels/int8_conv.py``).
 
-No JAX here, so that the ``cuda`` case runs on a GPU host without flax
-(``python -m pytest tests/test_torch_int8_kernel.py -m cuda``).
+No flax here, and ``jax.numpy`` only inside the padded-quantize test, so that the
+``cuda`` case runs on a GPU host without flax (``python -m pytest
+tests/test_torch_int8_kernel.py -m cuda``).
 
 - The plain versions against a numpy brute force (quantize with float32
   ``x · (127 / a)`` rounded half to even, an int64 im2col sum, the float32
@@ -9,11 +10,17 @@ No JAX here, so that the ``cuda`` case runs on a GPU host without flax
   float32 output rounded), for a dense conv
   (Cin = 3 with K = 27, ragged Cout, stride 2 with Darknet's top-left pad and with
   TF-SAME pads) and a depthwise conv (k 3 and 5), per-tensor and per-channel.
-- The packing round-trips; the wrappers refuse what the kernels do not take.
+- The packing round-trips (Cin padded to 16 channels, K to 64); the channel-padded
+  quantize's plain version equals JAX's ``jnp.clip(jnp.round(x · (127 / a)))``,
+  ties at .5 included; the route planners have a route for every conv of YOLOv4
+  @640 and EfficientDet-D0 @512; the wrappers refuse what the kernels do not take.
 - On the card (``cuda`` marker, skipped without one): both kernels against their
-  plain versions, f32 and bf16, per-tensor and per-channel: int32 accumulators
-  identical, outputs within 1e-6·max|plain| (measured: equal); the bf16 output
-  within a bf16 rounding (1e-2·max|plain|) of the float32 plain value.
+  plain versions, f32 and bf16, per-tensor and per-channel, at the GEMM's and the
+  halo tile's edges (Cout 32, 64 and 255; Cin 3; ragged K and M tiles; odd H and W at
+  stride 2; k = 5 depthwise): int32 accumulators identical, outputs within
+  1e-6·max|plain| (measured: equal); the bf16 output within a bf16 rounding
+  (1e-2·max|plain|) of the float32 plain value; the quantize pass equal to its plain
+  version.
 """
 
 import numpy as np
@@ -21,8 +28,9 @@ import pytest
 import torch
 
 from tmv_tpu_torch.kernels.int8_conv import (
-    int8_conv, int8_conv_reference, int8_dwconv, int8_dwconv_reference, pack_dense,
-    pack_depthwise, unpack_dense,
+    BLOCK_NS, conv_plan, dw_plan, int8_conv, int8_conv_reference, int8_dwconv,
+    int8_dwconv_reference, pack_dense, pack_depthwise, quantize_padded,
+    quantize_padded_reference, unpack_dense,
 )
 
 
@@ -89,10 +97,72 @@ def test_plain_versions_match_a_brute_force(rng, case, per_channel):
 def test_packing_round_trips(rng):
     kq = torch.from_numpy(rng.integers(-127, 128, (3, 3, 5, 7)).astype(np.int8))
     packed = pack_dense(kq)
-    assert packed.shape == (7, 64) and not packed[:, 45:].any()
+    # Cin 5 -> 16 channels a tap, K = 9 * 16 = 144 -> 192 (three 64-deep stages)
+    assert packed.shape == (7, 192) and not packed[:, 144:].any()
+    taps = packed[:, :144].reshape(7, 9, 16)
+    assert not taps[..., 5:].any() and torch.equal(taps[..., :5], kq.reshape(9, 5, 7).permute(2, 0, 1))
     assert torch.equal(unpack_dense(packed, 3, 3, 5), kq)
+    wide = torch.from_numpy(rng.integers(-127, 128, (1, 1, 64, 3)).astype(np.int8))
+    assert torch.equal(pack_dense(wide), wide.reshape(64, 3).t())      # no padding at all
+    assert torch.equal(unpack_dense(pack_dense(wide), 1, 1, 64), wide)
     dw = torch.from_numpy(rng.integers(-127, 128, (5, 5, 1, 6)).astype(np.int8))
     assert torch.equal(pack_depthwise(dw).reshape(5, 5, 1, 6), dw)
+
+
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_quantize_padded_matches_jax(rng, per_channel):
+    import jax.numpy as jnp
+
+    cin = 5
+    a = (rng.uniform(0.5, 4, (cin,)) if per_channel else np.asarray(127.0)).astype(np.float32)
+    if per_channel:
+        a[0] = 127.0
+    x = rng.normal(0, 2, (2, 7, 6, cin)).astype(np.float32)
+    # ties: x * (127 / a) exactly k + 0.5 (127 / 127 = 1), and the clip
+    x[0, 0, :, 0] = [0.5, 1.5, 2.5, -0.5, -2.5, 3e3]
+    if not per_channel:
+        x[1, 1, :, :] = np.array([126.5, 127.5, -126.5, -127.5, 0.5], np.float32)
+    want = np.asarray(jnp.clip(jnp.round(jnp.asarray(x) * (127.0 / jnp.asarray(a))), -127, 127)
+                      .astype(jnp.int8))
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = nchw(x).to(dtype)
+        want_t = want if dtype == torch.float32 else np.asarray(
+            jnp.clip(jnp.round(jnp.asarray(xt.float().permute(0, 2, 3, 1).numpy())
+                               * (127.0 / jnp.asarray(a))), -127, 127).astype(jnp.int8))
+        for fn in (quantize_padded_reference, quantize_padded):
+            got = fn(xt, torch.from_numpy(a))
+            assert got.shape == (2, 7, 6, 16) and got.dtype == torch.int8
+            np.testing.assert_array_equal(got[..., :cin].numpy(), want_t)
+            assert not got[..., cin:].any()
+    assert list(want[0, 0, :, 0]) == [0, 2, 2, 0, -2, 127]
+
+
+def test_routes_cover_every_yolov4_and_d0_conv():
+    from tmv_tpu_torch.models.efficientdet.harness import efficientdet_config
+    from tmv_tpu_torch.models.efficientdet.net import EfficientDetNet
+    from tmv_tpu_torch.models.yolo_v4 import YoloV4
+
+    with torch.device("meta"):
+        models = [YoloV4(80), EfficientDetNet(efficientdet_config("efficientdet-d0", 81, 512))]
+    dense = depthwise = 0
+    for model in models:
+        for m in model.modules():
+            if not isinstance(m, torch.nn.Conv2d):
+                continue
+            if m.groups == 1:
+                plan = conv_plan(m.in_channels, m.out_channels, *m.kernel_size)
+                assert plan["cp"] % 16 == 0 and plan["cp"] - m.in_channels < 16
+                assert plan["kpad"] % 64 == 0 and plan["kpad"] >= plan["k"]
+                assert plan["block_n"] in BLOCK_NS
+                assert plan["block_n"] >= min(m.out_channels, BLOCK_NS[-1])
+                dense += 1
+            else:
+                assert m.groups == m.in_channels == m.out_channels
+                dw_plan(m.kernel_size[0], m.stride[0])
+                depthwise += 1
+    assert dense >= 107 + 86 and depthwise >= 16   # the int8 sites: YOLOv4 107, D0 86 dense
+    with pytest.raises(ValueError, match="k in"):
+        dw_plan(7, 1)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(rng):
@@ -120,11 +190,21 @@ def cuda():
     return torch.device("cuda")
 
 
+# the new design's edges: Cout 32 / 64 / 255 (one BN tile, a ragged 128-wide tile),
+# Cin 3 (16-channel chunks), ragged K (Cin 24, 40: K not a multiple of 64) and M
+# tiles (2 x 17 x 13 pixels), stride 2 on odd H and W, k = 5 depthwise at both strides
+CARD_CASES = CASES + [(1, 64, 130, 1, (0, 0, 0, 0), False), (3, 3, 32, 2, (1, 1, 0, 0), False),
+                      (1, 64, 64, 1, (0, 0, 0, 0), False), (1, 40, 255, 1, (0, 0, 0, 0), False),
+                      (3, 24, 255, 1, (1, 1, 1, 1), False), (3, 64, 32, 2, (1, 1, 0, 0), False),
+                      (5, 40, 40, 1, (2, 2, 2, 2), True), (5, 24, 24, 2, (1, 1, 2, 2), True),
+                      (3, 96, 96, 2, (0, 0, 1, 1), True)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_kernels_match_plain_on_card(cuda, rng, dtype):
     for per_channel in (False, True):
-        for k, cin, cout, stride, pads, depthwise in CASES + [(1, 64, 130, 1, (0, 0, 0, 0), False)]:
+        for k, cin, cout, stride, pads, depthwise in CARD_CASES:
             x = nchw(rng.normal(0, 2, (2, 17, 13, cin)).astype(np.float32)).to(cuda, dtype)
             kq = torch.from_numpy(rng.integers(-127, 128, (k, k, 1 if depthwise else cin, cout))
                                   .astype(np.int8))
@@ -139,6 +219,8 @@ def test_int8_kernels_match_plain_on_card(cuda, rng, dtype):
                 args = (x, pack_dense(kq).to(cuda), a, deq, off, (k, k), stride, pads)
                 kernel, plain = int8_conv, int8_conv_reference
             assert torch.equal(kernel(*args, return_acc=True), plain(*args, return_acc=True))
+            if not depthwise:
+                assert torch.equal(quantize_padded(x, a), quantize_padded_reference(x, a))
             want = plain(*args)
             assert (kernel(*args) - want).abs().max() <= 1e-6 * want.abs().max()
             got = kernel(*args, out_dtype=torch.bfloat16)

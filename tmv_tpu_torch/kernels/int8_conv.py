@@ -1,5 +1,5 @@
-"""int8 × int8 → int32 convolutions with quantise-on-load: the CUDA kernels, their
-wrappers and their plain versions.
+"""int8 × int8 → int32 convolutions: the CUDA kernels, their wrappers, their plain
+versions and the route planners.
 
 Replaces XLA's int8 ``conv_general_dilated(..., preferred_element_type=int32)`` of
 ``tmv_tpu/quant/static.py::static_int8_conv`` (``:212``) and
@@ -16,8 +16,10 @@ H100 and what its design does about it. For an output pixel and channel ``o``::
 epilogue: the cast a bf16 model applies next, fused (the same numbers, half the
 bytes written and one pass fewer).
 
-- ``int8_conv`` (groups 1, the Darknet ConvBNs and D0's dense sites) and
-  ``int8_dwconv`` (groups = C, D0's depthwise sites) are the wrappers the port calls.
+- ``int8_conv`` (groups 1, the Darknet ConvBNs and D0's dense sites; on the card a
+  quantize pass into int8 NHWC, then a ``wgmma`` implicit GEMM) and ``int8_dwconv``
+  (groups = C, D0's depthwise sites; a halo-tiled kernel that quantises its staged
+  tile once) are the wrappers the port calls.
   Each checks its inputs on every device, then a CUDA tensor launches the kernel or
   raises, and a CPU tensor runs the plain version. There is no other route and no
   switch. ``return_acc=True`` returns the int32 accumulator instead (a test entry).
@@ -25,15 +27,23 @@ bytes written and one pass fewer).
   same ``xq``, exact integer sums through a float64 ``F.conv2d`` of the int8 values
   (|acc| < 2⁵³), then the same float32 epilogue (multiply, then add).
 - ``LIBRARY`` builds the source with ``nvcc`` at first use (``kernels/build.py``).
-- ``launches`` counts each kernel's launches, by name.
-- ``kernel_info`` reports what an ``int8_conv`` instantiation uses on the card.
+- ``launches`` counts the wrappers' calls that reached the card, by name (an ``int8_conv``
+  call is two launches: the quantize pass and the GEMM).
+- ``kernel_info`` reports what each kernel instantiation uses on the card.
+- ``quantize_padded`` is the first of ``int8_conv``'s two launches on its own (the
+  quantize pass into int8 NHWC with the channels padded to 16), for timing it apart;
+  ``quantize_padded_reference`` is its plain version.
+- ``conv_plan`` and ``dw_plan`` are the route planners: what the kernels are given
+  (padded channels, K, the tile width) for a conv's shape, or a refusal.
 
 Layouts: activations are channels_last ``(B, C, H, W)`` tensors, float32 or bfloat16.
 ``kernel_q`` is int8, for ``int8_conv`` ``(Cout, Kpad)``: row ``o`` holds the weights
-in ``(dy, dx, c)`` order (``K = kh·kw·Cin``) padded with zeros to a multiple of 64
-(``pack_dense``); for ``int8_dwconv`` ``(k·k, C)`` (``pack_depthwise``). ``in_absmax``
-is a 0-d float32 tensor or a ``(Cin,)`` vector; ``deq`` and ``offset`` are ``(Cout,)``
-float32 (``offset`` may be None). ``pads`` are ``(top, left, bottom, right)`` zero pads.
+in ``(dy, dx, c)`` order over ``Cp`` channels, ``Cin`` padded with zeros to a multiple
+of 16 (``K = kh·kw·Cp``), then padded with zeros to a multiple of 64 (``pack_dense``):
+the layout of the kernel's B operand, K-major, one 16-byte chunk a tap's 16 channels;
+for ``int8_dwconv`` ``(k·k, C)`` (``pack_depthwise``). ``in_absmax`` is a 0-d float32
+tensor or a ``(Cin,)`` vector; ``deq`` and ``offset`` are ``(Cout,)`` float32
+(``offset`` may be None). ``pads`` are ``(top, left, bottom, right)`` zero pads.
 """
 
 import ctypes
@@ -47,36 +57,78 @@ import torch.nn.functional as F
 from tmv_tpu_torch.kernels.build import SM90A_FLAGS, KernelLibrary
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "int8_conv.cu"
-K_TILE = 64
+K_TILE = 64          # bytes of K per shared-memory stage of the GEMM
+CHANNEL_ALIGN = 16   # channels of one 16-byte chunk of the quantised activation
+BLOCK_NS = (32, 64, 128)
+DW_ROUTES = {(3, 1), (3, 2), (5, 1), (5, 2)}   # (k, stride) of the depthwise kernel
 
 
 def _bind(lib: ctypes.CDLL):
     ptr, cint = ctypes.c_void_p, ctypes.c_int
+    lib.tmv_int8_quantize.restype = cint
+    lib.tmv_int8_quantize.argtypes = [ptr, ptr, cint, ptr] + [cint] * 5 + [ptr]
     lib.tmv_int8_conv.restype = cint
-    lib.tmv_int8_conv.argtypes = ([ptr, ptr, cint, ptr, cint, cint] + [ptr] * 4
-                                  + [cint] * 15 + [ptr])
+    lib.tmv_int8_conv.argtypes = ([ptr, ptr, cint, ptr, ptr, ptr, cint] + [ptr] * 3
+                                  + [cint] * 17 + [ptr])
+    lib.tmv_int8_weight_map.restype = cint
+    lib.tmv_int8_weight_map.argtypes = [ptr] + [cint] * 3 + [ptr]
     lib.tmv_int8_dwconv.restype = cint
-    lib.tmv_int8_dwconv.argtypes = [ptr, ptr, cint] + [ptr] * 5 + [cint] * 13 + [ptr]
-    lib.tmv_int8_conv_info.restype = cint
-    lib.tmv_int8_conv_info.argtypes = [cint] * 3 + [ctypes.POINTER(cint)]
+    lib.tmv_int8_dwconv.argtypes = [ptr, ptr, cint] + [ptr] * 4 + [cint] * 13 + [ptr]
+    lib.tmv_int8_kernel_info.restype = cint
+    lib.tmv_int8_kernel_info.argtypes = [cint] * 4 + [ctypes.POINTER(cint)]
 
 
 LIBRARY = KernelLibrary(SOURCE, SM90A_FLAGS, _bind)
-launches = {"int8_conv": 0, "int8_dwconv": 0}
+launches = {"int8_conv": 0, "int8_dwconv": 0, "int8_quantize": 0}
 _lock = threading.Lock()
+# the weights' TMA maps, encoded once per packed weight tensor (its address, shape and
+# tile width are all a map holds, so a key that matches gives a valid map)
+_weight_maps = {}
+_WEIGHT_MAPS_KEPT = 4096
+
+
+def padded_channels(cin: int) -> int:
+    """``Cin`` padded to a multiple of 16: the channels of the quantised activation."""
+    return -(-cin // CHANNEL_ALIGN) * CHANNEL_ALIGN
+
+
+def conv_plan(cin: int, cout: int, kh: int, kw: int) -> dict:
+    """What ``int8_conv``'s kernels are given for a conv shape: ``cp`` padded
+    channels, ``k`` = kh·kw·cp, ``kpad`` (a multiple of 64) and ``block_n``, the
+    output channels of a block (32, 64 or 128: the narrowest that holds Cout, so
+    that Cout = 32 and 64 fill their tile)."""
+    if min(cin, cout, kh, kw) < 1:
+        raise ValueError(f"int8_conv: no route for Cin {cin}, Cout {cout}, kernel {kh}x{kw}")
+    cp = padded_channels(cin)
+    k = kh * kw * cp
+    return {"cp": cp, "k": k, "kpad": -(-k // K_TILE) * K_TILE,
+            "block_n": next((n for n in BLOCK_NS if cout <= n), BLOCK_NS[-1])}
+
+
+def dw_plan(k: int, stride: int) -> dict:
+    """The ``int8_dwconv`` kernel's route for a kernel size and stride (k 3 or 5,
+    stride 1 or 2: every depthwise site of EfficientDet), or a ValueError."""
+    if (k, stride) not in DW_ROUTES:
+        raise ValueError(f"int8_dwconv: the kernel takes k in {{3, 5}} and stride in "
+                         f"{{1, 2}}, got k={k}, stride={stride}")
+    return {"k": k, "stride": stride}
 
 
 def pack_dense(kernel_q_hwio: torch.Tensor) -> torch.Tensor:
-    """HWIO int8 ``(kh, kw, Cin, Cout)`` → the kernel's ``(Cout, Kpad)``."""
+    """HWIO int8 ``(kh, kw, Cin, Cout)`` → the kernel's ``(Cout, Kpad)``: Cin padded
+    with zeros to ``Cp``, rows in ``(dy, dx, c)`` order, K padded to ``Kpad``."""
     kh, kw, cin, cout = kernel_q_hwio.shape
-    k = kh * kw * cin
-    rows = kernel_q_hwio.permute(3, 0, 1, 2).reshape(cout, k)
-    return F.pad(rows, (0, -(-k // K_TILE) * K_TILE - k)).contiguous()
+    plan = conv_plan(cin, cout, kh, kw)
+    rows = F.pad(kernel_q_hwio, (0, 0, 0, plan["cp"] - cin))
+    rows = rows.permute(3, 0, 1, 2).reshape(cout, plan["k"])
+    return F.pad(rows, (0, plan["kpad"] - plan["k"])).contiguous()
 
 
 def unpack_dense(packed: torch.Tensor, kh: int, kw: int, cin: int) -> torch.Tensor:
     """The kernel's ``(Cout, Kpad)`` → HWIO ``(kh, kw, Cin, Cout)``."""
-    return packed[:, :kh * kw * cin].reshape(-1, kh, kw, cin).permute(1, 2, 3, 0)
+    cp = padded_channels(cin)
+    rows = packed[:, :kh * kw * cp].reshape(-1, kh, kw, cp)
+    return rows[..., :cin].permute(1, 2, 3, 0)
 
 
 def pack_depthwise(kernel_q_hwio: torch.Tensor) -> torch.Tensor:
@@ -104,6 +156,13 @@ def quantize_reference(x: torch.Tensor, in_absmax: torch.Tensor) -> torch.Tensor
     if scale.dim():
         scale = scale.view(1, -1, 1, 1)
     return torch.clamp(torch.round(x.float() * scale), -127, 127).to(torch.int8)
+
+
+def quantize_padded_reference(x: torch.Tensor, in_absmax: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``quantize_padded``: ``quantize_reference`` as int8 NHWC
+    ``(B, H, W, Cp)``, zeros in the channels past Cin."""
+    xq = quantize_reference(x, in_absmax).permute(0, 2, 3, 1)
+    return F.pad(xq, (0, padded_channels(x.shape[1]) - x.shape[1])).contiguous()
 
 
 def _epilogue(acc: torch.Tensor, deq: torch.Tensor, offset: Optional[torch.Tensor],
@@ -190,20 +249,65 @@ def _stream_call(x, fn):
         return lib, fn(lib, torch.cuda.current_stream().cuda_stream)
 
 
+def _vec(x: torch.Tensor, channels: int) -> bool:
+    """Whether ``x``'s rows take the kernels' vector loads: a multiple of
+    ``channels`` channels and a 16-byte aligned start."""
+    return x.shape[1] % channels == 0 and x.data_ptr() % 16 == 0
+
+
+def quantize_padded(x: torch.Tensor, in_absmax: torch.Tensor) -> torch.Tensor:
+    """``int8_conv``'s quantize pass alone: ``x`` → int8 NHWC ``(B, H, W, Cp)``; the
+    CUDA kernel for CUDA tensors. Does not synchronise."""
+    b, cin, h, w = x.shape
+    if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous(
+            memory_format=torch.channels_last):
+        raise ValueError("quantize_padded: x must be channels_last float32 or bfloat16")
+    if x.device.type == "cpu":
+        return quantize_padded_reference(x, in_absmax)
+    cp = padded_channels(cin)
+    xq = torch.empty((b, h, w, cp), dtype=torch.int8, device=x.device)
+
+    def launch(lib, stream):
+        return lib.tmv_int8_quantize(x.data_ptr(), in_absmax.data_ptr(),
+                                     int(in_absmax.dim() == 1), xq.data_ptr(), b * h * w, cin,
+                                     cp, int(x.dtype == torch.bfloat16), int(_vec(x, 8)), stream)
+
+    _, err = _stream_call(x, launch)
+    LIBRARY.check(err, "tmv_int8_quantize")
+    _count("int8_quantize")
+    return xq
+
+
+def _weight_map(lib, kernel_q: torch.Tensor, kpad: int, block_n: int):
+    """The 128-byte TMA map of ``kernel_q`` for ``block_n``-row tiles, from the cache
+    or encoded now."""
+    key = (kernel_q.device.index, kernel_q.data_ptr(), kernel_q.shape[0], kpad, block_n)
+    with _lock:
+        found = _weight_maps.get(key)
+    if found is None:
+        found = (ctypes.c_ubyte * 128)()
+        LIBRARY.check(lib.tmv_int8_weight_map(kernel_q.data_ptr(), kernel_q.shape[0], kpad,
+                                              block_n, found), "tmv_int8_weight_map")
+        with _lock:
+            if len(_weight_maps) >= _WEIGHT_MAPS_KEPT:
+                _weight_maps.clear()
+            _weight_maps[key] = found
+    return found
+
+
 def int8_conv(x: torch.Tensor, kernel_q: torch.Tensor, in_absmax: torch.Tensor,
               deq: torch.Tensor, offset: Optional[torch.Tensor], kernel_size: Tuple[int, int],
               stride: int = 1, pads: Sequence[int] = (0, 0, 0, 0),
               return_acc: bool = False, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Dense int8 conv (groups 1) → ``out_dtype`` channels_last ``(B, Cout, Ho, Wo)``
-    (or its int32 accumulator); the CUDA kernel for CUDA tensors. Does not
-    synchronise."""
+    (or its int32 accumulator); for CUDA tensors the quantize pass and the GEMM kernel
+    (one call, counted once). Does not synchronise."""
     kh, kw = kernel_size
     b, cin, h, w = x.shape
     cout = kernel_q.shape[0]
-    k = kh * kw * cin
-    kpad = -(-k // K_TILE) * K_TILE
-    _check("int8_conv", x, kernel_q, (cout, kpad), in_absmax, deq, offset, cout, stride, pads,
-           out_dtype)
+    plan = conv_plan(cin, cout, kh, kw)
+    _check("int8_conv", x, kernel_q, (cout, plan["kpad"]), in_absmax, deq, offset, cout, stride,
+           pads, out_dtype)
     if x.device.type == "cpu":
         return int8_conv_reference(x, kernel_q, in_absmax, deq, offset, kernel_size, stride,
                                    pads, return_acc, out_dtype)
@@ -213,17 +317,19 @@ def int8_conv(x: torch.Tensor, kernel_q: torch.Tensor, in_absmax: torch.Tensor,
                       device=x.device, memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
-    vec = cin % 8 == 0 and x.data_ptr() % (8 * x.element_size()) == 0
     if kernel_q.data_ptr() % 16:
         raise ValueError("int8_conv: kernel_q must be 16-byte aligned")
+    xq = torch.empty((b, h, w, plan["cp"]), dtype=torch.int8, device=x.device)
+    out_kind = 2 if return_acc else int(out_dtype == torch.bfloat16)
 
     def launch(lib, stream):
         return lib.tmv_int8_conv(
-            x.data_ptr(), in_absmax.data_ptr(), int(in_absmax.dim() == 1), kernel_q.data_ptr(),
-            k, kpad, deq.data_ptr(), None if offset is None else offset.data_ptr(),
-            None if return_acc else out.data_ptr(), out.data_ptr() if return_acc else None,
-            b, h, w, cin, cout, kh, kw, stride, top, left, h_out, w_out,
-            int(x.dtype == torch.bfloat16), int(vec), int(out_dtype == torch.bfloat16), stream)
+            x.data_ptr(), in_absmax.data_ptr(), int(in_absmax.dim() == 1), xq.data_ptr(),
+            kernel_q.data_ptr(), _weight_map(lib, kernel_q, plan["kpad"], plan["block_n"]),
+            plan["kpad"], deq.data_ptr(),
+            None if offset is None else offset.data_ptr(), out.data_ptr(), out_kind,
+            b, h, w, cin, plan["cp"], cout, kh, kw, stride, top, left, h_out, w_out,
+            plan["block_n"], int(x.dtype == torch.bfloat16), int(_vec(x, 8)), stream)
 
     _, err = _stream_call(x, launch)
     LIBRARY.check(err, "tmv_int8_conv")
@@ -250,15 +356,16 @@ def int8_dwconv(x: torch.Tensor, kernel_q: torch.Tensor, in_absmax: torch.Tensor
                       device=x.device, memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
-    vec = c % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0 and kernel_q.data_ptr() % 4 == 0
+    dw_plan(k, stride)
+    vec = c % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
+    out_kind = 2 if return_acc else int(out_dtype == torch.bfloat16)
 
     def launch(lib, stream):
         return lib.tmv_int8_dwconv(
             x.data_ptr(), in_absmax.data_ptr(), int(in_absmax.dim() == 1), kernel_q.data_ptr(),
-            deq.data_ptr(), None if offset is None else offset.data_ptr(),
-            None if return_acc else out.data_ptr(), out.data_ptr() if return_acc else None,
-            b, h, w, c, k, stride, top, left, h_out, w_out, int(x.dtype == torch.bfloat16),
-            int(vec), int(out_dtype == torch.bfloat16), stream)
+            deq.data_ptr(), None if offset is None else offset.data_ptr(), out.data_ptr(),
+            out_kind, b, h, w, c, k, stride, top, left, h_out, w_out,
+            int(x.dtype == torch.bfloat16), int(vec), stream)
 
     _, err = _stream_call(x, launch)
     LIBRARY.check(err, "tmv_int8_dwconv")
@@ -266,13 +373,15 @@ def int8_dwconv(x: torch.Tensor, kernel_q: torch.Tensor, in_absmax: torch.Tensor
     return out
 
 
-def kernel_info(block_n: int, dtype: torch.dtype, vec: bool) -> dict:
-    """What the ``int8_conv`` instantiation for a ``block_n``-wide tile (64 or 128),
-    ``dtype`` activations and the 8-channel load (``vec``) uses on the current card:
-    registers per thread, shared memory per block (the two stages, bytes), spilled
-    bytes per thread and threads per block."""
+def kernel_info(kind: str, block_n: int = 64, dtype: torch.dtype = torch.bfloat16,
+                k: int = 3, stride: int = 1) -> dict:
+    """What an instantiation uses on the current card: registers per thread, shared
+    memory per block (bytes, dynamic included), spilled bytes per thread, resident
+    blocks per SM and threads per block. ``kind`` "gemm" (``block_n`` 32, 64 or 128),
+    "quantize" (``dtype`` activations) or "dwconv" (``dtype``, ``k``, ``stride``)."""
     lib = LIBRARY.load()
-    out = (ctypes.c_int * 4)()
-    LIBRARY.check(lib.tmv_int8_conv_info(block_n, int(dtype == torch.bfloat16), int(vec), out),
-                  "tmv_int8_conv_info")
-    return dict(zip(("registers", "smem_bytes", "spill_bytes", "threads"), out))
+    out = (ctypes.c_int * 5)()
+    args = {"gemm": (0, block_n, 0, 0), "quantize": (1, int(dtype == torch.bfloat16), 0, 0),
+            "dwconv": (2, int(dtype == torch.bfloat16), k, stride)}[kind]
+    LIBRARY.check(lib.tmv_int8_kernel_info(*args, out), "tmv_int8_kernel_info")
+    return dict(zip(("registers", "smem_bytes", "spill_bytes", "blocks_per_sm", "threads"), out))

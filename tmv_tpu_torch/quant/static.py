@@ -3,8 +3,8 @@
 Port of ``tmv_tpu/quant/static.py``. Activation scales are calibrated offline (one
 absmax per conv input, max-reduced over a calibration set) and the weights are
 quantized once, per output channel, on the host; each conv then quantizes its input
-with the static scale as it loads it (``kernels/int8_conv.py``): no runtime
-statistics pass.
+with the static scale (``kernels/int8_conv.py``: a quantize pass before the GEMM,
+or the depthwise kernel's staged tile): no runtime statistics pass.
 
 - ``calibrate_model`` runs the model's forward in ``quantized("calib")``; every conv
   site records the per-input-channel ``amax`` of its input over batch and space,

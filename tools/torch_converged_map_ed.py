@@ -7,18 +7,21 @@ distractors), EfficientDet-D0 at 512 with the dataset's 4 classes + background,
 batch 16, SGD with momentum 0.9 on the cosine schedule (peak 0.08 · 16 / 64,
 one epoch of warmup), 40 epochs of 100 steps (4,000 steps), ``--deviceAug``,
 float32, no early stop; then ``tmv_tpu_torch.cli.eval_map --family
-efficientdet`` in the four float passes of the JAX artifact. It writes
-``mAP_ref_per_batch``, ``mAP_ref_global``, ``mAP_voc_global``,
-``mAP_coco_global``, the times and the card's name and power limit to
+efficientdet`` in the four float passes of the JAX artifact and its int8 pass
+(``--mode global --variant reference --int8Static``: per-tensor activation
+scales calibrated on the set's first 16 images, every backbone, BiFPN and head
+conv through the int8 kernels, ``int8_conv`` and ``int8_dwconv``, their launches
+counted). It writes ``mAP_ref_per_batch``, ``mAP_ref_global``,
+``mAP_voc_global``, ``mAP_coco_global``, ``mAP_ref_global_int8_static`` beside the
+JAX artifact's, the times and the card's name and power limit to
 ``converged_map_ed_torch.json`` (or ``--out``).
 
     python tools/torch_converged_map_ed.py [--out path.json] [--workDir dir]
 
 It runs on the card (``--device cuda``). The JAX run staged through its cache
-(``--cacheDir``), which changes no pixel; the port has no cache and stages
-every batch. The int8 pass of the JAX artifact is not ported. A ``--workDir``
-that already holds the trained checkpoint is resumed at its last step, so a
-second run only scores.
+(``--cacheDir``), which changes no pixel; the port's EfficientDet pipelines stage
+every batch. A ``--workDir`` that already holds the trained checkpoint is resumed
+at its last step, so a second run only scores.
 
 Then the re-score pass (``torch_converged_map.rescore_with_plain_kernels``,
 float32 convolutions without TF32): the converged checkpoint's eval predictions
@@ -26,8 +29,11 @@ again with the NMS kernel's plain version ``greedy_sweep_reference`` patched in
 (kept rows identical, the four mAPs equal), and with it and the depthwise
 kernel's plain version ``dw_bn_swish_reference`` (kept rows of the same count
 and classes, boxes within 1e-3 px and scores within 1e-5, the four mAPs equal),
-on a checkpoint that keeps boxes. It is written under ``plain_kernel_rescore``,
-and the tool exits non-zero if it fails.
+on a checkpoint that keeps boxes. It is written under ``plain_kernel_rescore``;
+the int8 pass is re-scored in the same way with both int8 kernels' plain
+versions patched in (``torch_converged_map_int8.rescore_int8``: kept rows
+identical), under ``int8_static.plain_kernel_rescore``. The tool exits non-zero
+if either fails.
 """
 
 import argparse
@@ -106,15 +112,36 @@ def main(argv=None):
             eval_argv, eval_map.efficientdet_records,
             {"plain_sweep": [sweep], "plain_sweep_and_depthwise": [sweep, depthwise]},
             tolerance={"plain_sweep_and_depthwise": (1e-3, 1e-5)})
+    # the JAX artifact's int8 pass, through both int8 kernels, then re-scored with
+    # their plain versions
+    from torch_converged_map_int8 import rescore_int8
+
+    from tmv_tpu_torch.kernels import int8_conv
+
+    int8_argv = eval_argv + ["--mode", "global", "--variant", "reference", "--int8Static"]
+    int8_conv.launches.update(int8_conv=0, int8_dwconv=0)
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = eval_map.main(int8_argv)
+    with open(os.path.join(ROOT, "converged_map_ed.json")) as f:
+        jax_int8 = json.load(f)["mAP_ref_global_int8_static"]
+    result["mAP_ref_global_int8_static"] = out["mAP"]
+    result["int8_static"] = {"quant": out["quant"], "images": out["images"],
+                             "int8_conv_launches": int8_conv.launches["int8_conv"],
+                             "int8_dwconv_launches": int8_conv.launches["int8_dwconv"],
+                             "jax": jax_int8}
+    result["int8_static"]["plain_kernel_rescore"], rescored_int8 = rescore_int8(
+        int8_argv, eval_map.efficientdet_records, depthwise=True)
     result["wall_sec"] = time.time() - t0
     result["converged"] = bool(result["mAP_ref_global"] > 0.5)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result), flush=True)
-    if not rescored:
+    if not rescored or not rescored_int8:
         sys.exit("the re-score with the plain kernels disagrees with the kernels' (see "
                  "plain_kernel_rescore)")
+    if not out["quant"] == "int8_static" or not result["int8_static"]["int8_dwconv_launches"]:
+        sys.exit(f"the int8 pass did not run through the int8 kernels: {result['int8_static']}")
 
 
 if __name__ == "__main__":
