@@ -14,7 +14,8 @@ then YOLOv4 @608 mosaic training with the staging cache and ``--remat``, UNet
 family (phase 21), which launches neither kernel; then MoCo pretraining, export
 and fine-tune, and teacher→student distillation, whose pseudo-labeler sweeps
 through the NMS kernel (phase 22); then int8 serving and eval through the two int8
-conv kernels (phase 23).
+conv kernels (phase 23); then the serving artifacts of ``cli/export_model.py``
+served by ``serve --artifact``, every kernel in them as a ``tmv::`` op (phase 24).
 Phases, each printing its own lines:
 
 1. environment: torch/CUDA/nvcc versions and the card (nvidia-smi);
@@ -203,7 +204,21 @@ Phases, each printing its own lines:
     dequant; cuDNN's f32 grouped conv of the int8 values for the depthwise),
     cuDNN's bf16 convs of the same shapes and the bound, and the slowest five
     ``int8_conv`` launches beside cuDNN's bf16. An ``int8_conv`` call is two launches
-    on the card (the quantize pass and the GEMM), counted once.
+    on the card (the quantize pass and the GEMM), counted once;
+24. export (~60 s): ``cli/export_model.py`` writes three artifacts from the seeded
+    weights of phases 4 and 8: YOLOv4 @640 bf16 (the JAX server's thresholds), the
+    same with ``--int8Static --int8PerChannel`` (phase 23's 16 calibration scenes) and
+    D0 @512 bf16; each program must hold exactly the ``tmv::`` ops of its live path
+    (``nms_sweep``; + 107 ``int8_conv``; + 16 ``dw_bn_swish``); ``serve --artifact``
+    loads it on the card and answers 6 seeded JPEGs; on one prepared scene the
+    artifact equals the live predictor the same flags build (valid rows and ids
+    equal, boxes and scores within one bf16 step + 1e-5·max|live|, the same kernel
+    launches); then the YOLOv4 artifact runs once on the host's CPU (plain
+    versions: no counter moves; at least 0.9 of each side's kept boxes found on the
+    other, same class at IoU >= 0.5). Printed: export seconds and MB, load and
+    warm-up seconds, the artifact's b1 forward p50 beside the live one by CUDA
+    events, and the host's cost to enqueue one ``int8_conv`` through the
+    ``tmv::int8_conv`` op and directly.
 
 The serving weights are seeded (``--randomInit --seed 0`` of each family), adjusted so
 that NMS has real work: YOLOv4's three output convs' box rows are scaled by
@@ -4115,6 +4130,196 @@ def phase_int8(card, weights, files, ckpt, d0_ckpt):
             "int8_dwconv": dw_times}
 
 
+def prepared_scene(seed, size):
+    """One seeded scene JPEG letterboxed as ``DetectionService`` prepares it →
+    ``(1, size, size, 3)`` float32 in [0, 1]."""
+    from PIL import Image
+
+    from tmv_tpu_torch.utils import image_helper
+
+    jpeg = scene_jpeg(np.random.default_rng(seed), 720, 1280)
+    img = np.asarray(Image.open(io.BytesIO(jpeg)).convert("RGB"), np.uint8)
+    boxed, _, _ = image_helper.proportional_resize(img, np.int32((size, size)),
+                                                   bg_color=(0, 0, 0))
+    return boxed.astype(np.float32)[None] / 255.0
+
+
+def launches_of(fn):
+    """``fn()``'s result and the kernels' launches it made (counts set to 0 just
+    before it and read just after)."""
+    from tmv_tpu_torch.kernels import dwconv, int8_conv, nms_sweep
+
+    nms_sweep.launches = dwconv.launches = 0
+    int8_conv.launches.update(int8_conv=0, int8_dwconv=0)
+    out = fn()
+    return out, {"nms_sweep": nms_sweep.launches, "dwconv_bn_swish": dwconv.launches,
+                 "int8_conv": int8_conv.launches["int8_conv"],
+                 "int8_dwconv": int8_conv.launches["int8_dwconv"]}
+
+
+def hold_artifact(label, live, artifact, image):
+    """The artifact against the live predictor on one prepared image: valid rows and
+    class ids equal, boxes and scores within one bf16 step + 1e-5·max|live|, and the
+    same kernel launches → (kept boxes, launches, max |box diff|, max |score diff|)."""
+    import torch
+
+    want, live_launches = launches_of(lambda: live(None, image))
+    got, aot_launches = launches_of(lambda: artifact(None, image))
+    check(aot_launches == live_launches,
+          f"{label}: the artifact launched {aot_launches}, the live path {live_launches}")
+    check(np.array_equal(got[3], want[3]), f"{label}: valid rows differ from the live path")
+    v = want[3]
+    check(v.sum() > 0, f"{label}: the live path kept no box")
+    check(np.array_equal(got[1][v], want[1][v]), f"{label}: class ids differ")
+    for i, name in ((0, "boxes"), (2, "scores")):
+        check(within_one_bf16_step(torch.from_numpy(got[i][v]), torch.from_numpy(want[i][v])),
+              f"{label}: {name} beyond one bf16 step of the live path")
+    return (int(v.sum()), aot_launches, float(np.abs(got[0][v] - want[0][v]).max()),
+            float(np.abs(got[2][v] - want[2][v]).max()))
+
+
+def forward_p50(run, image, reps=30):
+    """b1 forward p50 (ms) of ``run`` on a device tensor, each between CUDA events,
+    after 3 warm-up calls."""
+    import torch
+
+    x = torch.from_numpy(image).cuda()
+    times = []
+    with torch.inference_mode():
+        for i in range(reps + 3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run(x)
+            end.record()
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def enqueue_us(call, reps=200):
+    """Host microseconds to enqueue one ``call()`` (``reps`` back to back, no
+    synchronisation inside), after a synchronised warm-up."""
+    import torch
+
+    for _ in range(5):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    per_call = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return per_call
+
+
+def phase_export(card, weights, d0_weights):
+    """Phase 24: the three artifacts (YOLOv4 @640 bf16, its ``--int8Static
+    --int8PerChannel`` twin, D0 @512 bf16) exported by ``cli/export_model.py``, served
+    by ``serve --artifact`` and held to their live predictors; the YOLOv4 artifact
+    once on the host's CPU; the readings."""
+    import torch
+
+    from tmv_tpu_torch.cli import export_model, serve
+    from tmv_tpu_torch.kernels import int8_conv
+    from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS
+    from tmv_tpu_torch.serving.export import export_file_size, load_predictor
+
+    t_phase = time.perf_counter()
+    classes_file, anchors_file = write_inputs(COCO_CLASSES, COCO_ANCHORS)
+    calib = int8_calibration_set()
+    yolo = ["--modelPath", weights, "--classesFile", classes_file, "--anchorsFile",
+            anchors_file, "--imageSize", str(IMAGE), "--bf16", "--device", "cuda",
+            "--confidenceThresh", "0.5", "--scoresThresh", "0.2", "--iouThresh", "0.5"]
+    cases = [
+        ("YOLOv4", yolo, IMAGE, {"nms_sweep": 1}),
+        ("YOLOv4 int8", yolo + ["--int8Static", calib, "--int8PerChannel"], IMAGE,
+         {"nms_sweep": 1, "int8_conv": 107}),
+        ("D0", ["--family", "efficientdet", "--modelName", "efficientdet-d0", "--modelPath",
+                d0_weights, "--classesFile", classes_file, "--imageSize", str(D0_IMAGE),
+                "--bf16", "--device", "cuda", "--scoresThresh", "0.0001", "--iouThresh", "0.5"],
+         D0_IMAGE, {"nms_sweep": 1, "dwconv_bn_swish": 16}),
+    ]
+    served = {"nms_sweep": 0, "dwconv_bn_swish": 0, "int8_conv": 0}
+    yolo_path = yolo_card_out = None
+    for n, (label, argv, size, per_forward) in enumerate(cases):
+        path = os.path.join(WORK, f"export_{n}.tmvt")
+        t0 = time.perf_counter()
+        meta = export_model.main(argv + ["--out", path])
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        app, service, _ = serve.build_app(serve.parse_args(
+            ["--artifact", path, "--classesFile", classes_file, "--imageSize", str(size),
+             "--device", "cuda"]))
+        load_s = time.perf_counter() - t0
+        artifact = service.predict_fn
+        ops = [str(node.target) for node in artifact.program.graph.nodes
+               if str(node.target).startswith("tmv.")]
+        want_ops = {f"tmv.{k.replace('dwconv_bn_swish', 'dw_bn_swish')}.default": v
+                    for k, v in per_forward.items()}
+        check({op: ops.count(op) for op in set(ops)} == want_ops,
+              f"{label}: the program holds {sorted(ops)}, not {want_ops}")
+        live, _ = export_model.live_predictor(export_model.parse_args(argv + ["--out", path]))
+        image = prepared_scene(40 + n, size)
+        kept, once, box_err, score_err = hold_artifact(label, live, artifact, image)
+        check({k: v for k, v in once.items() if v} == per_forward,
+              f"{label}: one artifact forward launched {once}, not {per_forward}")
+        latencies, _, boxes, counts = drive_server(app, 6, 50 + n)
+        for name, per in per_forward.items():
+            check(counts[name] >= per * len(latencies) if name == "nms_sweep"
+                  else counts[name] == per * len(latencies),
+                  f"{label} served: {counts[name]} {name} launches for {len(latencies)} requests")
+            served[name] += counts[name]
+        module = artifact.program.module()
+        aot_ms = forward_p50(module, image)
+        live_ms = forward_p50(live.core, image)
+        print(f"phase 24 export {label} @{size} bf16 (meta quant {meta['quant']}): exported in "
+              f"{export_s:.1f} s, {export_file_size(path) / 1e6:.1f} MB; serve --artifact loaded "
+              f"and warm in {load_s:.1f} s; the program holds {dict(sorted(want_ops.items()))}; "
+              f"against the live predictor on one prepared scene: {kept} kept boxes, valid rows "
+              f"and ids equal, max |box diff| {box_err:.3g}, max |score diff| {score_err:.3g}, "
+              f"launches per forward {once}; {len(latencies)} served requests -> HTTP 200, "
+              f"{boxes} boxes, launches {counts}; b1 forward p50 by CUDA events: artifact "
+              f"{aot_ms:.2f} ms, live {live_ms:.2f} ms, on [{card}]", flush=True)
+        if n == 0:
+            yolo_path, yolo_image, yolo_card_out = path, image, artifact(None, image)
+        if n == 1:
+            # the host's cost of one int8_conv launch, through the op and direct
+            x = torch.from_numpy(image).cuda().permute(0, 3, 1, 2).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            site = live.core.model.ConvBN_0
+            args = (x, site.kernel_q, site.in_absmax, site.deq, site.offset, 3, 3, 1,
+                    [1, 1, 1, 1], False, torch.bfloat16)
+            with torch.inference_mode():
+                op_us = enqueue_us(lambda: int8_conv.int8_conv_op(*args))
+                direct_us = enqueue_us(lambda: int8_conv._conv_cuda(*args))
+            print(f"phase 24 enqueue of one int8_conv launch (YOLOv4 ConvBN_0 @{IMAGE} b1, "
+                  f"host clock, 200 back to back): through the tmv::int8_conv op "
+                  f"{op_us:.1f} us, the direct wrapper {direct_us:.1f} us (107 a forward: "
+                  f"+{(op_us - direct_us) * 107 / 1000:.2f} ms) on [{card}]", flush=True)
+        del app, service, artifact, live, module
+        torch.cuda.empty_cache()
+
+    # the YOLOv4 artifact on the host's CPU: the plain versions, no kernel launched
+    t0 = time.perf_counter()
+    cpu = load_predictor(yolo_path, device="cpu")
+    cpu_load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_out, cpu_launches = launches_of(lambda: cpu(None, yolo_image))
+    cpu_s = time.perf_counter() - t0
+    check(not any(cpu_launches.values()), f"the CPU run launched {cpu_launches}")
+    agree = (box_agreement(yolo_card_out, cpu_out)[0], box_agreement(cpu_out, yolo_card_out)[0])
+    check(min(agree) >= 0.9, f"the CPU's YOLOv4 artifact agrees with the card's on {agree}")
+    print(f"phase 24 export YOLOv4 artifact on the host's CPU (load_predictor device='cpu'): "
+          f"loaded in {cpu_load_s:.1f} s, b1 in {cpu_s:.1f} s through the plain versions, "
+          f"launches {cpu_launches}; kept {int(cpu_out[3].sum())} boxes against the card's "
+          f"{int(yolo_card_out[3].sum())}: {agree[0]:.3f} of the card's found on the CPU and "
+          f"{agree[1]:.3f} of the CPU's on the card (same class, IoU >= 0.5; tolerance 0.9) "
+          f"[card {card}]", flush=True)
+    print(f"phase 24 took {time.perf_counter() - t_phase:.1f} s on [{card}]", flush=True)
+    return served
+
+
 def main():
     import torch
 
@@ -4152,12 +4357,14 @@ def main():
     distill = phase_distill(card, files)
     print(f"phase 22 took {time.perf_counter() - t22:.1f} s on [{card}]", flush=True)
     int8 = phase_int8(card, weights, files, train["ckpt"], d0_train["ckpt"])
+    exported = phase_export(card, weights, d0_weights)
     nms_launches = (yolo_launches["nms_sweep"] + d0_launches["nms_sweep"]
                     + train["val_launches"] + eval_launches + d0_eval["nms_sweep"]
                     + v3_serving["launches"] + v3_train["launches"] + mosaic["val_launches"]
-                    + extras["nms_sweep"] + distill["launches"])
+                    + extras["nms_sweep"] + distill["launches"] + exported["nms_sweep"])
     dw_launches = (d0_launches["dwconv_bn_swish"] + d0_eval["dwconv_bn_swish"]
-                   + extras["dwconv_bn_swish"])
+                   + extras["dwconv_bn_swish"] + exported["dwconv_bn_swish"])
+    int8["launches"]["int8_conv"] += exported["int8_conv"]
     dw = dw_sums[64]
     i8, i8dw = int8["int8_conv"], int8["int8_dwconv"]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s on [{card}]; kernels "
@@ -4182,7 +4389,9 @@ def main():
           f"@512 b64 bf16 forward, launches in the D0 int8 eval CLI; their library_ms the "
           f"quantize + int8 im2col + torch._int_mm + dequant route (cuDNN f32 grouped conv of the "
           f"int8 values for the depthwise), cuDNN bf16 of the same convs {i8['cudnn_ms']:.4f} "
-          f"and {i8dw['cudnn_ms']:.4f} ms", flush=True)
+          f"and {i8dw['cudnn_ms']:.4f} ms; phase 24's served artifacts add nms_sweep "
+          f"{exported['nms_sweep']}, dwconv_bn_swish {exported['dwconv_bn_swish']} and "
+          f"int8_conv {exported['int8_conv']} launches", flush=True)
     print(json.dumps({"kernels": [
         {"name": "nms_sweep", "route": "cuda", "source": NMS_SOURCE, "replaces": NMS_REPLACES,
          "launches": nms_launches,

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from tmv_tpu.models.yolo_v4 import YoloV4 as FlaxYoloV4
-from tmv_tpu_torch.convert.flax_bridge import flax_to_state_dict
+from tmv_tpu_torch.convert.flax_bridge import flax_to_state_dict, state_dict_to_flax
 from tmv_tpu_torch.models.yolo_v4 import YoloV4
 from torch_port_cases import flax_leaf_count, seeded_variables
 
@@ -53,6 +53,21 @@ def test_full_width_yolov4_bridges_every_leaf_once(yolo_tree):
     assert n_params == sum(v.size for _, v in _flat(yolo_tree["params"]))
     assert model.ConvBN_0.BatchNorm_0.eps == 1e-3
     assert model.ConvBN_0.BatchNorm_0.momentum == pytest.approx(0.01)
+
+
+def test_full_width_yolov4_round_trips_through_the_state_dict(yolo_tree):
+    """flax → state_dict → flax (``state_dict_to_flax``) is the identity on the JAX
+    model's own tree, leaf by leaf; the BatchNorm step counters are dropped, and a key
+    without a flax counterpart is refused."""
+    state = flax_to_state_dict(yolo_tree)
+    back = state_dict_to_flax(state)
+    want, got = dict(_flat(yolo_tree)), dict(_flat(back))
+    assert set(got) == set(want)
+    for path, value in want.items():
+        assert got[path].dtype == np.float32 and got[path].shape == value.shape, path
+        np.testing.assert_array_equal(got[path], value)
+    with pytest.raises(KeyError, match="no flax counterpart"):
+        state_dict_to_flax({**state, "ConvBN_0.Mystery_0.weight": torch.zeros(3)})
 
 
 def test_bridge_refuses_unknown_and_mismatched_leaves(yolo_tree):

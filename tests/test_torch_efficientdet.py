@@ -347,7 +347,11 @@ def test_efficientdet_serve_refuses_unported_flags(tmp_path, capsys):
         with pytest.raises(SystemExit):
             serve.parse_args(base + extra)
         assert "int8 serving is yolo-family" in capsys.readouterr().err
-    for extra in (["--dp", "2"], ["--spatial", "2"], ["--artifact", "a.tmvx"]):
+    for extra in (["--dp", "2"], ["--spatial", "2"]):
         with pytest.raises(SystemExit):
             serve.parse_args(base + extra)
         assert "not yet ported" in capsys.readouterr().err
+    # --artifact is ported: its program pins the weights --randomInit would make
+    with pytest.raises(SystemExit):
+        serve.parse_args(base + ["--artifact", "a.tmvt"])
+    assert "cannot be combined with --artifact" in capsys.readouterr().err

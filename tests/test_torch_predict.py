@@ -135,7 +135,7 @@ def test_serve_path_answers_the_reference_contract(tmp_path, rng, batch):
 
 def test_serve_refuses_unported_flags_and_missing_weights(tmp_path, capsys):
     base = _write_inputs(tmp_path)
-    for extra in (["--dp", "2"], ["--spatial", "2"], ["--artifact", "a.tmvx"]):
+    for extra in (["--dp", "2"], ["--spatial", "2"]):
         with pytest.raises(SystemExit):
             serve.parse_args(base + ["--randomInit"] + extra)
         err = capsys.readouterr().err
@@ -160,6 +160,32 @@ def test_serve_refuses_unported_flags_and_missing_weights(tmp_path, capsys):
         serve.parse_args(base[:2] + ["--randomInit"])   # yolo without --anchorsFile
 
 
+@pytest.mark.parametrize("family", ["v4", "v3", "resnet", "efficientdet"])
+def test_seeded_init_sets_every_weight_of_an_uninitialized_build(family):
+    """The servers and the eval CLI build their models without weight values
+    (``uninitialized=True``) and then load or seed them: the seeded init must set every
+    parameter and buffer (NaN and -7 planted in each are all gone)."""
+    from tmv_tpu_torch.models.detector_harness import build_yolo_model
+    from tmv_tpu_torch.models.efficientdet.harness import build_efficientdet
+    from tmv_tpu_torch.models.efficientdet.net import init_weights as d0_init
+    from tmv_tpu_torch.models.layers.common import init_weights
+
+    if family == "efficientdet":
+        model, _ = build_efficientdet("efficientdet-d0", 4, 64, device="cpu", uninitialized=True)
+        init = d0_init
+    else:
+        model, _ = build_yolo_model(family, 3, device="cpu", uninitialized=True)
+        init = init_weights
+    tensors = dict(model.named_parameters()) | dict(model.named_buffers())
+    with torch.no_grad():
+        for t in tensors.values():
+            t.fill_(float("nan") if t.is_floating_point() else -7)
+    init(model, 0)
+    left = [name for name, t in tensors.items()
+            if (t.isnan() if t.is_floating_point() else t == -7).any()]
+    assert not left, left
+
+
 def test_device_cuda_without_a_card_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -180,9 +206,11 @@ def test_port_imports_no_jax(tmp_path):
     cached YOLO pipelines, a remat step, and FaceNet's three CLIs' arguments, an
     IRv1 with remat, its padded embeddings, the mining, the optax-rule optimizers
     and the LFW evaluation, the MoCo and distillation CLIs' arguments, a MoCo
-    train state (query and key towers, queue) and the pseudo-labeler, and the
-    visualize package leave ``tmv_tpu`` (and jax, flax, jaxlib, optax, sklearn
-    and matplotlib) out of ``sys.modules``; h5py may be loaded."""
+    train state (query and key towers, queue) and the pseudo-labeler, the
+    visualize package, the export CLI's and ``serve --artifact``'s arguments,
+    ``serving/export.py`` and the space-to-depth stem conv leave ``tmv_tpu`` (and jax,
+    flax, jaxlib, optax, sklearn and matplotlib) out of ``sys.modules``; h5py may be
+    loaded."""
     yolo = _write_inputs(tmp_path) + ["--randomInit", "--imageSize", "32", "--device", "cpu",
                                       "--batch", "2"]
     det = _write_inputs(tmp_path)[:2] + ["--family", "efficientdet", "--randomInit",
@@ -309,6 +337,13 @@ def test_port_imports_no_jax(tmp_path):
             "    torch.zeros(1, 32, 32, 3), conf=torch.full((1,), 0.4))\n"
             "assert out[0].shape == (1, 100, 4)\n"
             "import tmv_tpu_torch.visualize\n"
+            "from tmv_tpu_torch.cli import export_model\n"
+            "from tmv_tpu_torch.ops.space_to_depth import s2d_stem_conv\n"
+            "from tmv_tpu_torch.serving.export import load_program\n"
+            "export_model.parse_args(['--classesFile', 'c.txt', '--anchorsFile', 'a.txt',\n"
+            "                         '--out', 'o.tmvt', '--int8Static', 'calib'])\n"
+            "serve.parse_args(['--classesFile', 'c.txt', '--artifact', 'o.tmvt'])\n"
+            "assert s2d_stem_conv(torch.zeros(1, 3, 8, 8), torch.zeros(4, 3, 3, 3)).shape == (1, 4, 4, 4)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('tmv_tpu', 'jax', 'flax', 'jaxlib', 'optax', 'sklearn', 'matplotlib'))\n"
             "assert not bad, bad\n"

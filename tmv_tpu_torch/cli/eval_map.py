@@ -103,8 +103,9 @@ def score_dataset(data, classes_num: int, mode: str, variant: str, thresh: float
 
 
 def load_weights(args, model):
-    """``--modelPath`` into ``model`` (seeded random weights where omitted) →
-    the model in ``channels_last`` and eval mode."""
+    """``--modelPath`` into ``model`` (built without weight values; seeded random
+    weights where ``--modelPath`` is omitted) → the model in ``channels_last`` and
+    eval mode."""
     import torch
 
     from tmv_tpu_torch.core import checkpoint
@@ -150,7 +151,7 @@ def load_model(args, classes_num: int, anchors_per_scale: int, device):
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model, iou_type = build_yolo_model(args.version, classes_num, anchors_per_scale,
-                                       dtype=dtype, device=device)
+                                       dtype=dtype, device=device, uninitialized=True)
     return load_weights(args, model), iou_type
 
 
@@ -220,7 +221,7 @@ def efficientdet_records(args):
     size = args.imageSize or get_efficientdet_config(args.modelName).image_size
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model, anchors = build_efficientdet(args.modelName, names_num + 1, size, dtype=dtype,
-                                        device=device)
+                                        device=device, uninitialized=True)
     num_classes = model.config.num_classes
     model = load_weights(args, model)
     pipeline = EfficientDetPipeline(args.imagePath, args.labelFile, args.classesFile,

@@ -13,6 +13,13 @@ Usage:
     python -m tmv_tpu_torch.cli.serve --family efficientdet --modelName efficientdet-d0 \\
         --classesFile classes.txt --imageSize 512 --bf16 --randomInit --seed 0
 
+``--artifact model.tmvt`` serves an export of ``cli/export_model.py`` (JAX
+``serve_artifact``): no model is built and no checkpoint loaded; ``--imageSize`` must
+be the artifact's, and ``--batch``, the int8 flags, ``--bf16``, ``--modelPath`` and
+``--randomInit`` are refused (the program pins them). On the card the artifact runs
+the hand-written kernels (the ``tmv::`` ops), with ``--device cpu`` their plain
+versions.
+
 ``--modelPath`` is a checkpoint directory of the port's trainers or of
 ``cli/convert_darknet.py`` (the latest step), or a ``.pt`` state_dict of the
 port's module (from a JAX checkpoint: ``tools/export_torch_weights.py`` through
@@ -39,7 +46,6 @@ import argparse
 _NOT_PORTED = {
     "--dp": (lambda a: a.dp is not None, "ROADMAP.md queue 6: multi-GPU training"),
     "--spatial": (lambda a: a.spatial is not None, "ROADMAP.md queue 6: multi-GPU training"),
-    "--artifact": (lambda a: a.artifact is not None, "ROADMAP.md queue 6: export"),
 }
 
 
@@ -78,13 +84,24 @@ def parse_args(argv=None):
                    help="per-input-channel activation scales")
     p.add_argument("--dp", type=int, default=None)
     p.add_argument("--spatial", type=int, default=None)
-    p.add_argument("--artifact", default=None)
+    p.add_argument("--artifact", default=None,
+                   help="serve an export of cli/export_model.py: skips the model build "
+                        "and the checkpoint load")
     args = p.parse_args(argv)
     refused = [f"{flag} ({where})" for flag, (given, where) in _NOT_PORTED.items()
                if given(args)]
     if refused:
         p.error(f"not yet ported to tmv_tpu_torch: {'; '.join(refused)} "
                 "(serve them with python -m tmv_tpu.cli.serve)")
+    if args.artifact:
+        bad = [f for f, on in (("--batch", args.batch > 1), ("--int8", args.int8),
+                               ("--int8Static", bool(args.int8Static)), ("--bf16", args.bf16),
+                               ("--modelPath", args.modelPath is not None),
+                               ("--randomInit", args.randomInit)) if on]
+        if bad:
+            p.error(f"{', '.join(bad)} cannot be combined with --artifact: the exported "
+                    "program pins its own weights, batch size and dtypes at export time")
+        return args
     if args.randomInit == (args.modelPath is not None):
         p.error("give exactly one of --modelPath and --randomInit")
     if args.family == "yolo" and args.anchorsFile is None:
@@ -126,8 +143,9 @@ def quant_of(args) -> str:
 
 
 def _build_model(args, classes_num, dtype, thresholds=None):
-    """``(model, make_batched, init)`` of the family: the module, a factory of
-    its batched predictor (``make_batched(quant)``) and its seeded init.
+    """``(model, make_batched, init)`` of the family: the module (its weights without
+    values: the caller loads them or seeds them with ``init``), a factory of its
+    batched predictor (``make_batched(quant)``) and its seeded init.
     ``thresholds`` (``confidence``, ``scores``, ``iou``) replace the server's (the
     JAX server's 0.5, 0.2, 0.5 for YOLO; the predictor's own for EfficientDet)."""
     if args.family == "efficientdet":
@@ -137,8 +155,9 @@ def _build_model(args, classes_num, dtype, thresholds=None):
         from tmv_tpu_torch.models.efficientdet.net import init_weights
 
         # background reserved at id 0
+        # every weight is loaded or seeded next (build_service, export_model)
         model, anchors = build_efficientdet(args.modelName, classes_num + 1, args.imageSize,
-                                            dtype=dtype, device=args.device)
+                                            dtype=dtype, device=args.device, uninitialized=True)
         kw = ({} if thresholds is None else
               dict(iou_threshold=thresholds["iou"], score_threshold=thresholds["scores"]))
         return (model,
@@ -152,7 +171,7 @@ def _build_model(args, classes_num, dtype, thresholds=None):
 
     anchors = load_anchors(args.anchorsFile)
     model, iou_type = build_yolo_model(args.version, classes_num, anchors.shape[1], dtype=dtype,
-                                       device=args.device)
+                                       device=args.device, uninitialized=True)
     image_wh = (args.imageSize, args.imageSize)
     t = thresholds or dict(confidence=0.5, scores=0.2, iou=0.5)
     kw = dict(confidence_thresh=t["confidence"], scores_thresh=t["scores"], iou_thresh=t["iou"],
@@ -162,10 +181,39 @@ def _build_model(args, classes_num, dtype, thresholds=None):
             init_weights)
 
 
+def artifact_service(args):
+    """``serve --artifact`` (JAX ``cli/serve.py::serve_artifact``): the artifact
+    loaded on ``--device`` and warmed → a ``DetectionService`` with ``variables=None``.
+    Refuses an ``--imageSize`` other than the artifact's and an unbaked artifact."""
+    import numpy as np
+
+    from tmv_tpu_torch.data.loaders import load_classes
+    from tmv_tpu_torch.serving.app import DetectionService
+    from tmv_tpu_torch.serving.export import load_predictor, read_export_meta
+
+    classes_name, _ = load_classes(args.classesFile)
+    meta = read_export_meta(args.artifact)
+    if meta.get("image_size") and meta["image_size"] != args.imageSize:
+        raise SystemExit(
+            f"--imageSize {args.imageSize} does not match the artifact (exported at "
+            f"{meta['image_size']} px, shape {meta.get('input_shape')}); pass "
+            f"--imageSize {meta['image_size']}")
+    image_wh = (args.imageSize, args.imageSize)
+    predict_fn = load_predictor(args.artifact, device=args.device)
+    if not predict_fn.baked:
+        raise SystemExit(f"{args.artifact} is unbaked: it takes the weights at call time; "
+                         "serve a baked export (cli/export_model.py bakes)")
+    predict_fn(None, np.zeros((1, image_wh[1], image_wh[0], 3), np.float32))
+    print(f"artifact predictor warm on {args.device} ({meta.get('family', 'yolo')} "
+          f"{meta.get('version')}, quant {meta.get('quant')})", flush=True)
+    return DetectionService(predict_fn, None, classes_name, image_wh)
+
+
 def build_service(args, thresholds=None):
     """Model, weights and warm predictor → ``(service, model)``: a
     ``DetectionService`` ready for ``create_app``/``run_server`` (its
-    ``batcher`` is set when ``--batch`` > 1) and the module it serves.
+    ``batcher`` is set when ``--batch`` > 1) and the module it serves (None for
+    ``--artifact``, which builds no model).
     ``thresholds`` as in ``_build_model`` (``cli/detect.py`` passes its own)."""
     import numpy as np
     import torch
@@ -176,6 +224,10 @@ def build_service(args, thresholds=None):
     from tmv_tpu_torch.serving.app import DetectionService
 
     device = check_device(args.device)
+    if getattr(args, "artifact", None):
+        service = artifact_service(args)
+        service.batcher = None
+        return service, None
     classes_name, classes_num = load_classes(args.classesFile)
     image_wh = (args.imageSize, args.imageSize)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
@@ -229,10 +281,19 @@ def build_app(args):
     return create_app(service), service, model
 
 
+def serve_artifact(args):
+    """``--artifact``: ``artifact_service`` behind the reference's HTTP routes."""
+    from tmv_tpu_torch.serving.app import run_server
+
+    run_server(artifact_service(args), args.host, args.port)
+
+
 def main(argv=None):
     from tmv_tpu_torch.serving.app import run_server
 
     args = parse_args(argv)
+    if args.artifact:
+        return serve_artifact(args)
     service, _ = build_service(args)
     run_server(service, args.host, args.port, threaded=args.batch > 1)
 

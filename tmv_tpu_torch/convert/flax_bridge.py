@@ -37,6 +37,10 @@ the parameters, so a JAX ``TrainState`` resumes in the port.
 of a ``torch.optim.SGD`` (the step count lives in the train state, the learning
 rate in its schedule).
 
+``state_dict_to_flax`` is the way back: a port ``state_dict`` → the flax tree, so
+that a checkpoint of the port's trainers is scored by the JAX package
+(``tools/torch_checkpoint_to_flax.py``).
+
 ``quant_from_flax`` maps the JAX ``quant`` collection of static int8 (HWIO
 ``kernel_q``, scalar or per-channel ``in_absmax``, ``w_absmax`` per site, at the
 paths of ``tmv_tpu/quant/static.py``) onto the port's non-persistent site buffers
@@ -158,6 +162,42 @@ def flax_to_state_dict(variables: Mapping[str, Any],
     if model is not None:
         _check_against(state, model)
     return state
+
+
+_BN_FROM_TORCH = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                  "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+
+
+def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, Any]]:
+    """The reverse of ``flax_to_state_dict``: a ``state_dict`` → ``{"params": …,
+    "batch_stats": …}`` nested dicts of float32 numpy arrays in flax's layouts (OIHW
+    conv weights back to HWIO, Dense weights transposed, BatchNorm buffers to
+    ``batch_stats``; ``num_batches_tracked`` has no flax counterpart and is dropped).
+    It needs no jax. Raises on a key it does not know."""
+    out: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for key, tensor in state.items():
+        *modules, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        kind = _kind(modules[-1]) if modules else None
+        array = tensor.detach().cpu().float().numpy()
+        if kind == "Conv" and leaf == "weight":
+            collection, name, array = "params", "kernel", array.transpose(2, 3, 1, 0)
+        elif kind == "Dense" and leaf == "weight":
+            collection, name, array = "params", "kernel", array.T
+        elif kind in ("Conv", "Dense") and leaf == "bias":
+            collection, name = "params", "bias"
+        elif kind == "BatchNorm" and leaf in _BN_FROM_TORCH:
+            collection, name = _BN_FROM_TORCH[leaf]
+        elif kind == "BiFPNNode" and re.fullmatch(r"WSM_\d+", leaf):
+            collection, name = "params", leaf
+        else:
+            raise KeyError(f"torch key {key} has no flax counterpart")
+        node = out[collection]
+        for module in modules:
+            node = node.setdefault(module, {})
+        node[name] = np.array(array, order="C")  # keeps 0-d leaves 0-d
+    return out
 
 
 def _check_against(state: Mapping[str, torch.Tensor], model: torch.nn.Module):

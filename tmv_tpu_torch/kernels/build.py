@@ -6,6 +6,8 @@ directory git ignores), keyed by a hash of the source and the flags, and binds
 the library's C functions; later calls return the loaded library. A failed
 build raises with nvcc's stderr. ``log`` keeps nvcc's output (``-Xptxas -v``
 prints each kernel's registers), ``seconds`` the time the build took.
+``register_cuda_kernel`` makes a kernel's launch the CUDA implementation of its
+``torch.library`` custom op.
 """
 
 import ctypes
@@ -77,3 +79,12 @@ class KernelLibrary:
         if err != 0:
             raise RuntimeError(f"{what} launch failed: cudaError {err} "
                                f"({self._lib.tmv_cuda_error_string(err).decode()})")
+
+
+def register_cuda_kernel(op, kernel: Callable):
+    """Register ``kernel`` as the CUDA implementation of the custom op ``op`` and keep
+    it in the op's table as it is: ``register_kernel`` wraps it in
+    ``torch._disable_dynamo``, and inside a traced program run on the card that wrapper
+    cost more host time per call than the launch itself (``PERF.md`` §6)."""
+    op.register_kernel("cuda")(kernel)
+    op._backend_fns["cuda"] = kernel

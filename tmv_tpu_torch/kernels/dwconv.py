@@ -19,6 +19,11 @@ a sliding window in registers over each thread's 2 x 4 output pixels.
   ``y · sigmoid(y)``, cast to the input's dtype.
 - ``LIBRARY`` builds the source with ``nvcc`` at first use (``kernels/build.py``).
 - ``launches`` counts kernel launches.
+- ``tmv::dw_bn_swish`` (``dw_bn_swish_op``) is the same function as a ``torch.library``
+  custom op: the kernel's launch is its CUDA implementation, the plain version its CPU one,
+  and its fake returns the channels_last output. ``fused_dw_bn_swish`` calls it while
+  ``torch.export`` traces (an exported program carries the op, which picks by
+  device when the program runs); eager calls go straight to the same functions.
 - ``kernel_info`` reports what each instantiation uses on the card (registers,
   shared memory, spills, resident blocks per SM).
 
@@ -37,8 +42,8 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from tmv_tpu_torch.kernels.build import SM90A_FLAGS, KernelLibrary
-from tmv_tpu_torch.models.layers.common import same_pads
+from tmv_tpu_torch.kernels.build import SM90A_FLAGS, KernelLibrary, register_cuda_kernel
+from tmv_tpu_torch.ops.padding import same_pads
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "dwconv_bn_swish.cu"
 
@@ -67,11 +72,11 @@ def dw_bn_swish_reference(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return (y * torch.sigmoid(y)).to(x.dtype).contiguous(memory_format=torch.channels_last)
 
 
-def _check(x, w, scale, offset, stride):
+def _check(x, w, scale, offset, stride, layout=True):
     if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_dw_bn_swish: x must be a 4-d float32 or bfloat16 tensor, "
                          f"got {tuple(x.shape)} {x.dtype}")
-    if not x.is_contiguous(memory_format=torch.channels_last):
+    if layout and not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("fused_dw_bn_swish: x must be channels_last-contiguous (B, C, H, W)")
     c, k = x.shape[1], w.shape[0]
     if k not in (3, 5) or tuple(w.shape) != (k, k, c):
@@ -88,21 +93,21 @@ def _check(x, w, scale, offset, stride):
             raise ValueError(f"fused_dw_bn_swish: {name} is on {t.device}, x on {x.device}")
 
 
-def fused_dw_bn_swish(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                      offset: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """``swish(depthwise_conv(x, w, stride, SAME) · scale + offset)``; the CUDA
-    kernel for CUDA tensors. Does not synchronise."""
-    _check(x, w, scale, offset, stride)
-    if x.device.type == "cpu":
-        return dw_bn_swish_reference(x, w, scale, offset, stride)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_dw_bn_swish: no kernel for device {x.device}")
+def _out_like(x, k, stride):
+    b, c, h, w = x.shape
+    return torch.empty((b, c, -(-h // stride), -(-w // stride)), dtype=x.dtype,
+                       device=x.device, memory_format=torch.channels_last)
+
+
+def _dw_cuda(x, w, scale, offset, stride):
+    """The kernel's launch (``tmv::dw_bn_swish``'s CUDA implementation). In a traced
+    program the layout is the run's, not the trace's: a tensor that arrives in
+    another layout is made channels_last here (a no-op where it is)."""
+    x = x.contiguous(memory_format=torch.channels_last)
     b, c, h, width = x.shape
     k = w.shape[0]
-    h_out, w_out = -(-h // stride), -(-width // stride)
     top, left = same_pads(h, k, stride)[0], same_pads(width, k, stride)[0]
-    out = torch.empty((b, c, h_out, w_out), dtype=x.dtype, device=x.device,
-                      memory_format=torch.channels_last)
+    out = _out_like(x, k, stride)
     if out.numel() == 0:
         return out
     # 4-channel-aligned rows and pointers: the halo is staged by cp.async; else
@@ -110,17 +115,53 @@ def fused_dw_bn_swish(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     vector_ok = (c % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
                  and all(t.data_ptr() % 16 == 0 for t in (w, scale, offset)))
     lib = LIBRARY.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tmv_dw_bn_swish(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), offset.data_ptr(), out.data_ptr(),
-            b, h, width, c, h_out, w_out, top, left, k, stride,
-            int(x.dtype == torch.bfloat16), 4 if vector_ok else 1, stream)
+    # the device made current and its current stream taken by C calls, without a
+    # torch.cuda.Stream object: this host work is on every b1 forward's path
+    index = x.device.index
+    previous = torch._C._cuda_exchangeDevice(index)
+    err = lib.tmv_dw_bn_swish(
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(), offset.data_ptr(), out.data_ptr(),
+        b, h, width, c, out.shape[2], out.shape[3], top, left, k, stride,
+        int(x.dtype == torch.bfloat16), 4 if vector_ok else 1,
+        torch._C._cuda_getCurrentRawStream(index))
+    torch._C._cuda_maybeExchangeDevice(previous)
     LIBRARY.check(err, "tmv_dw_bn_swish")
     global launches
     with _lock:
         launches += 1
     return out
+
+
+@torch.library.custom_op("tmv::dw_bn_swish", mutates_args=(), device_types="cpu")
+def dw_bn_swish_op(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                   offset: torch.Tensor, stride: int) -> torch.Tensor:
+    """``fused_dw_bn_swish`` as an op; on the CPU the plain version."""
+    return dw_bn_swish_reference(x, w, scale, offset, stride)
+
+
+register_cuda_kernel(dw_bn_swish_op, _dw_cuda)
+
+
+@dw_bn_swish_op.register_fake
+def _dw_fake(x, w, scale, offset, stride):
+    return _out_like(x, w.shape[0], stride)
+
+
+def fused_dw_bn_swish(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                      offset: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """``swish(depthwise_conv(x, w, stride, SAME) · scale + offset)``; the CUDA
+    kernel for CUDA tensors. Does not synchronise."""
+    exporting = torch.compiler.is_exporting()
+    # traced on the card, the swish after an eval BatchNorm carries contiguous
+    # strides where the run gives channels_last; the CUDA implementation takes either
+    _check(x, w, scale, offset, stride, layout=not exporting)
+    if exporting:
+        return dw_bn_swish_op(x, w, scale, offset, stride)
+    if x.device.type == "cpu":
+        return dw_bn_swish_reference(x, w, scale, offset, stride)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_dw_bn_swish: no kernel for device {x.device}")
+    return _dw_cuda(x, w, scale, offset, stride)
 
 
 def kernel_info(k: int, stride: int, dtype: torch.dtype) -> dict:

@@ -29,6 +29,14 @@ bytes written and one pass fewer).
 - ``LIBRARY`` builds the source with ``nvcc`` at first use (``kernels/build.py``).
 - ``launches`` counts the wrappers' calls that reached the card, by name (an ``int8_conv``
   call is two launches: the quantize pass and the GEMM).
+- ``tmv::int8_conv`` (``int8_conv_op``: the quantize pass and the GEMM in one op) and
+  ``tmv::int8_dwconv`` (``int8_dwconv_op``) are the two wrappers as ``torch.library``
+  custom ops: the kernels' launches are their CUDA implementations, the plain versions their
+  CPU ones, and their fakes return the channels_last output. The wrappers call them
+  while ``torch.export`` traces, so that an exported program carries the ops and picks
+  by device when it runs; eager calls go straight to the same functions. Alignment
+  checks and the weight maps' cache live in the CUDA implementations (a fake tensor
+  has no address).
 - ``kernel_info`` reports what each kernel instantiation uses on the card.
 - ``quantize_padded`` is the first of ``int8_conv``'s two launches on its own (the
   quantize pass into int8 NHWC with the channels padded to 16), for timing it apart;
@@ -49,12 +57,12 @@ tensor or a ``(Cin,)`` vector; ``deq`` and ``offset`` are ``(Cout,)`` float32
 import ctypes
 import threading
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from tmv_tpu_torch.kernels.build import SM90A_FLAGS, KernelLibrary
+from tmv_tpu_torch.kernels.build import SM90A_FLAGS, KernelLibrary, register_cuda_kernel
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "int8_conv.cu"
 K_TILE = 64          # bytes of K per shared-memory stage of the GEMM
@@ -241,12 +249,10 @@ def _count(name: str):
         launches[name] += 1
 
 
-def _stream_call(x, fn):
+def _library_for(x):
     if x.device.type != "cuda":
         raise ValueError(f"no int8 kernel for device {x.device}")
-    lib = LIBRARY.load()
-    with torch.cuda.device(x.device):
-        return lib, fn(lib, torch.cuda.current_stream().cuda_stream)
+    return LIBRARY.load()
 
 
 def _vec(x: torch.Tensor, channels: int) -> bool:
@@ -266,13 +272,16 @@ def quantize_padded(x: torch.Tensor, in_absmax: torch.Tensor) -> torch.Tensor:
         return quantize_padded_reference(x, in_absmax)
     cp = padded_channels(cin)
     xq = torch.empty((b, h, w, cp), dtype=torch.int8, device=x.device)
-
-    def launch(lib, stream):
-        return lib.tmv_int8_quantize(x.data_ptr(), in_absmax.data_ptr(),
-                                     int(in_absmax.dim() == 1), xq.data_ptr(), b * h * w, cin,
-                                     cp, int(x.dtype == torch.bfloat16), int(_vec(x, 8)), stream)
-
-    _, err = _stream_call(x, launch)
+    lib = _library_for(x)
+    # the device made current and its current stream taken by C calls, without a
+    # torch.cuda.Stream object: this host work is on every b1 forward's path
+    index = x.device.index
+    previous = torch._C._cuda_exchangeDevice(index)
+    err = lib.tmv_int8_quantize(x.data_ptr(), in_absmax.data_ptr(), int(in_absmax.dim() == 1),
+                                xq.data_ptr(), b * h * w, cin, cp, int(x.dtype == torch.bfloat16),
+                                int(_vec(x, 8)),
+        torch._C._cuda_getCurrentRawStream(index))
+    torch._C._cuda_maybeExchangeDevice(previous)
     LIBRARY.check(err, "tmv_int8_quantize")
     _count("int8_quantize")
     return xq
@@ -295,6 +304,68 @@ def _weight_map(lib, kernel_q: torch.Tensor, kpad: int, block_n: int):
     return found
 
 
+def _out_shape(x, cout, kh, kw, stride, pads):
+    top, left, bottom, right = pads
+    return (x.shape[0], cout, _out_size(x.shape[2], kh, stride, top, bottom),
+            _out_size(x.shape[3], kw, stride, left, right))
+
+
+def _empty_out(x, shape, return_acc, out_dtype):
+    return torch.empty(shape, dtype=torch.int32 if return_acc else out_dtype, device=x.device,
+                       memory_format=torch.channels_last)
+
+
+def _conv_cuda(x, kernel_q, in_absmax, deq, offset, kh, kw, stride, pads, return_acc,
+               out_dtype):
+    """The quantize pass and the GEMM (``tmv::int8_conv``'s CUDA implementation)."""
+    b, cin, h, w = x.shape
+    cout = kernel_q.shape[0]
+    plan = conv_plan(cin, cout, kh, kw)
+    top, left = pads[0], pads[1]
+    out = _empty_out(x, _out_shape(x, cout, kh, kw, stride, pads), return_acc, out_dtype)
+    if out.numel() == 0:
+        return out
+    if kernel_q.data_ptr() % 16:
+        raise ValueError("int8_conv: kernel_q must be 16-byte aligned")
+    xq = torch.empty((b, h, w, plan["cp"]), dtype=torch.int8, device=x.device)
+    out_kind = 2 if return_acc else int(out_dtype == torch.bfloat16)
+    lib = _library_for(x)
+    weight_map = _weight_map(lib, kernel_q, plan["kpad"], plan["block_n"])
+    index = x.device.index
+    previous = torch._C._cuda_exchangeDevice(index)
+    err = lib.tmv_int8_conv(
+        x.data_ptr(), in_absmax.data_ptr(), int(in_absmax.dim() == 1), xq.data_ptr(),
+        kernel_q.data_ptr(), weight_map, plan["kpad"], deq.data_ptr(),
+        None if offset is None else offset.data_ptr(), out.data_ptr(), out_kind,
+        b, h, w, cin, plan["cp"], cout, kh, kw, stride, top, left, out.shape[2],
+        out.shape[3], plan["block_n"], int(x.dtype == torch.bfloat16), int(_vec(x, 8)),
+        torch._C._cuda_getCurrentRawStream(index))
+    torch._C._cuda_maybeExchangeDevice(previous)
+    LIBRARY.check(err, "tmv_int8_conv")
+    _count("int8_conv")
+    return out
+
+
+@torch.library.custom_op("tmv::int8_conv", mutates_args=(), device_types="cpu")
+def int8_conv_op(x: torch.Tensor, kernel_q: torch.Tensor, in_absmax: torch.Tensor,
+                 deq: torch.Tensor, offset: Optional[torch.Tensor], kh: int, kw: int,
+                 stride: int, pads: List[int], return_acc: bool,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """``int8_conv`` as an op; on the CPU the plain version."""
+    return int8_conv_reference(x, kernel_q, in_absmax, deq, offset, (kh, kw), stride, pads,
+                               return_acc, out_dtype)
+
+
+register_cuda_kernel(int8_conv_op, _conv_cuda)
+
+
+@int8_conv_op.register_fake
+def _conv_fake(x, kernel_q, in_absmax, deq, offset, kh, kw, stride, pads, return_acc,
+               out_dtype):
+    return _empty_out(x, _out_shape(x, kernel_q.shape[0], kh, kw, stride, pads), return_acc,
+                      out_dtype)
+
+
 def int8_conv(x: torch.Tensor, kernel_q: torch.Tensor, in_absmax: torch.Tensor,
               deq: torch.Tensor, offset: Optional[torch.Tensor], kernel_size: Tuple[int, int],
               stride: int = 1, pads: Sequence[int] = (0, 0, 0, 0),
@@ -303,38 +374,60 @@ def int8_conv(x: torch.Tensor, kernel_q: torch.Tensor, in_absmax: torch.Tensor,
     (or its int32 accumulator); for CUDA tensors the quantize pass and the GEMM kernel
     (one call, counted once). Does not synchronise."""
     kh, kw = kernel_size
-    b, cin, h, w = x.shape
     cout = kernel_q.shape[0]
-    plan = conv_plan(cin, cout, kh, kw)
+    plan = conv_plan(x.shape[1], cout, kh, kw)
     _check("int8_conv", x, kernel_q, (cout, plan["kpad"]), in_absmax, deq, offset, cout, stride,
            pads, out_dtype)
+    args = (x, kernel_q, in_absmax, deq, offset, kh, kw, stride, [int(p) for p in pads],
+            return_acc, out_dtype)
+    if torch.compiler.is_exporting():
+        return int8_conv_op(*args)
     if x.device.type == "cpu":
         return int8_conv_reference(x, kernel_q, in_absmax, deq, offset, kernel_size, stride,
                                    pads, return_acc, out_dtype)
-    top, left, bottom, right = pads
-    h_out, w_out = _out_size(h, kh, stride, top, bottom), _out_size(w, kw, stride, left, right)
-    out = torch.empty((b, cout, h_out, w_out), dtype=torch.int32 if return_acc else out_dtype,
-                      device=x.device, memory_format=torch.channels_last)
+    return _conv_cuda(*args)
+
+
+def _dwconv_cuda(x, kernel_q, in_absmax, deq, offset, k, stride, pads, return_acc, out_dtype):
+    """The halo-tiled kernel (``tmv::int8_dwconv``'s CUDA implementation)."""
+    b, c, h, w = x.shape
+    top, left = pads[0], pads[1]
+    out = _empty_out(x, _out_shape(x, c, k, k, stride, pads), return_acc, out_dtype)
     if out.numel() == 0:
         return out
-    if kernel_q.data_ptr() % 16:
-        raise ValueError("int8_conv: kernel_q must be 16-byte aligned")
-    xq = torch.empty((b, h, w, plan["cp"]), dtype=torch.int8, device=x.device)
+    dw_plan(k, stride)
+    vec = c % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
     out_kind = 2 if return_acc else int(out_dtype == torch.bfloat16)
-
-    def launch(lib, stream):
-        return lib.tmv_int8_conv(
-            x.data_ptr(), in_absmax.data_ptr(), int(in_absmax.dim() == 1), xq.data_ptr(),
-            kernel_q.data_ptr(), _weight_map(lib, kernel_q, plan["kpad"], plan["block_n"]),
-            plan["kpad"], deq.data_ptr(),
-            None if offset is None else offset.data_ptr(), out.data_ptr(), out_kind,
-            b, h, w, cin, plan["cp"], cout, kh, kw, stride, top, left, h_out, w_out,
-            plan["block_n"], int(x.dtype == torch.bfloat16), int(_vec(x, 8)), stream)
-
-    _, err = _stream_call(x, launch)
-    LIBRARY.check(err, "tmv_int8_conv")
-    _count("int8_conv")
+    lib = _library_for(x)
+    index = x.device.index
+    previous = torch._C._cuda_exchangeDevice(index)
+    err = lib.tmv_int8_dwconv(
+        x.data_ptr(), in_absmax.data_ptr(), int(in_absmax.dim() == 1), kernel_q.data_ptr(),
+        deq.data_ptr(), None if offset is None else offset.data_ptr(), out.data_ptr(),
+        out_kind, b, h, w, c, k, stride, top, left, out.shape[2], out.shape[3],
+        int(x.dtype == torch.bfloat16), int(vec),
+        torch._C._cuda_getCurrentRawStream(index))
+    torch._C._cuda_maybeExchangeDevice(previous)
+    LIBRARY.check(err, "tmv_int8_dwconv")
+    _count("int8_dwconv")
     return out
+
+
+@torch.library.custom_op("tmv::int8_dwconv", mutates_args=(), device_types="cpu")
+def int8_dwconv_op(x: torch.Tensor, kernel_q: torch.Tensor, in_absmax: torch.Tensor,
+                   deq: torch.Tensor, offset: Optional[torch.Tensor], k: int, stride: int,
+                   pads: List[int], return_acc: bool, out_dtype: torch.dtype) -> torch.Tensor:
+    """``int8_dwconv`` as an op; on the CPU the plain version."""
+    return int8_dwconv_reference(x, kernel_q, in_absmax, deq, offset, k, stride, pads,
+                                 return_acc, out_dtype)
+
+
+register_cuda_kernel(int8_dwconv_op, _dwconv_cuda)
+
+
+@int8_dwconv_op.register_fake
+def _dwconv_fake(x, kernel_q, in_absmax, deq, offset, k, stride, pads, return_acc, out_dtype):
+    return _empty_out(x, _out_shape(x, x.shape[1], k, k, stride, pads), return_acc, out_dtype)
 
 
 def int8_dwconv(x: torch.Tensor, kernel_q: torch.Tensor, in_absmax: torch.Tensor,
@@ -344,33 +437,17 @@ def int8_dwconv(x: torch.Tensor, kernel_q: torch.Tensor, in_absmax: torch.Tensor
     """Depthwise int8 conv (groups = C) → ``out_dtype`` channels_last ``(B, C, Ho,
     Wo)`` (or its int32 accumulator); the CUDA kernel for CUDA tensors. Does not
     synchronise."""
-    b, c, h, w = x.shape
+    c = x.shape[1]
     _check("int8_dwconv", x, kernel_q, (k * k, c), in_absmax, deq, offset, c, stride, pads,
            out_dtype)
+    args = (x, kernel_q, in_absmax, deq, offset, k, stride, [int(p) for p in pads], return_acc,
+            out_dtype)
+    if torch.compiler.is_exporting():
+        return int8_dwconv_op(*args)
     if x.device.type == "cpu":
         return int8_dwconv_reference(x, kernel_q, in_absmax, deq, offset, k, stride, pads,
                                      return_acc, out_dtype)
-    top, left, bottom, right = pads
-    h_out, w_out = _out_size(h, k, stride, top, bottom), _out_size(w, k, stride, left, right)
-    out = torch.empty((b, c, h_out, w_out), dtype=torch.int32 if return_acc else out_dtype,
-                      device=x.device, memory_format=torch.channels_last)
-    if out.numel() == 0:
-        return out
-    dw_plan(k, stride)
-    vec = c % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
-    out_kind = 2 if return_acc else int(out_dtype == torch.bfloat16)
-
-    def launch(lib, stream):
-        return lib.tmv_int8_dwconv(
-            x.data_ptr(), in_absmax.data_ptr(), int(in_absmax.dim() == 1), kernel_q.data_ptr(),
-            deq.data_ptr(), None if offset is None else offset.data_ptr(), out.data_ptr(),
-            out_kind, b, h, w, c, k, stride, top, left, h_out, w_out,
-            int(x.dtype == torch.bfloat16), int(vec), stream)
-
-    _, err = _stream_call(x, launch)
-    LIBRARY.check(err, "tmv_int8_dwconv")
-    _count("int8_dwconv")
-    return out
+    return _dwconv_cuda(*args)
 
 
 def kernel_info(kind: str, block_n: int = 64, dtype: torch.dtype = torch.bfloat16,

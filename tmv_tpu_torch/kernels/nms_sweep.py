@@ -24,6 +24,12 @@ scan kernel (one warp per image) walks it 64 candidates at a time.
 - ``launches`` counts sweeps launched by ``greedy_sweep`` (each two kernel
   launches), so that a run can show that its main path went through the kernel.
   The stage helpers do not count: the main path never calls them.
+- ``tmv::nms_sweep`` (``nms_sweep_op``) is the sweep as a ``torch.library`` custom op: its
+  CUDA implementation is the kernel's launch (counted), its CPU implementation the
+  plain version, its fake the ``(B, N)`` bool shape. ``greedy_sweep`` calls it
+  while ``torch.export`` traces, so that an exported program carries the op and
+  picks the kernel or the plain version by the device it runs on; eager calls
+  skip the dispatcher's host cost and go straight to the same two functions.
 
 The mask is ``(B, N, ceil(N / 64))`` int64 words holding the kernel's uint64 bits:
 bit ``j % 64`` of word ``j // 64`` of row ``i`` is set iff ``j > i``, the pair's IoU
@@ -39,7 +45,7 @@ from typing import Optional
 
 import torch
 
-from tmv_tpu_torch.kernels.build import SM90A_FLAGS, KernelLibrary
+from tmv_tpu_torch.kernels.build import SM90A_FLAGS, KernelLibrary, register_cuda_kernel
 from tmv_tpu_torch.ops.iou import iou_xyxy, iou_yxyx
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "nms_sweep.cu"
@@ -173,6 +179,47 @@ def _mask_buffer(b, n, device):
     return torch.empty((b, n, mask_words(n)), dtype=torch.int64, device=device)
 
 
+def _sweep_cuda(boxes, eligible, classes, iou_threshold, iou_type, coord):
+    """The kernel's launch (``tmv::nms_sweep``'s CUDA implementation)."""
+    b, n = eligible.shape
+    _check(boxes, eligible, classes, b, n)
+    kept = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
+    if b == 0 or n == 0:
+        return kept
+    mask = _mask_buffer(b, n, boxes.device)
+    lib = LIBRARY.load()
+    # the device made current and its current stream taken by C calls, without a
+    # torch.cuda.Stream object: this host work is on every b1 forward's path
+    index = boxes.device.index
+    previous = torch._C._cuda_exchangeDevice(index)
+    err = lib.tmv_nms_sweep(
+        boxes.data_ptr(), eligible.data_ptr(),
+        classes.data_ptr() if classes is not None else None, mask.data_ptr(),
+        kept.data_ptr(), b, n, float(iou_threshold), _VARIANTS[(coord, iou_type)],
+        torch._C._cuda_getCurrentRawStream(index))
+    torch._C._cuda_maybeExchangeDevice(previous)
+    LIBRARY.check(err, "tmv_nms_sweep")
+    global launches
+    with _lock:
+        launches += 1
+    return kept
+
+
+@torch.library.custom_op("tmv::nms_sweep", mutates_args=(), device_types="cpu")
+def nms_sweep_op(boxes: torch.Tensor, eligible: torch.Tensor, classes: Optional[torch.Tensor],
+                 iou_threshold: float, iou_type: str, coord: str) -> torch.Tensor:
+    """``greedy_sweep`` as an op; on the CPU the plain version."""
+    return greedy_sweep_reference(boxes, eligible, classes, iou_threshold, iou_type, coord)
+
+
+register_cuda_kernel(nms_sweep_op, _sweep_cuda)
+
+
+@nms_sweep_op.register_fake
+def _sweep_fake(boxes, eligible, classes, iou_threshold, iou_type, coord):
+    return torch.empty(eligible.shape, dtype=torch.bool, device=boxes.device)
+
+
 def greedy_sweep(boxes: torch.Tensor, eligible: torch.Tensor,
                  classes: Optional[torch.Tensor], iou_threshold: float,
                  iou_type: str = "iou", coord: str = "xyxy") -> torch.Tensor:
@@ -186,32 +233,16 @@ def greedy_sweep(boxes: torch.Tensor, eligible: torch.Tensor,
 
     Returns ``(B, N)`` bool. Does not synchronise.
     """
-    key = (coord, iou_type)
-    if key not in _VARIANTS:
+    if (coord, iou_type) not in _VARIANTS:
         raise ValueError(f"unsupported NMS variant {coord}/{iou_type}")
+    if torch.compiler.is_exporting():
+        return nms_sweep_op(boxes, eligible, classes, float(iou_threshold), iou_type, coord)
     if boxes.device.type == "cpu":
         return greedy_sweep_reference(boxes, eligible, classes, iou_threshold,
                                       iou_type, coord)
     if boxes.device.type != "cuda":
         raise ValueError(f"greedy_sweep: no kernel for device {boxes.device}")
-    b, n = eligible.shape
-    _check(boxes, eligible, classes, b, n)
-    kept = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
-    if b == 0 or n == 0:
-        return kept
-    mask = _mask_buffer(b, n, boxes.device)
-    lib = LIBRARY.load()
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tmv_nms_sweep(
-            boxes.data_ptr(), eligible.data_ptr(),
-            classes.data_ptr() if classes is not None else None, mask.data_ptr(),
-            kept.data_ptr(), b, n, float(iou_threshold), _VARIANTS[key], stream)
-    LIBRARY.check(err, "tmv_nms_sweep")
-    global launches
-    with _lock:
-        launches += 1
-    return kept
+    return _sweep_cuda(boxes, eligible, classes, iou_threshold, iou_type, coord)
 
 
 def suppression_mask(boxes: torch.Tensor, classes: Optional[torch.Tensor],
@@ -225,12 +256,13 @@ def suppression_mask(boxes: torch.Tensor, classes: Optional[torch.Tensor],
     _check(boxes, None, classes, b, n)
     mask = _mask_buffer(b, n, boxes.device)
     lib = LIBRARY.load()
-    with torch.cuda.device(boxes.device):
-        err = lib.tmv_nms_mask(boxes.data_ptr(),
-                               classes.data_ptr() if classes is not None else None,
-                               mask.data_ptr(), b, n, float(iou_threshold),
-                               _VARIANTS[(coord, iou_type)],
-                               torch.cuda.current_stream().cuda_stream)
+    index = boxes.device.index
+    previous = torch._C._cuda_exchangeDevice(index)
+    err = lib.tmv_nms_mask(
+        boxes.data_ptr(), classes.data_ptr() if classes is not None else None,
+        mask.data_ptr(), b, n, float(iou_threshold), _VARIANTS[(coord, iou_type)],
+        torch._C._cuda_getCurrentRawStream(index))
+    torch._C._cuda_maybeExchangeDevice(previous)
     LIBRARY.check(err, "tmv_nms_mask")
     return mask
 
@@ -246,8 +278,10 @@ def scan(mask: torch.Tensor, eligible: torch.Tensor) -> torch.Tensor:
                          "tensor beside a contiguous (B, N) bool eligible")
     kept = torch.empty((b, n), dtype=torch.bool, device=mask.device)
     lib = LIBRARY.load()
-    with torch.cuda.device(mask.device):
-        err = lib.tmv_nms_scan(mask.data_ptr(), eligible.data_ptr(), kept.data_ptr(), b, n,
-                               torch.cuda.current_stream().cuda_stream)
+    index = mask.device.index
+    previous = torch._C._cuda_exchangeDevice(index)
+    err = lib.tmv_nms_scan(mask.data_ptr(), eligible.data_ptr(), kept.data_ptr(), b, n,
+        torch._C._cuda_getCurrentRawStream(index))
+    torch._C._cuda_maybeExchangeDevice(previous)
     LIBRARY.check(err, "tmv_nms_scan")
     return kept

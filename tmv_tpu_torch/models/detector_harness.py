@@ -13,9 +13,10 @@ batched form replaces ``jax.vmap`` with a batch axis and one NMS launch.
 A predictor keeps the JAX package's signature ``predict(variables, images)`` so
 that ``DetectionService`` and ``MicroBatcher`` drive it unchanged; the weights
 live in the module it was made with, and ``variables`` is not read (pass None).
-``quant`` (``"int8"``, dynamic; ``"int8_static"``, on a model prepared by
-``quant.static.prepare_static_int8``) runs the forward in ``quant.quantized(quant)``,
-entered in the thread that calls the predictor.
+Behind it is ``YoloPredictCore``, the tensor-in, tensor-out module that
+``serving/export.py`` traces (``predict.core``). ``quant`` (``"int8"``, dynamic;
+``"int8_static"``, on a model prepared by ``quant.static.prepare_static_int8``) is
+fixed in the core, which runs the forward in ``quant.quantized(quant)``.
 """
 
 import contextlib
@@ -38,32 +39,45 @@ def check_device(device) -> torch.device:
     return device
 
 
+def allocated(model: torch.nn.Module, device, uninitialized: bool) -> torch.nn.Module:
+    """``model`` as built; built on the meta device (``uninitialized``), its weights
+    allocated on ``device`` without values."""
+    return model.to_empty(device=device) if uninitialized else model
+
+
 def build_yolo_model(version: str, classes_num: int, anchors_per_scale: int = 3,
                      dtype: torch.dtype = torch.float32, device="cuda", param_dtype=None,
-                     remat: bool = False):
+                     remat: bool = False, uninitialized: bool = False):
     """Detector factory → ``(model, iou_type)``, on the card unless ``device``
     says otherwise. ``param_dtype`` holds the weights in another type than the
     compute ``dtype`` (training: float32 weights, bf16 activations); ``remat``
     recomputes the stages in the backward (``layers.common.remat_call``).
+    ``uninitialized`` leaves the weights without values (built on the meta device,
+    then allocated): for a caller that loads or seeds every weight next, it skips
+    torch's default init.
 
     ``version``: 'v4' (CSPDarknet-53, DIoU NMS), 'v3' (Darknet-53, IoU NMS) or
     'resnet', the MoCo/distillation detector (ResNet50V2 + YOLOv3 heads, IoU
     NMS). As in the JAX package, 'v3' has 3 anchors per scale whatever
     ``anchors_per_scale`` says."""
-    kw = dict(dtype=dtype, device=check_device(device), param_dtype=param_dtype, remat=remat)
+    device = check_device(device)
+    kw = dict(dtype=dtype, device="meta" if uninitialized else device, param_dtype=param_dtype,
+              remat=remat)
     if version == "v4":
         from tmv_tpu_torch.models.yolo_v4 import YoloV4
 
-        return YoloV4(classes_num, anchors_per_scale, **kw), "diou"
-    if version == "v3":
+        model, iou_type = YoloV4(classes_num, anchors_per_scale, **kw), "diou"
+    elif version == "v3":
         from tmv_tpu_torch.models.yolo_v3 import YoloV3
 
-        return YoloV3(classes_num, **kw), "iou"
-    if version == "resnet":
+        model, iou_type = YoloV3(classes_num, **kw), "iou"
+    elif version == "resnet":
         from tmv_tpu_torch.models.moco import ResNetYoloV3
 
-        return ResNetYoloV3(anchors_per_scale * (5 + classes_num), **kw), "iou"
-    raise ValueError(f"unknown yolo-family version {version!r}")
+        model, iou_type = ResNetYoloV3(anchors_per_scale * (5 + classes_num), **kw), "iou"
+    else:
+        raise ValueError(f"unknown yolo-family version {version!r}")
+    return allocated(model, device, uninitialized), iou_type
 
 
 def make_yolo_loss_fn(image_wh: Tuple[int, int], anchors_wh, iou_thresh: float = 0.5,
@@ -87,27 +101,60 @@ def images_to_device(images, model: torch.nn.Module) -> torch.Tensor:
     return torch.as_tensor(images).to(device=device, dtype=torch.float32, non_blocking=True)
 
 
+class YoloPredictCore(torch.nn.Module):
+    """The YOLO predict path as a module, tensor in and tensors out: ``(B, H, W, 3)``
+    float32 images on the model's device → ``(boxes, classes_id, scores, valid)``,
+    padded to ``max_output_size`` with a leading batch axis (boxes normalized xyxy).
+    The forward, decode and class-aware NMS run in one ``forward``, and ``quant`` is
+    fixed here: the forward runs in ``quantized(quant)``, so a program traced from the
+    core (``serving/export.py``) holds the quantized path and reads no thread-local
+    when it runs. ``model`` is a submodule: its ``state_dict`` keys gain ``model.``."""
+
+    def __init__(self, model, image_wh: Tuple[int, int], anchors_wh, classes_num: int,
+                 confidence_thresh: float = 0.5, scores_thresh: float = 0.3,
+                 iou_thresh: float = 0.5, iou_type: str = "iou", max_output_size: int = 500,
+                 quant: str = "off"):
+        super().__init__()
+        self.model = model
+        self.anchors = np.asarray(anchors_wh, np.float32)
+        self.image_wh = tuple(image_wh)
+        self.classes_num = classes_num
+        self.nms_kw = dict(confidence_thresh=confidence_thresh, scores_thresh=scores_thresh,
+                           iou_thresh=iou_thresh, iou_type=iou_type,
+                           max_output_size=max_output_size)
+        self.quant = quant
+
+    def forward(self, images: torch.Tensor):
+        with quantized(self.quant):
+            heads = self.model(images)
+        boxes, ids, scores, _classes, _conf, valid = nms_boxes_batched(
+            heads, self.anchors, self.image_wh, self.classes_num, **self.nms_kw)
+        return boxes, ids, scores, valid
+
+
+def numpy_predictor(core: torch.nn.Module, model: torch.nn.Module):
+    """``predict(variables, (B, H, W, 3) float images)`` → ``core``'s outputs as host
+    numpy arrays, under ``torch.inference_mode()``; the images go to ``model``'s
+    device. ``predict.core`` is the module (``cli/export_model.py`` exports it)."""
+
+    def predict(_variables, images):
+        with torch.inference_mode():
+            return tuple(t.cpu().numpy() for t in core(images_to_device(images, model)))
+
+    predict.core = core
+    return predict
+
+
 def make_yolo_predict_batched(model, image_wh: Tuple[int, int], anchors_wh, classes_num: int,
                               confidence_thresh: float = 0.5, scores_thresh: float = 0.3,
                               iou_thresh: float = 0.5, iou_type: str = "iou",
                               max_output_size: int = 500, quant: str = "off"):
     """Batched predictor: ``(variables, (B, H, W, 3) float images)`` → per-image
     padded (boxes, classes_id, scores, valid) numpy arrays with a leading batch
-    axis. Boxes are normalized xyxy."""
-    anchors = np.asarray(anchors_wh, np.float32)
-
-    def predict(_variables, images):
-        with torch.inference_mode():
-            with quantized(quant):
-                heads = model(images_to_device(images, model))
-            boxes, ids, scores, _classes, _conf, valid = nms_boxes_batched(
-                heads, anchors, image_wh, classes_num,
-                confidence_thresh=confidence_thresh, scores_thresh=scores_thresh,
-                iou_thresh=iou_thresh, iou_type=iou_type,
-                max_output_size=max_output_size)
-            return tuple(t.cpu().numpy() for t in (boxes, ids, scores, valid))
-
-    return predict
+    axis. Boxes are normalized xyxy. ``YoloPredictCore`` behind ``numpy_predictor``."""
+    core = YoloPredictCore(model, image_wh, anchors_wh, classes_num, confidence_thresh,
+                           scores_thresh, iou_thresh, iou_type, max_output_size, quant)
+    return numpy_predictor(core, model)
 
 
 def make_yolo_predict(model, image_wh: Tuple[int, int], anchors_wh, classes_num: int,
@@ -120,6 +167,7 @@ def make_yolo_predict(model, image_wh: Tuple[int, int], anchors_wh, classes_num:
     def predict(variables, image):
         return tuple(o[0] for o in batched(variables, image))
 
+    predict.core = batched.core
     return predict
 
 

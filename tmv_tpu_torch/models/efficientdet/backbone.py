@@ -1,7 +1,7 @@
 """EfficientNet backbone: Stem + MBConv chain with reduction endpoints.
 
-Port of ``tmv_tpu/models/efficientdet/backbone.py`` in float only (the int8 and
-calibration branches and ``stem_s2d`` are not ported). Submodules carry the
+Port of ``tmv_tpu/models/efficientdet/backbone.py``, with its int8 and calibration
+sites and the opt-in space-to-depth stem (``stem_s2d``). Submodules carry the
 flax names (``Stem_0``, ``MBConvBlock_k/Conv_i``, ``BatchNorm_i``, ``SE_0``) so
 that ``convert.flax_bridge`` maps a flax tree onto them by path.
 
@@ -46,9 +46,10 @@ from tmv_tpu_torch.models.efficientdet.config import (
     round_repeats,
 )
 from tmv_tpu_torch.models.layers.common import (
-    BatchNorm, conv2d_same, conv_as_input, remat_call,
+    BatchNorm, as_dtype, conv2d_same, conv_as_input, remat_call,
 )
 from tmv_tpu_torch.ops.activations import swish
+from tmv_tpu_torch.ops.space_to_depth import s2d_stem_conv
 from tmv_tpu_torch.quant.dynamic import quant_mode
 from tmv_tpu_torch.quant.static import record, static_conv_site
 
@@ -75,13 +76,16 @@ class SE(nn.Module):
 
 
 class Stem(nn.Module):
-    """3×3 stride-2 conv (width-scaled) → BatchNorm → swish."""
+    """3×3 stride-2 conv (width-scaled) → BatchNorm → swish. ``stem_s2d`` computes the
+    float conv as a 2×2 stride-1 conv over ``ops.space_to_depth.space_to_depth(x, 2)``
+    (the same weights; JAX's opt-in ``stem_s2d``); the int8 site is unchanged."""
 
     def __init__(self, stem_filters: int, width_coefficient: float, depth_divisor: int,
                  bn_momentum: float = 0.99, bn_epsilon: float = 1e-3,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, stem_s2d: bool = False):
         super().__init__()
         filters = round_filters(stem_filters, width_coefficient, depth_divisor)
+        self.stem_s2d = stem_s2d
         self.Conv_0 = nn.Conv2d(3, filters, 3, 2, bias=False, dtype=dtype, device=device)
         self.BatchNorm_0 = batch_norm(filters, bn_momentum, bn_epsilon, device)
 
@@ -91,7 +95,9 @@ class Stem(nn.Module):
             return swish(static_conv_site(self, "_Conv_0", x, (3, 3), 2, out_dtype=x.dtype))
         if mode == "calib":
             record(self, "in_absmax_Conv_0", x)
-        return swish(self.BatchNorm_0(conv2d_same(x, self.Conv_0.weight.to(x.dtype), None, 2)))
+        weight = as_dtype(self.Conv_0.weight, x.dtype)
+        y = s2d_stem_conv(x, weight) if self.stem_s2d else conv2d_same(x, weight, None, 2)
+        return swish(self.BatchNorm_0(y))
 
 
 class MBConvBlock(nn.Module):
@@ -143,7 +149,8 @@ class MBConvBlock(nn.Module):
             # leaves the backbone float) the fused kernel is not launched
             if calib:
                 record(self, f"in_absmax_Conv_{ci}", x)
-            x = conv2d_same(x, conv.weight.to(x.dtype), None, self.stride, groups=conv.groups)
+            x = conv2d_same(x, as_dtype(conv.weight, x.dtype), None, self.stride,
+                            groups=conv.groups)
             x = swish(bn(x))
         else:
             c = conv.out_channels
@@ -167,7 +174,7 @@ class BackboneModel(nn.Module):
                  width_coefficient: float = 1.0, depth_coefficient: float = 1.0,
                  depth_divisor: int = 8, bn_momentum: float = 0.99,
                  bn_epsilon: float = 1e-3, dtype=torch.float32, device=None,
-                 remat: bool = False):
+                 remat: bool = False, stem_s2d: bool = False):
         super().__init__()
         self.remat = remat
         self.blocks_args = list(blocks_args)
@@ -175,7 +182,7 @@ class BackboneModel(nn.Module):
         self.depth_coefficient = depth_coefficient
         self.depth_divisor = depth_divisor
         self.Stem_0 = Stem(self.blocks_args[0].input_filters, width_coefficient, depth_divisor,
-                           bn_momentum, bn_epsilon, dtype, device)
+                           bn_momentum, bn_epsilon, dtype, device, stem_s2d)
         self.blocks = self.scaled_blocks()
         for idx, args in enumerate(self.blocks):
             self.add_module(f"MBConvBlock_{idx}",

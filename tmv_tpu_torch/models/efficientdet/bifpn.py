@@ -33,7 +33,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tmv_tpu_torch.models.efficientdet.backbone import batch_norm
-from tmv_tpu_torch.models.layers.common import conv2d_same, conv_as_input, max_pool_same
+from tmv_tpu_torch.models.layers.common import (
+    as_dtype, conv2d_same, conv_as_input, max_pool_same,
+)
 from tmv_tpu_torch.ops.activations import swish
 from tmv_tpu_torch.quant.dynamic import quant_mode
 from tmv_tpu_torch.quant.static import record, static_conv_site
@@ -60,7 +62,7 @@ class SeparableConv(nn.Module):
             return static_conv_site(self, "_pointwise", y, (1, 1), out_dtype=x.dtype)
         if mode == "calib":
             record(self, "in_absmax_depthwise", x)
-        x = conv2d_same(x, self.depthwise.weight.to(x.dtype), None, 1,
+        x = conv2d_same(x, as_dtype(self.depthwise.weight, x.dtype), None, 1,
                         groups=self.depthwise.groups)
         if mode == "calib":
             record(self, "in_absmax_pointwise", x)

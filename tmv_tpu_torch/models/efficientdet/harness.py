@@ -20,7 +20,9 @@ model prepared by ``quant.static.prepare_static_int8``.
 import numpy as np
 import torch
 
-from tmv_tpu_torch.models.detector_harness import check_device, images_to_device
+from tmv_tpu_torch.models.detector_harness import (
+    allocated, check_device, images_to_device, numpy_predictor,
+)
 from tmv_tpu_torch.models.efficientdet.config import get_efficientdet_config
 from tmv_tpu_torch.models.efficientdet.net import EfficientDetNet
 from tmv_tpu_torch.ops.anchors import Anchors
@@ -42,18 +44,50 @@ def efficientdet_config(model_name: str, num_classes: int, image_size: int):
 
 def build_efficientdet(model_name: str, num_classes: int, image_size: int,
                        dtype: torch.dtype = torch.float32, device="cuda", param_dtype=None,
-                       remat: bool = False):
+                       remat: bool = False, uninitialized: bool = False):
     """``(model, anchors)`` for a D-config at ``image_size``, on the card unless
     ``device`` says otherwise; ``param_dtype`` holds the weights in another type
     than the activations' ``dtype`` (training: float32 weights, bf16 activations);
-    ``remat`` sets the config's ``remat`` (the JAX CLI's ``cfg.remat = True``)."""
+    ``remat`` sets the config's ``remat`` (the JAX CLI's ``cfg.remat = True``);
+    ``uninitialized`` as ``detector_harness.build_yolo_model``'s."""
     device = check_device(device)
     cfg = efficientdet_config(model_name, num_classes, image_size)
     if remat:
         cfg.remat = True
     anchors = Anchors(cfg.min_level, cfg.max_level, (image_size, image_size), cfg.num_scales,
                       cfg.aspect_ratios, cfg.anchor_scale)
-    return EfficientDetNet(cfg, dtype=dtype, device=device, param_dtype=param_dtype), anchors
+    model = EfficientDetNet(cfg, dtype=dtype, device="meta" if uninitialized else device,
+                            param_dtype=param_dtype)
+    return allocated(model, device, uninitialized), anchors
+
+
+class EfficientDetPredictCore(torch.nn.Module):
+    """The EfficientDet predict path as a module, tensor in and tensors out: ``(B, H,
+    W, 3)`` float32 images on the model's device → ``(boxes, classes_id, scores,
+    valid)`` in the YOLO predictors' contract (normalized xyxy, 0-based ids, padded
+    to ``max_output_size``). ``quant`` is fixed here, as in
+    ``detector_harness.YoloPredictCore``."""
+
+    def __init__(self, model, anchors: Anchors, image_size: int, max_output_size: int = 200,
+                 iou_threshold: float = 0.5, score_threshold: float = 0.0001,
+                 iou_type: str = "diou", quant: str = "off"):
+        super().__init__()
+        self.model = model
+        self.anchors = anchors
+        self.image_size = image_size
+        self.nms_kw = dict(max_output_size=max_output_size, iou_threshold=iou_threshold,
+                           score_threshold=score_threshold, iou_type=iou_type)
+        self.quant = quant
+
+    def forward(self, images: torch.Tensor):
+        with quantized(self.quant):
+            boxes_out, classes_out = self.model(images)
+        decoded = self.anchors.convert_outputs_boxes([b.float() for b in boxes_out])
+        boxes, ids, scores, valid = self.anchors.convert_outputs_one(
+            decoded, [c.float() for c in classes_out], **self.nms_kw)
+        # yxyx letterbox pixels → normalized xyxy; background id 0 removed
+        boxes = boxes[..., [1, 0, 3, 2]] / float(self.image_size)
+        return boxes, ids - 1, scores, valid
 
 
 def make_efficientdet_predict_batched(model, anchors: Anchors, image_size: int,
@@ -63,22 +97,10 @@ def make_efficientdet_predict_batched(model, anchors: Anchors, image_size: int,
                                       iou_type: str = "diou", quant: str = "off"):
     """Batched predictor: ``(variables, (B, H, W, 3) float images)`` → per-image
     padded (boxes, classes_id, scores, valid) numpy arrays with a leading batch
-    axis."""
-
-    def predict(_variables, images):
-        with torch.inference_mode():
-            with quantized(quant):
-                boxes_out, classes_out = model(images_to_device(images, model))
-            decoded = anchors.convert_outputs_boxes([b.float() for b in boxes_out])
-            boxes, ids, scores, valid = anchors.convert_outputs_one(
-                decoded, [c.float() for c in classes_out], max_output_size=max_output_size,
-                iou_threshold=iou_threshold, score_threshold=score_threshold,
-                iou_type=iou_type)
-            # yxyx letterbox pixels → normalized xyxy; background id 0 removed
-            boxes = boxes[..., [1, 0, 3, 2]] / float(image_size)
-            return tuple(t.cpu().numpy() for t in (boxes, ids - 1, scores, valid))
-
-    return predict
+    axis; ``EfficientDetPredictCore`` behind ``numpy_predictor``."""
+    core = EfficientDetPredictCore(model, anchors, image_size, max_output_size, iou_threshold,
+                                   score_threshold, iou_type, quant)
+    return numpy_predictor(core, model)
 
 
 def make_efficientdet_predict(model, anchors: Anchors, image_size: int, **kwargs):
@@ -90,6 +112,7 @@ def make_efficientdet_predict(model, anchors: Anchors, image_size: int, **kwargs
     def predict(variables, image):
         return tuple(o[0] for o in batched(variables, image))
 
+    predict.core = batched.core
     return predict
 
 

@@ -46,7 +46,8 @@ class EfficientDetNet(nn.Module):
         filters = cfg.fpn_num_filters
         self.backbone = BackboneModel(default_blocks_args(), cfg.width_coefficient,
                                       cfg.depth_coefficient, cfg.depth_divisor,
-                                      remat=self.remat, **bn)
+                                      remat=self.remat,
+                                      stem_s2d=bool(cfg.get("stem_s2d", False)), **bn)
         # [final, r1..r5] indexed min_level..max_level → r3, r4, r5
         channels = self.backbone.out_channels[cfg.min_level:cfg.max_level + 1]
         for level in range(6, cfg.max_level + 1):

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from tmv_tpu_torch.ops.activations import leaky_relu, mish, swish
+from tmv_tpu_torch.ops.padding import same_pads
 from tmv_tpu_torch.quant.dynamic import dynamic_int8_conv, quant_mode
 from tmv_tpu_torch.quant.static import bn_affine, record, static_conv_site
 
@@ -94,13 +95,6 @@ def _pair(v: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
-def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
-    """TF-SAME (before, after) padding of one spatial axis."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
-    return total // 2, total - total // 2
-
-
 def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias=None,
                 stride: Union[int, Tuple[int, int]] = 1, groups: int = 1) -> torch.Tensor:
     """``F.conv2d`` with TF-SAME padding; an asymmetric pad is applied explicitly."""
@@ -112,11 +106,17 @@ def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias=None,
     return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, bias, stride, groups=groups)
 
 
+def as_dtype(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``: ``t`` itself where it already is, so that a program traced
+    by ``torch.export`` holds no cast (and no metadata check) for it."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 def conv_as_input(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """``conv(x)`` with the weight and bias cast to x's type (a no-op where they
     agree); the conv's own padding, stride and groups."""
-    bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride, conv.padding,
+    bias = None if conv.bias is None else as_dtype(conv.bias, x.dtype)
+    return F.conv2d(x, as_dtype(conv.weight, x.dtype), bias, conv.stride, conv.padding,
                     conv.dilation, conv.groups)
 
 
@@ -143,8 +143,8 @@ class DarknetConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.Conv_0
-        weight = conv.weight.to(x.dtype)
-        bias = None if conv.bias is None else conv.bias.to(x.dtype)
+        weight = as_dtype(conv.weight, x.dtype)
+        bias = None if conv.bias is None else as_dtype(conv.bias, x.dtype)
         if self.strides == (2, 2):
             # Darknet downsampling: top-left zero pad + VALID
             return F.conv2d(F.pad(x, (1, 0, 1, 0)), weight, bias, self.strides)

@@ -103,6 +103,9 @@ class Anchors:
     def boxes_on(self, device) -> List[torch.Tensor]:
         """The anchor boxes as float32 tensors on ``device`` (copied once)."""
         device = torch.device(device)
+        if torch.compiler.is_exporting():
+            # made inside the traced program: a cached copy would be a traced tensor
+            return [torch.from_numpy(b).to(device) for b in self.boxes]
         if device not in self._on_device:
             self._on_device[device] = [torch.from_numpy(b).to(device) for b in self.boxes]
         return self._on_device[device]

@@ -24,6 +24,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from tmv_tpu_torch.kernels.int8_conv import int8_conv, pack_dense, true_div
+from tmv_tpu_torch.ops.padding import same_pads
 
 _STATE = threading.local()
 
@@ -53,8 +54,6 @@ def conv_pads(size_hw: Tuple[int, int], kernel_size: Tuple[int, int], stride: in
         return tuple(int(p) for p in padding)
     if padding == "VALID":
         return (0, 0, 0, 0)
-    from tmv_tpu_torch.models.layers.common import same_pads
-
     (top, bottom), (left, right) = (same_pads(size_hw[0], kernel_size[0], stride),
                                     same_pads(size_hw[1], kernel_size[1], stride))
     return (top, left, bottom, right)
