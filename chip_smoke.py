@@ -15,7 +15,9 @@ family (phase 21), which launches neither kernel; then MoCo pretraining, export
 and fine-tune, and teacher→student distillation, whose pseudo-labeler sweeps
 through the NMS kernel (phase 22); then int8 serving and eval through the two int8
 conv kernels (phase 23); then the serving artifacts of ``cli/export_model.py``
-served by ``serve --artifact``, every kernel in them as a ``tmv::`` op (phase 24).
+served by ``serve --artifact``, every kernel in them as a ``tmv::`` op (phase 24);
+then data-parallel training through the trainers' ``--dp``/``--fsdp`` and sharded
+serving through ``serve --dp`` (phase 25).
 Phases, each printing its own lines:
 
 1. environment: torch/CUDA/nvcc versions and the card (nvidia-smi);
@@ -218,7 +220,27 @@ Phases, each printing its own lines:
     other, same class at IoU >= 0.5). Printed: export seconds and MB, load and
     warm-up seconds, the artifact's b1 forward p50 beside the live one by CUDA
     events, and the host's cost to enqueue one ``int8_conv`` through the
-    ``tmv::int8_conv`` op and directly.
+    ``tmv::int8_conv`` op and directly;
+25. data parallel (``tmv_tpu_torch/parallel/``; at most ~120 s): two gloo ranks
+    sharing the card take the YOLOv4 @416 f32 step on their b4 halves, held to the
+    plain b8 step (``tests/dp_equiv_cases.py``'s YOLO tolerances: loss rel 2e-3,
+    parameters rtol 1e-3 + atol 5e-4); ``cli/train_yolo.py`` @416 global b8 f32 for 3
+    steps plain, ``--dp`` (with its val pass through the sweep kernel) and ``--fsdp``
+    at world ``device_count()`` by NCCL: the first step's loss within 1e-5 of plain's,
+    the later losses and the parameters' update within 2x + 1e-4 of the distance
+    between two plain runs with different cuDNN algorithms (Adam's sign-sized first
+    steps amplify rounding); ``cli/train_efficientdet.py`` @512 global b16 f32 3 steps
+    ``--fsdp`` against ``--dp`` (losses and update within 1e-3), the ``--fsdp``
+    checkpoint served by ``serve --family efficientdet`` and scored by ``eval_map``;
+    ``serve --dp``'s sharded predictor over ``[cuda:0, cuda:0]`` for YOLOv4 @640 b16
+    (float and ``--int8Static --int8PerChannel``) and D0 @512 b64, bf16: every sweep's
+    whole mask equal to the plain sweep's, every depthwise launch within one bf16 step
+    of the plain version, detections against the one-device predictor at >= 0.98 each
+    way; ``serve --dp 1`` answers 6 requests and ``serve --dp 2`` on a one-card host
+    exits with the reason; readings: the YOLOv4 step and the D0 step (bf16) plain, DP
+    and FSDP at world 1 by CUDA events, the global BatchNorm's share
+    (the DP step with rank-local statistics), FSDP's peak memory, and two replicas'
+    images/s beside one's.
 
 The serving weights are seeded (``--randomInit --seed 0`` of each family), adjusted so
 that NMS has real work: YOLOv4's three output convs' box rows are scaled by
@@ -4320,6 +4342,523 @@ def phase_export(card, weights, d0_weights):
     return served
 
 
+# ---------------------------------------------------------------- data parallel
+
+DP_STEPS = 3
+DP_LR = 1e-4
+DP_LOSS_REL = 1e-3      # phase 11's float32 loss tolerance
+DP_UPDATE_REL = 1e-3    # the same bound on the relative L2 error of the parameters' update
+DP_FIRST_LOSS_REL = 1e-5   # the first step's loss, taken before any update
+DP_LOSS_BAND = 1e-2        # Adam's later losses: a gross band (see phase_parallel)
+TWO_RANK_LOSS_REL, TWO_RANK_RTOL, TWO_RANK_ATOL = 2e-3, 1e-3, 5e-4   # dp_equiv_cases' YOLO
+
+
+def to_device(batch, where):
+    """A nested dict/tuple batch's tensors moved to ``where`` (a device or a dtype)."""
+    import torch
+
+    if isinstance(batch, dict):
+        return {k: to_device(v, where) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(to_device(v, where) for v in batch)
+    return batch.to(where) if torch.is_tensor(batch) else batch
+
+
+def dp_state(files, dtype, lr=DP_LR):
+    """Phase 11's YOLOv4 train state at ``lr`` (the trainer's default Adam rate)."""
+    state, loss_fn, step, anchors = train_setup(files, dtype, "cuda")
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    return state, step
+
+
+def two_rank_step(files, batch_path, out_path):
+    """One of two ranks sharing the card by gloo (``parallel.mesh.spawn``): the
+    YOLOv4 @416 float32 step (TF32 off) under ``DataParallel`` on this rank's rows of
+    the saved global b8 batch; rank 0 saves the loss and the ``state_dict``."""
+    import torch
+    import torch.distributed as dist
+
+    from tmv_tpu_torch.parallel import DataParallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dp = DataParallel(devices=["cuda:0", "cuda:0"])
+    state, step = dp_state(files, torch.float32)
+    dp.put_state(state)
+    batch = to_device(dp.put_batch(torch.load(batch_path, weights_only=True)), "cuda")
+    metrics = dp.wrap_step(step)(state, batch)
+    if dist.get_rank() == 0:
+        torch.save({"loss": float(metrics["loss"]), "backend": dist.get_backend(),
+                    "model": {k: v.cpu() for k, v in state.model.state_dict().items()}},
+                   out_path)
+
+
+def losses_of(directory):
+    with open(os.path.join(directory, "metrics.jsonl")) as f:
+        return [json.loads(line)["loss"] for line in f]
+
+
+def update_error(got, want, start):
+    """Relative L2 error of ``got``'s parameter update against ``want``'s, both from
+    ``start`` (state_dicts; every float entry)."""
+    num = den = 0.0
+    for k, w in want.items():
+        if w.is_floating_point():
+            num += float((got[k].double() - w.double()).norm() ** 2)
+            den += float((w.double() - start[k].double()).norm() ** 2)
+    return (num / den) ** 0.5
+
+
+def checkpoint_model(directory, step):
+    import torch
+
+    return torch.load(os.path.join(directory, f"{step}.pt"), map_location="cpu",
+                      weights_only=True)["model"]
+
+
+def first_step_f64_gradients(files):
+    """The trainer's first step in float64 on the card: its seed-0 YOLOv4 and the first
+    batch its pipeline draws (seed 0) → each parameter's gradient, in parameter order."""
+    import torch
+
+    from tmv_tpu_torch.data.loaders import load_anchors
+    from tmv_tpu_torch.data.yolo_pipeline import YoloDataPipeline
+
+    pipeline = YoloDataPipeline(files["images"], files["labels"], files["classes"], TRAIN_BATCH,
+                                load_anchors(files["anchors"]),
+                                image_wh=(TRAIN_IMAGE, TRAIN_IMAGE), prefetch=0, device="cuda")
+    batches = iter(pipeline)
+    batch = to_device(next(batches), torch.float64)
+    batches.close()
+    state, loss_fn, _, _ = train_setup(files, torch.float64, "cuda")
+    model = state.model.to(torch.float64).train()
+    loss, _ = loss_fn(model, batch)
+    loss.backward()
+    grads = {i: p.grad.detach().cpu() for i, p in enumerate(model.parameters())}
+    del state, model
+    return grads
+
+
+def first_step_f64_gradients_d0(files):
+    """The D0 trainer's first step in float64 on the card (its seed-0 model, the first
+    batch of its ``--deviceAug`` pipeline, ``drop_connect`` fed the float32 uniforms
+    step 0's seed draws), each gradient clipped to the global norm 10 as the step clips
+    it, in parameter order."""
+    import torch
+
+    state, loss_fn, _, anchors, generator = d0_train_setup(files, torch.float64, "cuda")
+    batches = iter(d0_batches(files, anchors, D0_TRAIN_BATCH, "cuda", prefetch=0))
+    batch = to_device(next(batches), torch.float64)
+    batches.close()
+    model = state.model.to(torch.float64).train()
+    generator.manual_seed(0)
+
+    def float32_draws(x, gen):   # the float32 trainer's drop_connect uniforms, exactly
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        return torch.rand(shape, generator=gen, dtype=torch.float32, device=x.device).to(x.dtype)
+
+    with mock.patch("tmv_tpu_torch.models.efficientdet.heads.draw_uniform", float32_draws):
+        loss, _ = loss_fn(model, batch)
+    loss.backward()
+    grads = [p.grad.detach() for p in model.parameters()]
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    scale = torch.clamp(10.0 / (norm + 1e-12), max=1.0)
+    out = {i: (g * scale).cpu() for i, g in enumerate(grads)}
+    del state, model
+    return out
+
+
+def first_gradients(directory, moment="exp_avg"):
+    """Each parameter's gradient of the first step, from the step-1 checkpoint, in the
+    optimizer's parameter order: Adam's first moment then is (1 − β1)·g, SGD's
+    momentum buffer the (clipped) gradient itself."""
+    import torch
+
+    raw = torch.load(os.path.join(directory, "1.pt"), map_location="cpu", weights_only=True)
+    scale = 1.0
+    if moment == "exp_avg":
+        scale = 1 - raw["optimizer"]["param_groups"][0]["betas"][0]
+    return {i: s[moment].double() / scale for i, s in raw["optimizer"]["state"].items()}
+
+
+def init_state_dict(build):
+    model = build()
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+class CheckedDepthwise:
+    """Stands in for ``fused_dw_bn_swish`` in D0's backbone: the kernel, then the
+    plain version on the same inputs (no launch), each launch held to it within one
+    bf16 step + 1e-5·max|plain| (phase 7's bf16 tolerance)."""
+
+    def __init__(self):
+        from tmv_tpu_torch.kernels.dwconv import fused_dw_bn_swish
+
+        self.kernel, self.agree = fused_dw_bn_swish, []
+
+    def __call__(self, x, w, scale, offset, stride=1):
+        from tmv_tpu_torch.kernels.dwconv import dw_bn_swish_reference
+
+        out = self.kernel(x, w, scale, offset, stride)
+        self.agree.append(within_one_bf16_step(out, dw_bn_swish_reference(x, w, scale, offset,
+                                                                          stride)))
+        return out
+
+    def patch(self):
+        return mock.patch("tmv_tpu_torch.models.efficientdet.backbone.fused_dw_bn_swish", self)
+
+
+def phase_parallel(card, files, weights, d0_weights):
+    """Phase 25: data-parallel training through the CLIs and sharded serving."""
+    import torch
+    import torch.distributed as dist
+
+    from tmv_tpu_torch.cli import eval_map, serve, train_efficientdet, train_yolo
+    from tmv_tpu_torch.core.checkpoint import load_weights
+    from tmv_tpu_torch.kernels import dwconv, nms_sweep
+    from tmv_tpu_torch.models.efficientdet.harness import build_efficientdet
+    from tmv_tpu_torch.models.efficientdet.net import init_weights as d0_init
+    from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS
+    from tmv_tpu_torch.parallel import (
+        DataParallel, FullyShardedDataParallel, make_sharded_batched_predictor,
+    )
+    from tmv_tpu_torch.parallel.mesh import spawn
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    launches = {"nms_sweep": 0, "dwconv_bn_swish": 0, "int8_conv": 0}
+    root = os.path.join(WORK, "parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    marks = []
+
+    def mark(name):
+        marks.append(f"{name} {time.perf_counter() - t_phase:.1f} s")
+
+    # serve --dp 2 on a one-card host must stop with the reason: started now, read last
+    classes_file, anchors_file = write_inputs(COCO_CLASSES, COCO_ANCHORS)
+    refusal = None
+    if cards < 2:
+        refusal = subprocess.Popen(
+            [sys.executable, "-m", "tmv_tpu_torch.cli.serve", "--randomInit", "--classesFile",
+             classes_file, "--anchorsFile", anchors_file, "--imageSize", str(IMAGE), "--batch",
+             "16", "--dp", "2"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+
+    # two ranks on the one card (gloo; the probe of PERF.md §6), started first: they
+    # build and step while the CLIs run here
+    from tmv_tpu_torch.data.loaders import load_anchors
+    from tmv_tpu_torch.data.yolo_pipeline import YoloDataPipeline
+
+    pipeline = YoloDataPipeline(files["images"], files["labels"], files["classes"], TRAIN_BATCH,
+                                load_anchors(files["anchors"]),
+                                image_wh=(TRAIN_IMAGE, TRAIN_IMAGE), prefetch=0, device="cpu")
+    batches = iter(pipeline)
+    batch = next(batches)
+    batches.close()
+    batch_path, two_path = os.path.join(root, "batch.pt"), os.path.join(root, "two_rank.pt")
+    torch.save(batch, batch_path)
+    two_ranks = spawn(two_rank_step, 2, files, batch_path, two_path,
+                      devices=["cuda:0", "cuda:0"], join=False)
+
+    # YOLOv4 @416 global b8 float32: the trainer plain and under --dp and --fsdp (NCCL,
+    # one rank per card), DP_STEPS steps each from the same seed and batches (one step an
+    # epoch, so each step's checkpoint is kept), cuDNN deterministic. Held by phase 11's
+    # rule: the first step's gradients (Adam's first moment at step 1 is (1 − β1)·g)
+    # within 2x the plain float32 step's distance from the float64 step + 1e-4 (train-mode
+    # BatchNorm at random init amplifies rounding through the layers, so float32 sits far
+    # from float64 whichever way its statistics are summed). Adam's first steps move each
+    # weight by about lr·sign(g), so rounding-level differences flip the step of
+    # near-zero gradients whole and the later losses drift (dp_equiv_cases): they are
+    # held to a gross band.
+    torch.backends.cudnn.deterministic = True
+    yolo_argv = ["--trainData", files["labels"], "--trainImagePath", files["images"],
+                 "--classesFile", files["classes"], "--anchorsFile", files["anchors"],
+                 "--imageSize", str(TRAIN_IMAGE), "--batchSize", str(TRAIN_BATCH),
+                 "--stepsPerEpoch", "1", "--epochs", str(DP_STEPS), "--lr", str(DP_LR),
+                 "--earlyStopPatience", "0", "--reduceLrPatience", "0", "--device", "cuda"]
+    dirs = {m: os.path.join(root, f"yolo_{m}") for m in ("plain", "dp", "fsdp")}
+    seconds = {}
+    for mode, directory in dirs.items():
+        flags = [f"--{mode}"] if mode in ("dp", "fsdp") else []
+        if mode == "dp":   # the val pass, through the sweep kernel
+            flags += ["--valData", files["val"], "--valImagePath", files["images"]]
+        nms_sweep.launches = 0
+        t0 = time.perf_counter()
+        train_yolo.main(yolo_argv + ["--modelPath", directory] + flags)
+        seconds[mode] = time.perf_counter() - t0
+        check(not dist.is_initialized(), f"the {mode} run left its process group up")
+        if mode == "dp":
+            val_launches = nms_sweep.launches
+    reference = first_step_f64_gradients(files)
+    # with more cards the ranks are processes of their own and count there
+    check(val_launches >= VAL_SET or cards > 1,
+          f"the --dp val pass launched {val_launches} sweeps")
+    launches["nms_sweep"] += val_launches
+    losses = {m: losses_of(d) for m, d in dirs.items()}
+    loss_rel, grad_err = {}, {}
+    for mode in ("plain", "dp", "fsdp"):
+        loss_rel[mode] = [abs(a - b) / abs(b) for a, b in zip(losses[mode], losses["plain"])]
+        grad_err[mode] = rel_l2(first_gradients(dirs[mode]), reference)
+    for mode in ("dp", "fsdp"):
+        check(len(losses[mode]) == DP_STEPS and loss_rel[mode][0] <= DP_FIRST_LOSS_REL,
+              f"YOLOv4 --{mode} first loss {losses[mode][0]} vs plain {losses['plain'][0]}")
+        check(all(g <= 2 * f + 1e-4 for g, f in zip(grad_err[mode], grad_err["plain"])),
+              f"YOLOv4 --{mode} first gradients {grad_err[mode]} from float64, plain's "
+              f"{grad_err['plain']}")
+        check(max(loss_rel[mode]) <= DP_LOSS_BAND,
+              f"YOLOv4 --{mode} losses {losses[mode]} vs plain {losses['plain']}")
+    print(f"phase 25 YOLOv4 @{TRAIN_IMAGE} global b{TRAIN_BATCH} f32 (TF32 off, cuDNN "
+          f"deterministic) {DP_STEPS} steps of Adam at {DP_LR} through "
+          f"tmv_tpu_torch.cli.train_yolo --dp and --fsdp (NCCL, world {cards}) against plain: "
+          f"losses --dp {[round(x, 4) for x in losses['dp']]}, --fsdp "
+          f"{[round(x, 4) for x in losses['fsdp']]}, plain "
+          f"{[round(x, 4) for x in losses['plain']]}; the first step's loss relative "
+          f"difference --dp {loss_rel['dp'][0]:.3g}, --fsdp {loss_rel['fsdp'][0]:.3g} "
+          f"(tolerance {DP_FIRST_LOSS_REL}); its gradients' relative L2 error from the "
+          f"float64 step on the card (overall, worst tensor) --dp {grad_err['dp'][0]:.3g}, "
+          f"{grad_err['dp'][1]:.3g}, --fsdp {grad_err['fsdp'][0]:.3g}, "
+          f"{grad_err['fsdp'][1]:.3g}, plain {grad_err['plain'][0]:.3g}, "
+          f"{grad_err['plain'][1]:.3g} (tolerance 2x plain's + 1e-4); the worst later loss "
+          f"--dp {max(loss_rel['dp']):.3g}, --fsdp {max(loss_rel['fsdp']):.3g} (band "
+          f"{DP_LOSS_BAND}); the --dp run's val passes {val_launches} sweep "
+          f"launches; CLI runs {seconds['dp']:.1f} s (--dp, with val) / "
+          f"{seconds['fsdp']:.1f} s (--fsdp) / {seconds['plain']:.1f} s (plain) on [{card}]",
+          flush=True)
+
+    mark("YOLOv4 CLIs")
+    # D0 @512 global b16 float32: --fsdp against --dp, its checkpoint served and scored
+    d0_argv = ["--modelName", "efficientdet-d0", "--trainData", files["labels"],
+               "--trainImagePath", files["images"], "--classesFile", files["classes"],
+               "--imageSize", str(D0_IMAGE), "--batchSize", str(D0_TRAIN_BATCH),
+               "--stepsPerEpoch", "1", "--epochs", str(DP_STEPS), "--deviceAug",
+               "--earlyStopPatience", "0", "--device", "cuda"]
+    d0_dirs = {m: os.path.join(root, f"d0_{m}") for m in ("fsdp", "dp")}
+    for mode, directory in d0_dirs.items():
+        train_efficientdet.main(d0_argv + ["--modelPath", directory, f"--{mode}"])
+    torch.backends.cudnn.deterministic = False
+    d0_losses = {m: losses_of(d) for m, d in d0_dirs.items()}
+    d0_start = init_state_dict(lambda: d0_init(build_efficientdet(
+        "efficientdet-d0", 81, D0_IMAGE, device="cpu")[0], 0))
+    d0_err = update_error(checkpoint_model(d0_dirs["fsdp"], DP_STEPS),
+                          checkpoint_model(d0_dirs["dp"], DP_STEPS), d0_start)
+    d0_reference = first_step_f64_gradients_d0(files)
+    d0_grad = {m: rel_l2(first_gradients(d, "momentum_buffer"), d0_reference)
+               for m, d in d0_dirs.items()}
+    d0_loss_rel = [abs(a - b) / abs(b) for a, b in zip(d0_losses["fsdp"], d0_losses["dp"])]
+    check(len(d0_losses["fsdp"]) == DP_STEPS and d0_loss_rel[0] <= DP_FIRST_LOSS_REL,
+          f"D0 --fsdp first loss {d0_losses['fsdp'][0]} vs --dp {d0_losses['dp'][0]}")
+    check(all(g <= 2 * f + 1e-4 for g, f in zip(d0_grad["fsdp"], d0_grad["dp"])),
+          f"D0 --fsdp first gradients {d0_grad['fsdp']} from float64, --dp's {d0_grad['dp']}")
+    check(max(d0_loss_rel) <= DP_LOSS_BAND,
+          f"D0 --fsdp losses {d0_losses['fsdp']} vs --dp {d0_losses['dp']}")
+    d0_serve = ["--family", "efficientdet", "--modelName", "efficientdet-d0", "--modelPath",
+                d0_dirs["fsdp"], "--classesFile", files["classes"], "--imageSize", str(D0_IMAGE),
+                "--device", "cuda"]
+    app, _, _ = serve.build_app(serve.parse_args(d0_serve + ["--bf16"]))
+    _, _, _, counts = drive_server(app, 2, 71)
+    check(counts["dwconv_bn_swish"] == 32 and counts["nms_sweep"] >= 2,
+          f"serving the --fsdp checkpoint launched {counts}")
+    nms_sweep.launches = dwconv.launches = 0
+    scored = eval_map.main(["--family", "efficientdet", "--modelName", "efficientdet-d0",
+                            "--modelPath", d0_dirs["fsdp"], "--imagePath", files["images"],
+                            "--labelFile", files["val"], "--classesFile", files["classes"],
+                            "--imageSize", str(D0_IMAGE), "--device", "cuda"])
+    check(scored["images"] == VAL_SET and 0 <= scored["mAP"] <= 1,
+          f"eval_map on the --fsdp checkpoint: {scored}")
+    launches["nms_sweep"] += counts["nms_sweep"] + nms_sweep.launches
+    launches["dwconv_bn_swish"] += counts["dwconv_bn_swish"] + dwconv.launches
+    print(f"phase 25 D0 @{D0_IMAGE} global b{D0_TRAIN_BATCH} f32 (TF32 off) {DP_STEPS} steps "
+          f"through tmv_tpu_torch.cli.train_efficientdet --fsdp against --dp (world {cards}): "
+          f"losses {[round(x, 4) for x in d0_losses['fsdp']]} vs "
+          f"{[round(x, 4) for x in d0_losses['dp']]} (first step relative "
+          f"{d0_loss_rel[0]:.3g}, tolerance {DP_FIRST_LOSS_REL}; the worst later "
+          f"{max(d0_loss_rel):.3g}, band {DP_LOSS_BAND}); the first step's clipped gradients' "
+          f"relative L2 error from the float64 step (overall, worst tensor) --fsdp "
+          f"{d0_grad['fsdp'][0]:.3g}, {d0_grad['fsdp'][1]:.3g}, --dp {d0_grad['dp'][0]:.3g}, "
+          f"{d0_grad['dp'][1]:.3g} (tolerance 2x --dp's + 1e-4); the parameters' update "
+          f"relative L2 error after {DP_STEPS} steps {d0_err:.3g}; its checkpoint served by "
+          f"serve --family efficientdet "
+          f"(2 requests, {counts['dwconv_bn_swish']} depthwise and {counts['nms_sweep']} sweep "
+          f"launches) and scored by eval_map on the {VAL_SET} val images: mAP "
+          f"{scored['mAP']:.4f} on [{card}]", flush=True)
+    del app
+
+    mark("D0 CLIs, serve, eval")
+    # the two ranks on the one card against the plain b8 step
+    while not two_ranks.join():
+        pass
+    state, step = dp_state(files, torch.float32)
+    torch.backends.cudnn.deterministic = True
+    plain_loss = float(step(state, to_device(batch, "cuda"))["loss"])
+    torch.backends.cudnn.deterministic = False
+    two = torch.load(two_path, weights_only=True)
+    worst = 0.0
+    for k, v in state.model.state_dict().items():
+        if v.is_floating_point():
+            want, got = v.double().cpu(), two["model"][k].double()
+            excess = float(((got - want).abs() - TWO_RANK_RTOL * want.abs()).max())
+            worst = max(worst, excess)
+    check(abs(two["loss"] - plain_loss) <= TWO_RANK_LOSS_REL * abs(plain_loss),
+          f"two ranks' loss {two['loss']} vs plain {plain_loss}")
+    check(worst <= TWO_RANK_ATOL, f"two ranks' parameters off by {worst:.3g} beyond rtol")
+    print(f"phase 25 two ranks on one card ({two['backend']}, cuda:0 twice) x b4 YOLOv4 @"
+          f"{TRAIN_IMAGE} f32 step against the plain b8 step: loss {two['loss']:.5f} vs "
+          f"{plain_loss:.5f} (tolerance rel {TWO_RANK_LOSS_REL}); parameters and running "
+          f"statistics within rtol {TWO_RANK_RTOL} + {worst:.3g} (atol {TWO_RANK_ATOL}) on "
+          f"[{card}]", flush=True)
+    del state, step
+
+    # serve --dp: two replicas on the one card against one, YOLOv4 b16 (float and
+    # --int8Static --int8PerChannel) and D0 b64, bf16
+    mark("the two ranks")
+    calib = int8_calibration_set()
+    yolo_flags = ["--modelPath", weights, "--classesFile", classes_file, "--anchorsFile",
+                  anchors_file, "--imageSize", str(IMAGE), "--bf16", "--device", "cuda"]
+    d0_flags = ["--family", "efficientdet", "--modelName", "efficientdet-d0", "--modelPath",
+                d0_weights, "--classesFile", classes_file, "--imageSize", str(D0_IMAGE),
+                "--bf16", "--device", "cuda"]
+    scenes = {IMAGE: np.concatenate([prepared_scene(80 + i, IMAGE) for i in range(16)]),
+              D0_IMAGE: np.concatenate([prepared_scene(80 + i, D0_IMAGE) for i in range(16)])}
+    readings = {}
+    for label, flags, quant, batch_size in (
+            ("YOLOv4", yolo_flags, "off", 16),
+            ("YOLOv4 int8", yolo_flags + ["--int8Static", calib, "--int8PerChannel"],
+             "int8_static", 16),
+            ("D0", d0_flags, "off", 64)):
+        args = serve.parse_args(flags + ["--batch", str(batch_size)])
+        size = args.imageSize
+        model, make_batched, _ = serve._build_model(args, 80, torch.bfloat16)
+        load_weights(model, args.modelPath)
+        model = model.to(device="cuda", memory_format=torch.channels_last).eval()
+        if quant == "int8_static":
+            from tmv_tpu_torch.quant.static import calibrate_directory
+
+            calibrate_directory(model, calib, (size, size), per_channel=True)
+        one = make_batched(quant, model)
+        two_replicas, _, devices = make_sharded_batched_predictor(
+            model, lambda replica: make_batched(quant, replica), devices=["cuda:0", "cuda:0"])
+        images = np.tile(scenes[size], (batch_size // 16, 1, 1, 1))
+        want = one(None, images)
+        sweep, depthwise = CheckedSweep(), CheckedDepthwise()
+        with sweep.patch(), depthwise.patch():
+            got, used = launches_of(lambda: two_replicas(None, images))
+        check(sweep.agree and all(sweep.agree), f"{label} --dp: a sweep's mask differs")
+        check(all(depthwise.agree), f"{label} --dp: a depthwise launch differs")
+        agree = (box_agreement(want, got)[0], box_agreement(got, want)[0])
+        check(min(agree) >= 0.98 and want[3].sum() > 0,
+              f"{label} two replicas against one: agreement {agree}")
+        for name in launches:
+            launches[name] += used[name]
+        lone, _, _ = make_sharded_batched_predictor(
+            model, lambda replica: make_batched(quant, replica), devices=["cuda:0"])
+        lone(None, images)
+        one_ms = host_ms(lambda: one(None, images), 3)
+        two_ms = host_ms(lambda: two_replicas(None, images), 3)
+        lone_ms = host_ms(lambda: lone(None, images), 3)
+        lone.close()
+        readings[label] = (batch_size * 1000 / one_ms, batch_size * 1000 / two_ms,
+                           batch_size * 1000 / lone_ms)
+        print(f"phase 25 serve --dp {label} @{size} b{batch_size} bf16 over {devices}: "
+              f"{len(sweep.agree)} sweeps each equal to the plain sweep (whole masks), "
+              f"{len(depthwise.agree)} depthwise launches each within one bf16 step of the "
+              f"plain version; launches {used}; detections against the one-device predictor "
+              f"{agree[0]:.4f} / {agree[1]:.4f} (IoU >= 0.5, same class; tolerance 0.98); "
+              f"images/s (host clock, median of 3 calls) one replica "
+              f"{readings[label][0]:.1f}, two replicas on the one card {readings[label][1]:.1f}, "
+              f"one replica through shard_predict (its own thread and stream) "
+              f"{readings[label][2]:.1f} on [{card}]", flush=True)
+        two_replicas.close()
+        del model, one, two_replicas
+        torch.cuda.empty_cache()
+    mark("serve --dp predictors")
+    app, service, _ = serve.build_app(serve.parse_args(
+        ["--randomInit", "--classesFile", classes_file, "--anchorsFile", anchors_file,
+         "--imageSize", str(IMAGE), "--bf16", "--batch", "16", "--dp", "1"]))
+    latencies, _, boxes_seen, counts = drive_server(app, 6, 73)
+    service.batcher.close()
+    check(len(latencies) == 6 and counts["nms_sweep"] >= 6,
+          f"serve --dp 1 answered {len(latencies)} requests, {counts['nms_sweep']} sweeps")
+    launches["nms_sweep"] += counts["nms_sweep"]
+    refused = ""
+    if refusal is not None:
+        _, stderr = refusal.communicate(timeout=120)
+        refused = (stderr.strip().splitlines() or [""])[-1]
+        check(refusal.returncode != 0 and "2 replicas need 2 GPUs" in stderr,
+              f"serve --dp 2 on {cards} card(s): exit {refusal.returncode}, {stderr[-500:]}")
+    print(f"phase 25 serve --dp 1 --batch 16 answered 6 requests (p50 "
+          f"{statistics.median(latencies):.1f} ms, {boxes_seen} boxes, {counts['nms_sweep']} "
+          f"sweeps); serve --dp 2 on {cards} card(s): {refused or 'not run (two cards)'} on "
+          f"[{card}]", flush=True)
+    del app, service
+
+    mark("serve --dp 1 and 2")
+    # readings: the steps by CUDA events after warm-up (world 1, NCCL), in turns
+    dp = DataParallel(device="cuda")
+    fsdp = FullyShardedDataParallel(device="cuda")
+    from tmv_tpu_torch.models.layers import common
+
+    step_ms = {}
+    for dtype, name in ((torch.bfloat16, "bf16"),):
+        plain_state, plain_step = dp_state(files, dtype)
+        dp_state_, raw = dp_state(files, dtype)
+        dp.put_state(dp_state_)
+        dp_step = dp.wrap_step(raw)
+        on = to_device(batch, "cuda")
+        for _ in range(2):
+            plain_step(plain_state, on), dp_step(dp_state_, on)
+        local_bn = mock.patch.object(common, "data_group", lambda: None)
+        t = []
+        for fn in (lambda: plain_step(plain_state, on), lambda: dp_step(dp_state_, on),
+                   lambda: dp_step(dp_state_, on), lambda: plain_step(plain_state, on)):
+            t.append(cuda_ms(fn, 6))
+        with local_bn:
+            t_local = cuda_ms(lambda: dp_step(dp_state_, on), 6)
+        step_ms[name] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t_local)
+        del plain_state, dp_state_
+        torch.cuda.empty_cache()
+    bn_share = {k: (v[1] - v[2]) / v[1] for k, v in step_ms.items()}
+    print(f"phase 25 YOLOv4 @{TRAIN_IMAGE} b{TRAIN_BATCH} step ms (CUDA events, 6 steps, "
+          f"turns plain, DP, DP, plain, after 2 warm-up steps; DP at world 1 by NCCL): "
+          + "; ".join(f"{k}: plain {v[0]:.2f}, DP {v[1]:.2f} ({(v[1] / v[0] - 1) * 100:+.1f}%), "
+                      f"DP with rank-local BatchNorm {v[2]:.2f} (the global BatchNorm's share "
+                      f"{bn_share[k] * 100:.1f}%)" for k, v in step_ms.items())
+          + f" on [{card}]", flush=True)
+    mark("YOLOv4 step readings")
+    d0_ms, peaks, d0_batch = {}, {}, None
+    for mode in ("plain", "dp", "fsdp"):
+        state, _, step, anchors, _ = d0_train_setup(files, torch.bfloat16, "cuda")
+        if d0_batch is None:
+            d0_batch = next(iter(d0_batches(files, anchors, D0_TRAIN_BATCH, "cuda", prefetch=0)))
+        if mode != "plain":
+            wrapper = dp if mode == "dp" else fsdp
+            wrapper.put_state(state)
+            step = wrapper.wrap_step(step)
+        step(state, d0_batch)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, d0_batch)
+        torch.cuda.synchronize()
+        peaks[mode] = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+        d0_ms[mode] = cuda_ms(lambda: step(state, d0_batch), 3)
+        del state, step
+        torch.cuda.empty_cache()
+    print(f"phase 25 D0 @{D0_IMAGE} b{D0_TRAIN_BATCH} bf16 step ms (CUDA events, 3 steps "
+          f"after 2; world 1 by NCCL): plain {d0_ms['plain']:.2f}, DP {d0_ms['dp']:.2f}, FSDP "
+          f"{d0_ms['fsdp']:.2f}; a step's peak above the resident state: plain "
+          f"{peaks['plain']:.3f} GiB, DP {peaks['dp']:.3f} GiB, FSDP {peaks['fsdp']:.3f} GiB "
+          f"on [{card}]", flush=True)
+    dist.destroy_process_group()
+    mark("D0 step readings")
+    elapsed = time.perf_counter() - t_phase
+    print(f"phase 25 took {elapsed:.1f} s ({'; '.join(marks)}) on [{card}]", flush=True)
+    return {"launches": launches, "seconds": elapsed, "step_ms": step_ms, "d0_ms": d0_ms,
+            "peaks": peaks, "serve": readings}
+
+
 def main():
     import torch
 
@@ -4358,13 +4897,17 @@ def main():
     print(f"phase 22 took {time.perf_counter() - t22:.1f} s on [{card}]", flush=True)
     int8 = phase_int8(card, weights, files, train["ckpt"], d0_train["ckpt"])
     exported = phase_export(card, weights, d0_weights)
+    parallel = phase_parallel(card, files, weights, d0_weights)
+    dp_launches = parallel["launches"]
     nms_launches = (yolo_launches["nms_sweep"] + d0_launches["nms_sweep"]
                     + train["val_launches"] + eval_launches + d0_eval["nms_sweep"]
                     + v3_serving["launches"] + v3_train["launches"] + mosaic["val_launches"]
-                    + extras["nms_sweep"] + distill["launches"] + exported["nms_sweep"])
+                    + extras["nms_sweep"] + distill["launches"] + exported["nms_sweep"]
+                    + dp_launches["nms_sweep"])
     dw_launches = (d0_launches["dwconv_bn_swish"] + d0_eval["dwconv_bn_swish"]
-                   + extras["dwconv_bn_swish"] + exported["dwconv_bn_swish"])
-    int8["launches"]["int8_conv"] += exported["int8_conv"]
+                   + extras["dwconv_bn_swish"] + exported["dwconv_bn_swish"]
+                   + dp_launches["dwconv_bn_swish"])
+    int8["launches"]["int8_conv"] += exported["int8_conv"] + dp_launches["int8_conv"]
     dw = dw_sums[64]
     i8, i8dw = int8["int8_conv"], int8["int8_dwconv"]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s on [{card}]; kernels "
@@ -4391,7 +4934,11 @@ def main():
           f"int8 values for the depthwise), cuDNN bf16 of the same convs {i8['cudnn_ms']:.4f} "
           f"and {i8dw['cudnn_ms']:.4f} ms; phase 24's served artifacts add nms_sweep "
           f"{exported['nms_sweep']}, dwconv_bn_swish {exported['dwconv_bn_swish']} and "
-          f"int8_conv {exported['int8_conv']} launches", flush=True)
+          f"int8_conv {exported['int8_conv']} launches, phase 25's data-parallel paths (the "
+          f"--dp trainer's val pass, the --fsdp checkpoint served and scored, serve --dp) "
+          f"nms_sweep {dp_launches['nms_sweep']}, dwconv_bn_swish "
+          f"{dp_launches['dwconv_bn_swish']} and int8_conv {dp_launches['int8_conv']}",
+          flush=True)
     print(json.dumps({"kernels": [
         {"name": "nms_sweep", "route": "cuda", "source": NMS_SOURCE, "replaces": NMS_REPLACES,
          "launches": nms_launches,

@@ -347,10 +347,15 @@ def test_efficientdet_serve_refuses_unported_flags(tmp_path, capsys):
         with pytest.raises(SystemExit):
             serve.parse_args(base + extra)
         assert "int8 serving is yolo-family" in capsys.readouterr().err
-    for extra in (["--dp", "2"], ["--spatial", "2"]):
-        with pytest.raises(SystemExit):
-            serve.parse_args(base + extra)
-        assert "not yet ported" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        serve.parse_args(base + ["--spatial", "2"])
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and "ROADMAP.md queue 6" in err
+    # --dp is ported, with the JAX server's EfficientDet rule
+    with pytest.raises(SystemExit):
+        serve.parse_args(base + ["--dp", "2"])
+    assert "--dp requires --batch > 1 divisible by it" in capsys.readouterr().err
+    assert serve.parse_args(base + ["--dp", "2", "--batch", "16"]).dp == 2
     # --artifact is ported: its program pins the weights --randomInit would make
     with pytest.raises(SystemExit):
         serve.parse_args(base + ["--artifact", "a.tmvt"])

@@ -204,11 +204,20 @@ def test_clis_refuse_unported_flags_and_need_a_card(tiny_set, capsys):
     root = tiny_set[0]
     train = ["--trainData", "l.txt", "--trainImagePath", "i", "--classesFile", "c.txt",
              "--anchorsFile", "a.txt"]
-    for extra in (["--dp"], ["--sp", "2"], ["--tp", "2"], ["--fsdp"]):
+    for extra in (["--sp", "2"], ["--tp", "2"]):
         with pytest.raises(SystemExit):
             train_yolo.parse_args(train + extra)
         err = capsys.readouterr().err
         assert "not yet ported" in err and "ROADMAP.md queue 6" in err and extra[0] in err
+    # --dp and --fsdp are ported; the JAX CLI's combination rules hold
+    assert train_yolo.parse_args(train + ["--dp"]).dp
+    assert train_yolo.parse_args(train + ["--fsdp"]).fsdp
+    for extra, why in ((["--fsdp", "--sp", "2"], "--fsdp shards state over the data axis"),
+                       (["--dp", "--fsdp"], "--dp is implied by --sp/--tp/--fsdp"),
+                       (["--sp", "2", "--tp", "2"], "--sp and --tp cannot be combined")):
+        with pytest.raises(SystemExit):
+            train_yolo.parse_args(train + extra)
+        assert why in capsys.readouterr().err
     assert train_yolo.parse_args(train).device == "cuda"
     taken = train_yolo.parse_args(train + ["--mosaic", "0.5", "--cacheDir", "c", "--remat"])
     assert (taken.mosaic, taken.cacheDir, taken.remat) == (0.5, "c", True)
@@ -384,11 +393,19 @@ def test_d0_train_cli_on_cpu_saves_resumes_and_evaluates(d0_set, tmp_path, capsy
 
 def test_d0_train_cli_refuses_unported_flags_and_needs_a_card(capsys):
     train = ["--trainData", "l.txt", "--trainImagePath", "i", "--classesFile", "c.txt"]
-    for extra in (["--dp"], ["--sp", "2"], ["--tp", "2"], ["--fsdp"]):
+    for extra in (["--sp", "2"], ["--tp", "2"]):
         with pytest.raises(SystemExit):
             train_efficientdet.parse_args(train + extra)
         err = capsys.readouterr().err
         assert "not yet ported" in err and "ROADMAP.md queue 6" in err and extra[0] in err
+    # --dp and --fsdp are ported; the JAX CLI's combination rules hold
+    assert train_efficientdet.parse_args(train + ["--dp"]).dp
+    assert train_efficientdet.parse_args(train + ["--fsdp"]).fsdp
+    for extra, why in ((["--fsdp", "--tp", "2"], "--fsdp shards state over the data axis"),
+                       (["--dp", "--fsdp"], "--dp is implied by --sp/--tp/--fsdp")):
+        with pytest.raises(SystemExit):
+            train_efficientdet.parse_args(train + extra)
+        assert why in capsys.readouterr().err
     taken = train_efficientdet.parse_args(train + ["--cacheDir", "c", "--deviceAug", "--remat"])
     assert (taken.cacheDir, taken.remat) == ("c", True)
     args = train_efficientdet.parse_args(train)

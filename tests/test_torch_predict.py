@@ -135,11 +135,15 @@ def test_serve_path_answers_the_reference_contract(tmp_path, rng, batch):
 
 def test_serve_refuses_unported_flags_and_missing_weights(tmp_path, capsys):
     base = _write_inputs(tmp_path)
-    for extra in (["--dp", "2"], ["--spatial", "2"]):
-        with pytest.raises(SystemExit):
-            serve.parse_args(base + ["--randomInit"] + extra)
-        err = capsys.readouterr().err
-        assert "not yet ported" in err and "ROADMAP.md queue 6" in err
+    with pytest.raises(SystemExit):
+        serve.parse_args(base + ["--randomInit", "--spatial", "2"])
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and "ROADMAP.md queue 6" in err and "--spatial" in err
+    # --dp is ported, with the JAX server's rules
+    with pytest.raises(SystemExit):
+        serve.parse_args(base + ["--randomInit", "--dp", "2"])
+    assert "--dp requires --batch > 1" in capsys.readouterr().err
+    assert serve.parse_args(base + ["--randomInit", "--dp", "2", "--batch", "16"]).dp == 2
     # the int8 flags follow the JAX server's rules
     for extra, why in ((["--int8", "--int8Static", "calib"], "mutually exclusive"),
                        (["--int8", "--batch", "2"], "only supported with --batch 1")):
@@ -208,7 +212,8 @@ def test_port_imports_no_jax(tmp_path):
     and the LFW evaluation, the MoCo and distillation CLIs' arguments, a MoCo
     train state (query and key towers, queue) and the pseudo-labeler, the
     visualize package, the export CLI's and ``serve --artifact``'s arguments,
-    ``serving/export.py`` and the space-to-depth stem conv leave ``tmv_tpu`` (and jax,
+    ``serving/export.py``, the space-to-depth stem conv and every module of
+    ``tmv_tpu_torch.parallel`` with ``torch.distributed`` leave ``tmv_tpu`` (and jax,
     flax, jaxlib, optax, sklearn and matplotlib) out of ``sys.modules``; h5py may be
     loaded."""
     yolo = _write_inputs(tmp_path) + ["--randomInit", "--imageSize", "32", "--device", "cpu",
@@ -238,6 +243,10 @@ def test_port_imports_no_jax(tmp_path):
     code = ("import sys, pkgutil, importlib, tmv_tpu_torch\n"
             "for m in pkgutil.walk_packages(tmv_tpu_torch.__path__, 'tmv_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
+            "import torch.distributed, torch.distributed.fsdp, torch.distributed.tensor\n"
+            "for name in ('collectives', 'fsdp', 'inference', 'launch', 'mesh', 'train'):\n"
+            "    importlib.import_module('tmv_tpu_torch.parallel.' + name)\n"
+            "from tmv_tpu_torch.parallel import DataParallel, FullyShardedDataParallel\n"
             "import torch\n"
             "torch.set_num_threads(1)   # no OpenMP spinning under parallel test workers\n"
             "from tmv_tpu_torch.cli import eval_map, serve, train_yolo\n"

@@ -27,6 +27,13 @@ the flax bridge), loaded by ``core.checkpoint.load_weights``. ``--randomInit --s
 N`` serves seeded random weights instead, for trying the path without a
 checkpoint. ``--device cuda`` (the default) raises where there is no GPU.
 
+``--dp N`` (JAX's data-parallel serving) runs N predictor replicas, one per card
+(``cuda:0 … cuda:N−1``; more than the host's cards exits with the reason), under the
+micro-batch queue: ``--batch`` > 1 divisible by N, each batch padded to ``--batch``
+and split in order over the replicas, each on its own stream and host thread
+(``parallel/inference.py``), for both families and with ``--int8Static``.
+``--spatial`` is not ported yet.
+
 int8 serving (YOLO family only, as the JAX server): ``--int8Static CALIB_DIR``
 calibrates activation scales over the images of ``CALIB_DIR`` (letterboxed, the
 first 32), quantizes the weights once (``--int8PerChannel``: per-input-channel
@@ -44,8 +51,7 @@ import argparse
 # JAX-only flags, accepted by the parser so that they can be refused by name
 # → the ROADMAP.md item that holds them.
 _NOT_PORTED = {
-    "--dp": (lambda a: a.dp is not None, "ROADMAP.md queue 6: multi-GPU training"),
-    "--spatial": (lambda a: a.spatial is not None, "ROADMAP.md queue 6: multi-GPU training"),
+    "--spatial": (lambda a: a.spatial > 0, "ROADMAP.md queue 6: multi-GPU training"),
 }
 
 
@@ -82,8 +88,10 @@ def parse_args(argv=None):
                    help="multiplier on the calibrated activation absmax (<1 clips outliers)")
     p.add_argument("--int8PerChannel", action="store_true",
                    help="per-input-channel activation scales")
-    p.add_argument("--dp", type=int, default=None)
-    p.add_argument("--spatial", type=int, default=None)
+    p.add_argument("--dp", type=int, default=0,
+                   help="shard the micro-batch over this many predictor replicas, one per "
+                        "card (parallel/inference.py); needs --batch > 1 divisible by it")
+    p.add_argument("--spatial", type=int, default=0)
     p.add_argument("--artifact", default=None,
                    help="serve an export of cli/export_model.py: skips the model build "
                         "and the checkpoint load")
@@ -95,7 +103,8 @@ def parse_args(argv=None):
                 "(serve them with python -m tmv_tpu.cli.serve)")
     if args.artifact:
         bad = [f for f, on in (("--batch", args.batch > 1), ("--int8", args.int8),
-                               ("--int8Static", bool(args.int8Static)), ("--bf16", args.bf16),
+                               ("--int8Static", bool(args.int8Static)), ("--dp", args.dp > 0),
+                               ("--bf16", args.bf16),
                                ("--modelPath", args.modelPath is not None),
                                ("--randomInit", args.randomInit)) if on]
         if bad:
@@ -117,6 +126,8 @@ def parse_args(argv=None):
         if bad:
             p.error(f"{', '.join(bad)} are not supported with --family efficientdet (int8 "
                     "serving is yolo-family; see PARITY §6 — D0 measured 0.73x)")
+        if args.dp and (args.batch <= 1 or args.batch % args.dp):
+            p.error("--dp requires --batch > 1 divisible by it")
     else:
         if args.int8 and args.int8Static:
             p.error("--int8 and --int8Static are mutually exclusive")
@@ -131,6 +142,12 @@ def parse_args(argv=None):
         if args.int8 and args.batch > 1:
             p.error("--int8 (dynamic) is only supported with --batch 1; use --int8Static "
                     "for batched throughput serving")
+        if args.dp:
+            if args.batch <= 1:
+                p.error("--dp requires --batch > 1 (the sharded predictor serves the "
+                        "micro-batch queue)")
+            if args.batch % args.dp:
+                p.error(f"--batch {args.batch} is not divisible by --dp {args.dp}")
     return args
 
 
@@ -145,7 +162,8 @@ def quant_of(args) -> str:
 def _build_model(args, classes_num, dtype, thresholds=None):
     """``(model, make_batched, init)`` of the family: the module (its weights without
     values: the caller loads them or seeds them with ``init``), a factory of its
-    batched predictor (``make_batched(quant)``) and its seeded init.
+    batched predictor (``make_batched(quant)``, or ``make_batched(quant, replica)`` for
+    a copy of the module) and its seeded init.
     ``thresholds`` (``confidence``, ``scores``, ``iou``) replace the server's (the
     JAX server's 0.5, 0.2, 0.5 for YOLO; the predictor's own for EfficientDet)."""
     if args.family == "efficientdet":
@@ -161,8 +179,8 @@ def _build_model(args, classes_num, dtype, thresholds=None):
         kw = ({} if thresholds is None else
               dict(iou_threshold=thresholds["iou"], score_threshold=thresholds["scores"]))
         return (model,
-                lambda quant: make_efficientdet_predict_batched(model, anchors, args.imageSize,
-                                                                quant=quant, **kw),
+                lambda quant, module=model: make_efficientdet_predict_batched(
+                    module, anchors, args.imageSize, quant=quant, **kw),
                 init_weights)
 
     from tmv_tpu_torch.data.loaders import load_anchors
@@ -176,9 +194,8 @@ def _build_model(args, classes_num, dtype, thresholds=None):
     t = thresholds or dict(confidence=0.5, scores=0.2, iou=0.5)
     kw = dict(confidence_thresh=t["confidence"], scores_thresh=t["scores"], iou_thresh=t["iou"],
               iou_type=iou_type)
-    return (model, lambda quant: make_yolo_predict_batched(model, image_wh, anchors, classes_num,
-                                                           quant=quant, **kw),
-            init_weights)
+    return (model, lambda quant, module=model: make_yolo_predict_batched(
+        module, image_wh, anchors, classes_num, quant=quant, **kw), init_weights)
 
 
 def artifact_service(args):
@@ -224,6 +241,13 @@ def build_service(args, thresholds=None):
     from tmv_tpu_torch.serving.app import DetectionService
 
     device = check_device(args.device)
+    if getattr(args, "dp", 0):
+        from tmv_tpu_torch.parallel.inference import replica_devices
+
+        try:   # before the model is built: more replicas than cards stop here
+            replica_devices(args.dp, device=args.device)
+        except ValueError as e:
+            raise SystemExit(f"--dp {args.dp}: {e}")
     if getattr(args, "artifact", None):
         service = artifact_service(args)
         service.batcher = None
@@ -254,6 +278,13 @@ def build_service(args, thresholds=None):
         print("int8 calibration done", flush=True)
 
     batched = make_batched(quant)
+    if getattr(args, "dp", 0):
+        from tmv_tpu_torch.parallel.inference import make_sharded_batched_predictor
+
+        batched, _, devices = make_sharded_batched_predictor(
+            model, lambda replica: make_batched(quant, replica), args.dp, device=args.device)
+        print(f"data-parallel serving over {len(devices)} replicas "
+              f"({', '.join(map(str, devices))})", flush=True)
     batcher = None
     # warm before accepting traffic (import-time parity)
     batched(None, np.zeros((args.batch, image_wh[1], image_wh[0], 3), np.float32))

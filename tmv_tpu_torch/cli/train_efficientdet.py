@@ -18,6 +18,11 @@ decoded, letterboxed frames in a memmap cache that later epochs read.
 ``--device cuda`` (the default) raises where there is no GPU; ``--device cpu``
 is for tests.
 
+``--dp`` (DDP) and ``--fsdp`` (FSDP2) train over every visible card with the JAX
+CLI's rules, as ``cli/train_yolo.py`` does: ``--batchSize`` is the global batch (the
+peak learning rate scales with it), each rank decodes and trains its rows, the
+``drop_connect`` draws are the global batch's; rank 0 alone logs and writes.
+
 Usage:
     python -m tmv_tpu_torch.cli.train_efficientdet --modelName efficientdet-d0 \\
         --trainData ./data/train_labels.txt --trainImagePath ./imgs \\
@@ -33,13 +38,7 @@ import os
 
 import numpy as np
 
-# Flags of the JAX CLI the port does not run yet → the later ROADMAP.md item.
-_NOT_PORTED = {
-    "--dp": (lambda a: a.dp, "ROADMAP.md queue 6: multi-GPU training"),
-    "--sp": (lambda a: a.sp > 1, "ROADMAP.md queue 6: multi-GPU training"),
-    "--tp": (lambda a: a.tp > 1, "ROADMAP.md queue 6: multi-GPU training"),
-    "--fsdp": (lambda a: a.fsdp, "ROADMAP.md queue 6: multi-GPU training"),
-}
+from tmv_tpu_torch.cli.train_yolo import check_parallel_flags, rank_rows
 
 
 def parse_args(argv=None):
@@ -60,10 +59,13 @@ def parse_args(argv=None):
                    help="gradient accumulation micro-steps (batchSize must divide)")
     p.add_argument("--remat", action="store_true",
                    help="recompute MBConv blocks, BiFPN cells and heads in the backward")
-    p.add_argument("--dp", action="store_true")
+    p.add_argument("--dp", action="store_true",
+                   help="data-parallel over every visible card (DDP)")
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--fsdp", action="store_true")
+    p.add_argument("--fsdp", action="store_true",
+                   help="fully-sharded data parallelism (FSDP2): parameter, gradient and "
+                        "optimizer storage split 1/N over the cards")
     p.add_argument("--earlyStopPatience", type=int, default=10,
                    help="epochs without train-loss improvement before stopping (0 disables)")
     p.add_argument("--deviceAug", action="store_true",
@@ -73,20 +75,32 @@ def parse_args(argv=None):
                    help="staging cache directory (data/stage_cache.py; needs --deviceAug)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    refused = [f"{flag} ({where})" for flag, (given, where) in _NOT_PORTED.items()
-               if given(args)]
-    if refused:
-        p.error(f"not yet ported to tmv_tpu_torch: {'; '.join(refused)}")
-    if args.batchSize % args.accumSteps:
-        p.error("--accumSteps must divide --batchSize")
     if args.cacheDir and not args.deviceAug:
         p.error("--cacheDir requires --deviceAug (only the fixed staging frame is "
                 "deterministic; host augmentation draws anew every epoch)")
+    check_parallel_flags(p, args)
+    if args.batchSize % args.accumSteps:
+        p.error("--accumSteps must divide --batchSize")
     return args
 
 
 def main(argv=None):
-    """Train; returns ``{"step", "epochs"}``."""
+    """Train; returns ``{"step", "epochs"}``, None where ``--dp``/``--fsdp`` ran the
+    ranks in processes of their own."""
+    from tmv_tpu_torch.parallel.launch import run_ranks
+
+    return run_ranks(train, parse_args(argv))
+
+
+def train(args):
+    """The trainer in this process (one rank of ``--dp``/``--fsdp``, or alone)."""
+    from tmv_tpu_torch.parallel.launch import data_parallel
+
+    with data_parallel(args) as par:
+        return _train(args, par)
+
+
+def _train(args, par):
     import torch
 
     from tmv_tpu_torch.core.callbacks import EarlyStopping, GracefulShutdown
@@ -100,9 +114,10 @@ def main(argv=None):
     from tmv_tpu_torch.models.efficientdet.config import get_efficientdet_config
     from tmv_tpu_torch.models.efficientdet.harness import build_efficientdet
     from tmv_tpu_torch.models.efficientdet.net import init_weights, make_efficientdet_loss_fn
+    from tmv_tpu_torch.parallel.collectives import agree_any
 
-    args = parse_args(argv)
-    device = check_device(args.device)
+    device = check_device(args.device) if par is None else par.device
+    lead = par is None or par.rank == 0
     size = args.imageSize or get_efficientdet_config(args.modelName).image_size
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     # head size follows the dataset: its classes + background id 0
@@ -114,7 +129,8 @@ def main(argv=None):
     pipeline = EfficientDetPipeline(args.trainImagePath, args.trainData, args.classesFile,
                                     args.batchSize, anchors, cfg.num_classes, image_size=size,
                                     max_boxes=args.maxBoxes, device_aug=args.deviceAug,
-                                    cache_dir=args.cacheDir, device=device)
+                                    cache_dir=args.cacheDir, device=device,
+                                    rows=None if par is None else rank_rows(args, par))
     init_weights(model, 0)
     model = model.to(memory_format=torch.channels_last)
 
@@ -124,14 +140,20 @@ def main(argv=None):
     state = TrainState.create(model, optimizer, ema_decay=0.9998)
     mgr = CheckpointManager(args.modelPath)
     state = mgr.restore(state)
-    if state.step:
+    if state.step and lead:
         print(f"resumed from step {state.step}", flush=True)
 
     generator = torch.Generator(device)
     loss_fn = make_efficientdet_loss_fn(generator=generator)
     step_fn = make_train_step(loss_fn, clip_global_norm=10.0, ema_decay=0.9998,
                               accum_steps=args.accumSteps, lr_schedule=schedule)
-    logger = MetricsLogger(os.path.join(args.modelPath, "metrics.jsonl"), print_every=20)
+    if par is not None:
+        state = par.put_state(state)
+        step_fn = par.wrap_step(step_fn)
+        print(f"{'fsdp (ZeRO-3)' if args.fsdp else 'data-parallel'} rank {par.rank} of "
+              f"{par.world} on {device}", flush=True)
+    logger = MetricsLogger(os.path.join(args.modelPath, "metrics.jsonl") if lead else None,
+                           print_every=20 if lead else 0)
     timer = StepTimer(batch_size=args.batchSize)
     early = EarlyStopping(patience=args.earlyStopPatience) if args.earlyStopPatience else None
     shutdown = GracefulShutdown()
@@ -152,7 +174,7 @@ def main(argv=None):
     try:
         for step_i in range(state.step, total):
             batch = next(it)
-            if not warned_fg:
+            if not warned_fg and lead:
                 warn_zero_foreground(batch, cfg)
                 warned_fg = True
             generator.manual_seed(step_i)
@@ -160,9 +182,10 @@ def main(argv=None):
             metrics.update(timer.tick())
             record()
             pending.append((step_i, metrics))
-            if shutdown.requested or (step_i + 1) % args.stepsPerEpoch == 0:
+            stop = agree_any(shutdown.requested, None if par is None else par.data_group)
+            if stop or (step_i + 1) % args.stepsPerEpoch == 0:
                 record()
-            if shutdown.requested:
+            if stop:
                 print(f"preemption signal: checkpointing at step {state.step} and exiting",
                       flush=True)
                 break
@@ -171,8 +194,9 @@ def main(argv=None):
                 epoch_loss = float(np.mean(epoch_losses))
                 epoch_losses = []
                 if early is not None and early.update(epoch_loss):
-                    print(f"early stopping: no improvement for {args.earlyStopPatience} "
-                          "epochs", flush=True)
+                    if lead:
+                        print(f"early stopping: no improvement for {args.earlyStopPatience} "
+                              "epochs", flush=True)
                     break
         record()
     finally:
@@ -181,7 +205,7 @@ def main(argv=None):
     mgr.save(state.step, state)
     mgr.close()
     logger.close()
-    return {"step": state.step, "epochs": state.step // args.stepsPerEpoch}
+    return {"step": state.step, "epochs": state.step // args.stepsPerEpoch} if lead else None
 
 
 def warn_zero_foreground(batch, cfg):

@@ -24,6 +24,15 @@ instead of storing its activations (``layers.common.remat_call``).
 weights and float32 Adam moments. ``--device cuda`` (the default) raises where
 there is no GPU; ``--device cpu`` is for tests.
 
+``--dp`` trains data-parallel (``parallel.train.DataParallel``, DDP) and ``--fsdp``
+fully sharded (``parallel.fsdp.FullyShardedDataParallel``, FSDP2), with the JAX
+CLI's rules: ``--batchSize`` is the global batch (each rank decodes and trains its
+rows of it), ``--dp`` is implied by ``--fsdp``, and ``--fsdp`` does not combine with
+``--sp``/``--tp``. Under ``torchrun`` the ranks join its group; run plainly, one rank
+per visible card (``parallel.launch``). Rank 0 alone logs, validates and writes
+(under ``--fsdp`` every rank runs the val forwards, which gather the shards).
+The Darknet warm start does not run data-parallel (refused with ``--darknetWeights``).
+
 Usage:
     python -m tmv_tpu_torch.cli.train_yolo --version v4 \\
         --trainData ./data/train_labels.txt --trainImagePath ./imgs \\
@@ -41,11 +50,27 @@ import numpy as np
 
 # Flags of the JAX CLI the port does not run yet → the later ROADMAP.md item.
 _NOT_PORTED = {
-    "--dp": (lambda a: a.dp, "ROADMAP.md queue 6: multi-GPU training"),
     "--sp": (lambda a: a.sp > 1, "ROADMAP.md queue 6: multi-GPU training"),
     "--tp": (lambda a: a.tp > 1, "ROADMAP.md queue 6: multi-GPU training"),
-    "--fsdp": (lambda a: a.fsdp, "ROADMAP.md queue 6: multi-GPU training"),
 }
+
+
+def check_parallel_flags(p, args):
+    """The JAX CLIs' rules for ``--dp``/``--sp``/``--tp``/``--fsdp``, then the refusal
+    of the axes not ported yet."""
+    if args.sp > 1 and args.tp > 1:
+        p.error("--sp and --tp cannot be combined on the CLI (use the parallel/ API "
+                "directly for 3-D meshes)")
+    if args.fsdp and (args.sp > 1 or args.tp > 1):
+        p.error("--fsdp shards state over the data axis; it cannot be combined with "
+                "--sp/--tp on the CLI")
+    if args.dp and (args.sp > 1 or args.tp > 1 or args.fsdp):
+        p.error("--dp is implied by --sp/--tp/--fsdp (their meshes already shard the batch "
+                "over the data axis) — pass only one mode")
+    refused = [f"{flag} ({where})" for flag, (given, where) in _NOT_PORTED.items()
+               if given(args)]
+    if refused:
+        p.error(f"not yet ported to tmv_tpu_torch: {'; '.join(refused)}")
 
 
 def parse_args(argv=None):
@@ -72,10 +97,13 @@ def parse_args(argv=None):
     p.add_argument("--cacheDir", default=None,
                    help="staging cache directory (data/stage_cache.py)")
     p.add_argument("--bf16", action="store_true")
-    p.add_argument("--dp", action="store_true")
+    p.add_argument("--dp", action="store_true",
+                   help="data-parallel over every visible card (DDP)")
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--fsdp", action="store_true")
+    p.add_argument("--fsdp", action="store_true",
+                   help="fully-sharded data parallelism (FSDP2): parameter, gradient and "
+                        "optimizer storage split 1/N over the cards")
     p.add_argument("--accumSteps", type=int, default=1,
                    help="gradient accumulation micro-steps (batchSize must divide)")
     p.add_argument("--remat", action="store_true",
@@ -88,17 +116,32 @@ def parse_args(argv=None):
     p.add_argument("--minLr", type=float, default=1e-6)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    refused = [f"{flag} ({where})" for flag, (given, where) in _NOT_PORTED.items()
-               if given(args)]
-    if refused:
-        p.error(f"not yet ported to tmv_tpu_torch: {'; '.join(refused)}")
+    check_parallel_flags(p, args)
     if args.batchSize % args.accumSteps:
         p.error("--accumSteps must divide --batchSize")
+    if args.darknetWeights and (args.dp or args.fsdp):
+        p.error("--darknetWeights (the head-only warm start) does not run under --dp/--fsdp; "
+                "warm-start on one card, then resume from its checkpoint with --dp")
     return args
 
 
 def main(argv=None):
-    """Train; returns ``{"step", "epochs", "val_mAP"}`` (the per-epoch val mAPs)."""
+    """Train; returns ``{"step", "epochs", "val_mAP"}`` (the per-epoch val mAPs), None
+    where ``--dp``/``--fsdp`` ran the ranks in processes of their own."""
+    from tmv_tpu_torch.parallel.launch import run_ranks
+
+    return run_ranks(train, parse_args(argv))
+
+
+def train(args):
+    """The trainer in this process (one rank of ``--dp``/``--fsdp``, or alone)."""
+    from tmv_tpu_torch.parallel.launch import data_parallel
+
+    with data_parallel(args) as par:
+        return _train(args, par)
+
+
+def _train(args, par):
     import torch
 
     from tmv_tpu_torch.core.callbacks import (
@@ -113,16 +156,18 @@ def main(argv=None):
         build_yolo_model, check_device, make_yolo_loss_fn, make_yolo_predict,
     )
     from tmv_tpu_torch.models.layers.common import init_weights
+    from tmv_tpu_torch.parallel.collectives import agree_any
 
-    args = parse_args(argv)
-    device = check_device(args.device)
+    device = check_device(args.device) if par is None else par.device
+    lead = par is None or par.rank == 0
+    rows = None if par is None else rank_rows(args, par)
     anchors = load_anchors(args.anchorsFile)
     image_wh = (args.imageSize, args.imageSize)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
 
     pipeline = YoloDataPipeline(args.trainImagePath, args.trainData, args.classesFile,
                                 args.batchSize, anchors, image_wh=image_wh, mosaic=args.mosaic,
-                                cache_dir=args.cacheDir, device=device)
+                                cache_dir=args.cacheDir, device=device, rows=rows)
     model, predict_iou_type = build_yolo_model(args.version, pipeline.classes_num,
                                                anchors.shape[1], dtype=dtype, device=device,
                                                param_dtype=torch.float32, remat=args.remat)
@@ -138,7 +183,7 @@ def main(argv=None):
     mgr = CheckpointManager(args.modelPath)
     state = mgr.restore(state)
     start_step = state.step
-    if start_step:
+    if start_step and lead:
         print(f"resumed from step {start_step}", flush=True)
 
     loss_fn = make_yolo_loss_fn(image_wh, anchors,
@@ -146,7 +191,14 @@ def main(argv=None):
     if args.darknetWeights and start_step == 0 and args.warmupSteps:
         warm_start(model, loss_fn, pipeline, args.lr, args.warmupSteps)
     step_fn = make_train_step(loss_fn, shadow_loss=True, accum_steps=args.accumSteps)
-    logger = MetricsLogger(os.path.join(args.modelPath, "metrics.jsonl"), print_every=50)
+    if par is not None:
+        state = par.put_state(state)
+        step_fn = par.wrap_step(step_fn)
+        print(f"{'fsdp (ZeRO-3)' if args.fsdp else 'data-parallel'} rank {par.rank} of "
+              f"{par.world} on {device}", flush=True)
+    optimizer = state.optimizer
+    logger = MetricsLogger(os.path.join(args.modelPath, "metrics.jsonl") if lead else None,
+                           print_every=50 if lead else 0)
     timer = StepTimer(batch_size=args.batchSize)
     predict_fn = make_yolo_predict(model, image_wh, anchors, pipeline.classes_num,
                                    iou_type=predict_iou_type)
@@ -174,9 +226,10 @@ def main(argv=None):
             metrics.update(timer.tick())
             record()
             pending.append((step_i, metrics))
-            if shutdown.requested or (step_i + 1) % args.stepsPerEpoch == 0:
+            stop = agree_any(shutdown.requested, None if par is None else par.data_group)
+            if stop or (step_i + 1) % args.stepsPerEpoch == 0:
                 record()
-            if shutdown.requested:
+            if stop:
                 print(f"preemption signal: checkpointing at step {state.step} and exiting",
                       flush=True)
                 break
@@ -187,16 +240,20 @@ def main(argv=None):
                 if plateau is not None:
                     new_lr = plateau.update(epoch_loss)
                     set_learning_rate(optimizer, new_lr)
-                    print(f"epoch loss {epoch_loss:.4f} lr {new_lr:.2e}", flush=True)
+                    if lead:
+                        print(f"epoch loss {epoch_loss:.4f} lr {new_lr:.2e}", flush=True)
                 if early is not None and early.update(epoch_loss):
-                    print(f"early stopping: no improvement for {args.earlyStopPatience} "
-                          "epochs", flush=True)
+                    if lead:
+                        print(f"early stopping: no improvement for {args.earlyStopPatience} "
+                              "epochs", flush=True)
                     break
-                if args.valData:
+                # an FSDP-sharded forward is a collective: every rank runs the val pass
+                if args.valData and (lead or args.fsdp):
                     val_maps.append(validate(args, anchors, image_wh, device, model,
                                              predict_fn, pipeline.classes_num))
-                    print(f"epoch {(step_i + 1) // args.stepsPerEpoch} "
-                          f"val_mAP={val_maps[-1]:.4f}", flush=True)
+                    if lead:
+                        print(f"epoch {(step_i + 1) // args.stepsPerEpoch} "
+                              f"val_mAP={val_maps[-1]:.4f}", flush=True)
         record()
     finally:
         it.close()
@@ -204,7 +261,20 @@ def main(argv=None):
     mgr.save(state.step, state)
     mgr.close()
     logger.close()
+    if not lead:
+        return None
     return {"step": state.step, "epochs": state.step // args.stepsPerEpoch, "val_mAP": val_maps}
+
+
+def rank_rows(args, par):
+    """This rank's rows of the global ``--batchSize`` batch (``--accumSteps``
+    micro-batches each split over the ranks); exits where they do not divide."""
+    from tmv_tpu_torch.parallel.mesh import shard_rows
+
+    try:
+        return shard_rows(args.batchSize, par.rank, par.world, args.accumSteps)
+    except ValueError as e:
+        raise SystemExit(f"--batchSize {args.batchSize}: {e}")
 
 
 HEAD_PREFIXES = ("DarknetConv_0", "DarknetConv_1", "DarknetConv_2")

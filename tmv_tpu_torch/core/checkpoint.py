@@ -13,6 +13,13 @@ saved is skipped, and only the newest ``max_to_keep`` checkpoints stay. A state
 without an optimizer saves a weights-only checkpoint (``cli/convert_darknet.py``,
 ``cli/train_moco.py --mode export_k``); restoring it leaves the optimizer fresh.
 
+In a data-parallel run (a ``torch.distributed`` group is up) every rank calls
+``save`` and ``restore`` at the same steps: the state is gathered whole where it is
+FSDP-sharded (``state.parallel.full_state``, a collective), rank 0 alone writes, in
+the single-device format, and a barrier follows the write; which steps are saved is
+decided from this manager's own saves (not from the directory, which another rank
+may be writing), so every rank takes the same path. Every rank restores.
+
 ``load_weights`` is the inference CLIs' loader (``cli/serve.py``,
 ``cli/eval_map.py``), the JAX package's ``restore_weights``: a checkpoint
 directory (its latest step) or a bare ``state_dict`` ``.pt``; ``read_weights``
@@ -25,8 +32,13 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 _NAME = re.compile(r"(\d+)\.pt")
+
+
+def _distributed() -> bool:
+    return dist.is_available() and dist.is_initialized()
 
 
 def _to_host(obj):
@@ -46,6 +58,7 @@ class CheckpointManager:
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self._last_saved_step: Optional[int] = None
+        self._saved = set(self.all_steps())
         self._writer = ThreadPoolExecutor(1)
         self._pending: List[Future] = []
 
@@ -70,21 +83,30 @@ class CheckpointManager:
     def save(self, step: int, state, wait: bool = True):
         """Save ``state`` (a ``TrainState``) at ``step``; with ``wait=False`` the
         file is written in the background."""
-        if step != self._last_saved_step and step not in self.all_steps():
-            payload = _to_host({
+        distributed = _distributed()
+        saved = self._saved if distributed else set(self.all_steps())
+        if step != self._last_saved_step and step not in saved:
+            full = getattr(state.parallel, "full_state", None)
+            whole = full(state) if full is not None else {
                 "model": state.model.state_dict(),
                 "optimizer": (None if state.optimizer is None
                               else state.optimizer.state_dict()),
-                "step": int(state.step),
-                "shadow_loss": state.shadow_loss,
-                "ema_params": state.ema_params,
-                "ema_batch_stats": state.ema_batch_stats,
-                "extra": None if state.extra is None else state.extra.state_dict(),
-            })
-            self._pending.append(self._writer.submit(self._write, step, payload))
+                "ema_params": state.ema_params}
+            if not distributed or dist.get_rank() == 0:
+                payload = _to_host({
+                    **whole,
+                    "step": int(state.step),
+                    "shadow_loss": state.shadow_loss,
+                    "ema_batch_stats": state.ema_batch_stats,
+                    "extra": None if state.extra is None else state.extra.state_dict(),
+                })
+                self._pending.append(self._writer.submit(self._write, step, payload))
             self._last_saved_step = step
+            self._saved.add(step)
         if wait:
             self.wait_until_finished()
+            if distributed:
+                dist.barrier()
 
     def wait_until_finished(self):
         pending, self._pending = self._pending, []

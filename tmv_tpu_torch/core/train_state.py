@@ -13,7 +13,18 @@ holds the live module (its parameters and BatchNorm buffers) and its
   BatchNorm statistics;
 - gradient accumulation: the batch splits into ``accum_steps`` micro-batches
   whose gradients are averaged before one update, the BatchNorm statistics
-  threaded through the micro-batches in order.
+  threaded through the micro-batches in order;
+- data parallelism: a state placed by ``parallel.train.DataParallel`` or
+  ``parallel.fsdp.FullyShardedDataParallel`` (``state.parallel``) runs the loss
+  through that wrapper's module (DDP's, whose hooks average the gradients over the
+  ranks, or the FSDP-sharded one), and its step runs inside the wrapper's data group,
+  so the batch reductions below it are the global batch's. The reported ``loss``,
+  ``raw_loss``, the aux metrics and the shadow loss are means over the ranks, the
+  same on every rank; the clip's ``gnorm`` is read after the gradient reduction.
+  With ``accum_steps > 1`` a rank's batch holds its rows of each global
+  micro-batch in order (``parallel.mesh.shard_batch``), so micro-batch i is its
+  share of the one-device step's micro-batch i, and only the last micro-batch's
+  backward reduces the gradients.
 
 ``torch.optim.Adam(betas=(0.9, 0.999), eps=1e-8)`` is ``optax.adam``'s update,
 ``torch.optim.SGD(momentum=0.9)`` (no dampening, no Nesterov) is
@@ -31,6 +42,7 @@ learning rate" step (off by default there): plain SGD along the clipped
 gradient, the learning rate shrunk until the loss improves.
 """
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
@@ -38,6 +50,7 @@ import numpy as np
 import torch
 
 from tmv_tpu_torch.core.schedules import shadow_loss_decay
+from tmv_tpu_torch.parallel.collectives import is_sharded, mean_over_ranks, whole
 
 
 @dataclass
@@ -49,6 +62,7 @@ class TrainState:
     ema_params: Optional[Dict[str, torch.Tensor]] = None
     ema_batch_stats: Optional[Dict[str, torch.Tensor]] = None
     extra: Optional[Any] = None   # family state with state_dict/load_state_dict (MoCo's)
+    parallel: Optional[Any] = None   # the data-parallel wrapper that placed the state
 
     @classmethod
     def create(cls, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -141,9 +155,29 @@ def _split(batch, parts: int):
     return list(torch.chunk(batch, parts))
 
 
+def _by_kind(*lists):
+    """The aligned ``lists`` split by the kind of the first's tensors, plain or
+    FSDP-sharded (``DTensor``): a foreach op takes one kind at a time. One part, the
+    lists themselves, where every tensor is plain."""
+    kinds = [is_sharded(t) for t in lists[0]]
+    return [tuple([t for t, k in zip(lst, kinds) if k == kind] for lst in lists)
+            for kind in (False, True) if kind in kinds]
+
+
 def _global_norm(grads) -> torch.Tensor:
-    """``optax.global_norm``: the L2 norm over every gradient, in float32."""
-    return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    """``optax.global_norm``: the L2 norm over every gradient, in float32 (over the
+    whole of each FSDP-sharded gradient: one all-reduce of the shards' sums)."""
+    total = 0.0
+    for (part,) in _by_kind(grads):
+        squares = sum(torch.sum(g.float() * g.float()) for g in part)
+        total = total + whole(squares)
+    return torch.sqrt(total)
+
+
+def forward_module(state: TrainState) -> torch.nn.Module:
+    """The module a step runs its loss through: the data-parallel wrapper's where
+    the state has one, else the state's module."""
+    return state.model if state.parallel is None else state.parallel.forward_module(state)
 
 
 def _clip_scale(gnorm: torch.Tensor, clip_global_norm: float) -> torch.Tensor:
@@ -172,29 +206,38 @@ def make_train_step(loss_fn: Callable, clip_global_norm: Optional[float] = None,
     """
 
     def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        model, optimizer = state.model, state.optimizer
+        model, optimizer, par = state.model, state.optimizer, state.parallel
         model.train()
         optimizer.zero_grad(set_to_none=True)
+        fwd = forward_module(state)
         micro = _split(batch, accum_steps) if accum_steps > 1 else [batch]
         losses, auxs = [], []
-        for mb in micro:
-            loss, aux = loss_fn(model, mb)
-            loss.backward()
+        for i, mb in enumerate(micro):
+            last = i == len(micro) - 1
+            with contextlib.nullcontext() if par is None or last else par.accumulating(state):
+                loss, aux = loss_fn(fwd, mb)
+                loss.backward()
             losses.append(loss.detach())
             auxs.append(aux)
+        if par is not None:
+            par.finish_grads(state)
         params = [p for p in model.parameters() if p.grad is not None]
         grads = [p.grad for p in params]
         loss = losses[0] if accum_steps == 1 else torch.stack(losses).mean()
-        aux = {k: torch.stack([torch.as_tensor(a[k]) for a in auxs]).mean(0) for k in auxs[0]}
+        loss = mean_over_ranks(loss)
+        aux = {k: mean_over_ranks(torch.stack([torch.as_tensor(a[k]) for a in auxs]).mean(0))
+               for k in auxs[0]}
         if accum_steps > 1:
-            torch._foreach_div_(grads, float(accum_steps))
+            for (part,) in _by_kind(grads):
+                torch._foreach_div_(part, float(accum_steps))
 
         if shadow_loss:
             decay = float(shadow_loss_decay(state.step, loss_decay))
             use = 1.0 if state.step > 1 else 0.0
             # rounded to float32, as the JAX step computes it on the device
             scale = float(torch.tensor(use * (1.0 - decay) + (1.0 - use)))
-            torch._foreach_mul_(grads, scale)
+            for (part,) in _by_kind(grads):
+                torch._foreach_mul_(part, scale)
             blended = scale * loss + use * decay * state.shadow_loss
             state.shadow_loss = blended
             loss_report = blended
@@ -204,7 +247,8 @@ def make_train_step(loss_fn: Callable, clip_global_norm: Optional[float] = None,
         metrics = {"loss": loss_report, "raw_loss": loss, **aux}
         if clip_global_norm is not None:
             gnorm = _global_norm(grads)
-            torch._foreach_mul_(grads, _clip_scale(gnorm, clip_global_norm))
+            for (part,) in _by_kind(grads):
+                torch._foreach_mul_(part, _clip_scale(gnorm, clip_global_norm))
             metrics["gnorm"] = gnorm
 
         if lr_schedule is not None:
@@ -214,9 +258,10 @@ def make_train_step(loss_fn: Callable, clip_global_norm: Optional[float] = None,
         if state.ema_params is not None:
             live = dict(model.named_parameters())
             names = list(state.ema_params)
-            ema = [state.ema_params[n] for n in names]
-            torch._foreach_mul_(ema, ema_decay)
-            torch._foreach_add_(ema, [live[n].detach() for n in names], alpha=1.0 - ema_decay)
+            for ema, params_now in _by_kind([state.ema_params[n] for n in names],
+                                            [live[n].detach() for n in names]):
+                torch._foreach_mul_(ema, ema_decay)
+                torch._foreach_add_(ema, params_now, alpha=1.0 - ema_decay)
             if state.ema_batch_stats is not None:
                 buffers = dict(model.named_buffers())
                 names = list(state.ema_batch_stats)

@@ -22,11 +22,16 @@ Either way the batch's anchor targets are made on the device by one batched
 serves the letterboxed uint8 frames from the memmap cache of
 ``data/stage_cache.py`` (tag ``efficientdet-stage-pil``). The native JPEG
 decoder is not ported: staging decodes with PIL.
+
+``rows`` (a data-parallel rank's rows of the global batch, ``parallel.mesh.
+shard_rows``) makes the pipeline yield that rank's share: every rank samples the
+global batch's labels, per-item seeds and device draws in the one-process order,
+decodes only its rows, and augments and assigns targets on its rows.
 """
 
 import random
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -61,8 +66,10 @@ class EfficientDetPipeline:
                  anchors: Anchors, num_classes: int, image_size: int = 512,
                  max_boxes: int = 100, augment: bool = True, label_mean: bool = True,
                  seed: int = 0, with_raw_boxes: bool = False, device_aug: bool = False,
-                 prefetch: int = 2, cache_dir: str = None, device="cuda"):
+                 prefetch: int = 2, cache_dir: str = None, device="cuda",
+                 rows: Optional[Sequence[int]] = None):
         self.device = check_device(device)
+        self.rows = None if rows is None else list(rows)
         self.classes, _ = load_classes(classes_path)
         self.labels, self.labels_num = load_labels(label_path, image_path, self.classes)
         self.batch_size = batch_size
@@ -176,7 +183,11 @@ class EfficientDetPipeline:
         given draws, else drawn from ``self.generator``) and the targets."""
         imgs, boxes, classes, valid = (to_device(a, self.device) for a in staged)
         if params is None:
-            params = draw_params(self.generator, imgs.shape[0], self.image_size)
+            if self.rows is None:
+                params = draw_params(self.generator, imgs.shape[0], self.image_size)
+            else:      # the global batch's draws, this rank's rows
+                params = draw_params(self.generator, self.batch_size, self.image_size)
+                params = {k: v[self.rows] for k, v in params.items()}
         images01, boxes, valid = augment_batch(imgs, boxes, valid, params, self.image_size)
         boxes_t, classes_t, masks_t = self.targets(boxes[..., [1, 0, 3, 2]], classes, valid)
         return {"image": images01, "boxes": boxes_t, "classes": classes_t, "masks": masks_t}
@@ -187,12 +198,15 @@ class EfficientDetPipeline:
         it = iter(self.sampler)
         pool = ThreadPoolExecutor(min(8, self.batch_size)) if self.batch_size > 1 else None
 
+        def mine(batch):
+            return batch if self.rows is None else [batch[i] for i in self.rows]
+
         def next_batch():
             if self.device_aug:
                 labels = [next(it) for _ in range(self.batch_size)]
-                return self.device_batch(self.stage_batch(labels, pool))
+                return self.device_batch(self.stage_batch(mine(labels), pool))
             items = [(next(it), self._rng.getrandbits(32)) for _ in range(self.batch_size)]
-            return self.host_aug_batch(items, pool)
+            return self.host_aug_batch(mine(items), pool)
 
         try:
             yield from prefetch_batches(next_batch, self.prefetch)

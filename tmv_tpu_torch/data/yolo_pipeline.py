@@ -19,10 +19,16 @@ the augmentation's), as the JAX pipeline runs it. ``cache_dir`` serves the
 staged frames from the memmap cache of ``data/stage_cache.py`` (tag
 ``yolo-stage-pil``): the first epoch decodes and fills it, later epochs read it.
 The native JPEG decoder is not ported: staging decodes with PIL.
+
+``rows`` (a data-parallel rank's rows of the global batch, ``parallel.mesh.
+shard_rows``) makes the pipeline yield that rank's share: every rank samples the
+global batch's labels and draws its random numbers, as the one-process pipeline does,
+in the same order, and decodes only its rows (and, under the mosaic, the partner
+frames its rows compose); the augmentation and the targets run on its rows.
 """
 
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -136,8 +142,9 @@ class YoloDataPipeline:
                  label_mean: bool = True, image_random: bool = True, jitter: float = 0.3,
                  hue: float = 0.1, sat: float = 1.5, val: float = 1.5, flip: bool = True,
                  mosaic: float = 0.0, max_boxes: int = 100, seed: int = 0, prefetch: int = 2,
-                 cache_dir: str = None, device="cuda"):
+                 cache_dir: str = None, device="cuda", rows: Optional[Sequence[int]] = None):
         self.device = check_device(device)
+        self.rows = None if rows is None else list(rows)
         self.classes, self.classes_num = load_classes(classes_path)
         self.labels, self.labels_num = load_labels(label_path, image_path, self.classes)
         self.batch_size = batch_size
@@ -180,20 +187,52 @@ class YoloDataPipeline:
         b, c, v = pad_labels(boxes, label["classes"], self.max_boxes)
         return np.asarray(im), b, c, v
 
-    def stage_batch(self, labels, pool=None):
-        """Host: stage a batch, decodes fanned over ``pool``'s threads."""
-        staged = list(pool.map(self.stage_one, labels)) if pool else map(self.stage_one, labels)
-        return tuple(np.stack(a) for a in zip(*staged))
+    def stage_batch(self, labels, pool=None, decode=None):
+        """Host: stage a batch, decodes fanned over ``pool``'s threads; with
+        ``decode`` (row indices) only those rows, the others zero frames."""
+        picked = labels if decode is None else [labels[i] for i in decode]
+        staged = list(pool.map(self.stage_one, picked)) if pool else list(map(self.stage_one,
+                                                                              picked))
+        arrays = [np.stack(a) for a in zip(*staged)]
+        if decode is None:
+            return tuple(arrays)
+        full = [np.zeros((len(labels),) + a.shape[1:], a.dtype) for a in arrays]
+        for f, a in zip(full, arrays):
+            f[decode] = a
+        return tuple(full)
 
-    def device_batch(self, staged) -> Dict:
-        """H2D of a staged batch, then augmentation and targets on the device."""
+    def draw_mosaic(self, n: int):
+        """The mosaic's draws of a batch of ``n`` (None without the mosaic)."""
+        if not (self.image_random and self.mosaic > 0):
+            return None
+        return draw_mosaic_params(self.generator, n, self.image_wh, prob=self.mosaic)
+
+    def rows_to_decode(self, mosaic_draws) -> Optional[list]:
+        """This rank's rows and, under the mosaic, their gated partners (None: all)."""
+        if self.rows is None:
+            return None
+        need = set(self.rows)
+        if mosaic_draws is not None:
+            partners, _, gate = mosaic_draws
+            for r in self.rows:
+                if bool(gate[r]):
+                    need.update(int(p) for p in partners[:, r])
+        return sorted(need)
+
+    def device_batch(self, staged, mosaic_draws=None) -> Dict:
+        """H2D of a staged batch, then augmentation and targets on the device (on
+        ``rows`` of it where given). ``mosaic_draws`` are drawn here where not given."""
         imgs, boxes, classes, valid = (torch.from_numpy(a).to(self.device) for a in staged)
         if self.image_random and self.mosaic > 0:
-            draws = draw_mosaic_params(self.generator, imgs.shape[0], self.image_wh,
-                                       prob=self.mosaic)
+            draws = mosaic_draws if mosaic_draws is not None else self.draw_mosaic(imgs.shape[0])
             imgs, boxes, classes, valid = mosaic_batch(imgs, boxes, classes, valid, *draws)
+        params = (draw_augment_params(self.generator, imgs.shape[0], **self.aug)
+                  if self.image_random else None)
+        if self.rows is not None:
+            take = torch.as_tensor(self.rows, device=imgs.device)
+            imgs, boxes, classes, valid = (a[take] for a in (imgs, boxes, classes, valid))
+            params = None if params is None else {k: v[self.rows] for k, v in params.items()}
         if self.image_random:
-            params = draw_augment_params(self.generator, imgs.shape[0], **self.aug)
             images01, boxes, valid = augment_batch(imgs, boxes, valid, params, self.image_wh,
                                                    self.flip)
         else:
@@ -212,7 +251,9 @@ class YoloDataPipeline:
 
         def next_batch():
             labels = [next(it) for _ in range(self.batch_size)]
-            return self.device_batch(self.stage_batch(labels, pool))
+            draws = self.draw_mosaic(len(labels))
+            staged = self.stage_batch(labels, pool, self.rows_to_decode(draws))
+            return self.device_batch(staged, draws)
 
         try:
             yield from prefetch_batches(next_batch, self.prefetch)

@@ -24,13 +24,16 @@ from tmv_tpu_torch.models.efficientdet.backbone import batch_norm
 from tmv_tpu_torch.models.efficientdet.bifpn import SeparableConv
 from tmv_tpu_torch.ops.activations import swish
 from tmv_tpu_torch.ops.regularizers import drop_connect
+from tmv_tpu_torch.parallel.collectives import draw_rows
 
 
 def draw_uniform(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """One uniform [0, 1) draw per sample of ``x``, shaped ``(B, 1, …)``, in x's
-    dtype, from ``generator``."""
-    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    return torch.rand(shape, generator=generator, dtype=x.dtype, device=x.device)
+    dtype, from ``generator``; in a data-parallel step this rank's rows of the
+    global batch's draw (``parallel.collectives.draw_rows``)."""
+    ones = (1,) * (x.dim() - 1)
+    return draw_rows(lambda n: torch.rand((n,) + ones, generator=generator, dtype=x.dtype,
+                                          device=x.device), x.shape[0])
 
 
 class PredictionNet(nn.Module):

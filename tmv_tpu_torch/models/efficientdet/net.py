@@ -23,6 +23,7 @@ from tmv_tpu_torch.models.efficientdet.config import default_blocks_args
 from tmv_tpu_torch.models.efficientdet.heads import BoxNet, ClassNet
 from tmv_tpu_torch.models.layers.common import remat_call
 from tmv_tpu_torch.ops.losses import box_loss, focal_loss, l2_regularization
+from tmv_tpu_torch.parallel.collectives import global_sum, world
 
 CLASS_PRIOR = 0.01
 
@@ -127,17 +128,25 @@ def efficientdet_loss(model, outputs, batch, weight_decay: float = 4e-5,
     with ``num_positives = 1 + Σ masks`` over all levels and the batch. The focal
     term is reduced by automl's sum (divided by ``num_positives``) unless
     ``reference_focal_reduction`` takes the reference's Keras mean over all
-    elements, which leaves the classifier untrained (see the JAX function)."""
+    elements, which leaves the classifier untrained (see the JAX function).
+
+    In a data-parallel step over R ranks ``num_positives`` is the global batch's
+    (all-reduced, detached) and each summed data term is scaled by R, so that the
+    mean of the ranks' losses is the global loss; the mean-reduced focal term and
+    the l2 term are not scaled."""
     cfg = model.config
     y_pred_boxes, y_pred_classes = outputs
     loss = l2_regularization(model, weight_decay)
-    num_positives = 1.0 + sum(torch.sum(m.to(torch.float32)) for m in batch["masks"])
+    num_positives = 1.0 + global_sum(sum(torch.sum(m.to(torch.float32))
+                                         for m in batch["masks"]))
+    ranks = world()
     for level in range(len(batch["boxes"])):
         loss_b = box_loss(batch["boxes"][level], y_pred_boxes[level], num_positives)
         per_elem = focal_loss(batch["classes"][level], y_pred_classes[level], num_positives,
                               alpha=cfg.alpha, gamma=cfg.gamma)
-        loss_c = torch.mean(per_elem) if reference_focal_reduction else torch.sum(per_elem)
-        loss = loss + loss_b * 50.0 + loss_c
+        loss_c = (torch.mean(per_elem) if reference_focal_reduction
+                  else torch.sum(per_elem) * ranks)
+        loss = loss + loss_b * (50.0 * ranks) + loss_c
     return loss
 
 

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from tmv_tpu_torch.ops.activations import leaky_relu, mish, swish
+from tmv_tpu_torch.parallel.collectives import active as data_group, global_batch_norm
 from tmv_tpu_torch.ops.padding import same_pads
 from tmv_tpu_torch.quant.dynamic import dynamic_int8_conv, quant_mode
 from tmv_tpu_torch.quant.static import bn_affine, record, static_conv_site
@@ -161,11 +162,24 @@ class BatchNorm(nn.BatchNorm2d):
     (n−1)/n. One value per channel (a 1 × 1 map of one image) normalizes to the
     bias with a batch variance of 0, as flax does, where ``F.batch_norm`` would
     refuse it. Eval mode is ``nn.BatchNorm2d``'s. While a ``remat_call`` stage is
-    recomputed the statistics are left alone: they moved in the forward."""
+    recomputed the statistics are left alone: they moved in the forward.
+
+    Inside a data-parallel step (``parallel.collectives.active()``, at any world size)
+    the batch statistics are the global batch's, as GSPMD reduces them in the JAX
+    package: ``global_batch_norm`` all-reduces the sum, the sum of squares and the
+    count in float32 and takes flax's variance ``mean(x²) − mean(x)²``; the running
+    statistics take that biased variance. A recomputed stage issues the same
+    all-reduce on every rank and again leaves the statistics alone."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if data_group() is not None:
+            y, mean, biased = global_batch_norm(x, self.weight, self.bias, self.eps,
+                                                self.running_mean, self.running_var)
+            if not recomputing():
+                self._update_running(mean, biased)
+            return y
         mean = torch.zeros_like(self.running_mean)
         var = torch.ones_like(self.running_var)
         y = torch.batch_norm(x, self.weight, self.bias, mean, var, True, 1.0, self.eps,
@@ -174,12 +188,15 @@ class BatchNorm(nn.BatchNorm2d):
             return y
         n = x.numel() // x.shape[1]
         biased = var * ((n - 1) / n) if n > 1 else torch.zeros_like(var)
-        # ra + (1-m)·(batch − ra) = m·ra + (1-m)·batch, with m flax's momentum
-        with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(biased, self.momentum)
-            self.num_batches_tracked.add_(1)
+        self._update_running(mean, biased)
         return y
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, biased_var: torch.Tensor):
+        # ra + (1-m)·(batch − ra) = m·ra + (1-m)·batch, with m flax's momentum
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(biased_var, self.momentum)
+        self.num_batches_tracked.add_(1)
 
 
 class ConvBN(nn.Module):

@@ -25,9 +25,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from tmv_tpu_torch.core.train_state import forward_module
 from tmv_tpu_torch.models.backbones.resnet_v2 import ResNet50V2
 from tmv_tpu_torch.models.yolo_v3 import add_heads, heads_forward
 from tmv_tpu_torch.ops.losses import flatten_heads, l2_normalize_rows, moco_info_nce_loss
+from tmv_tpu_torch.parallel.collectives import all_gather_rows, mean_over_ranks
 
 
 class ResNetYoloV3(nn.Module):
@@ -135,7 +137,9 @@ def make_moco_train_step(temperature: float = 0.07, momentum: float = 0.999,
     forward (eval mode, its own BatchNorm statistics, no graph), the query's
     train-mode forward and InfoNCE loss against the queue, the SGD step, the
     momentum update of the key tower and the enqueue of the keys. No shadow loss.
-    Returns ``{"loss"}`` as a device tensor."""
+    Returns ``{"loss"}`` as a device tensor. Under ``parallel.train.DataParallel``
+    the query runs through DDP, the loss reported is the global batch's and the
+    queue takes the keys of the global batch in rank order."""
 
     def train_step(state, batch) -> Dict[str, torch.Tensor]:
         moco: MocoState = state.extra
@@ -145,14 +149,17 @@ def make_moco_train_step(temperature: float = 0.07, momentum: float = 0.999,
             y_k = moco.key_model(batch["key"])
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        y_q = model(batch["query"])
+        y_q = forward_module(state)(batch["query"])
         loss = moco_info_nce_loss(y_q, y_k, moco.queue, temperature)
         loss.backward()
+        if state.parallel is not None:
+            state.parallel.finish_grads(state)
         optimizer.step()
         momentum_update(moco.key_model, model, state.step, momentum, momentum_warmup_steps)
+        # a data-parallel step enqueues the keys of the global batch in rank order
         moco.queue, moco.queue_ptr = push_queue(moco.queue, moco.queue_ptr,
-                                                flatten_normalize(y_k))
+                                                all_gather_rows(flatten_normalize(y_k)))
         state.step += 1
-        return {"loss": loss.detach()}
+        return {"loss": mean_over_ranks(loss)}
 
     return train_step

@@ -12,6 +12,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
+from tmv_tpu_torch.parallel.collectives import global_sum, is_sharded, whole, world
+
 
 def sigmoid_cross_entropy(labels: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """Elementwise sigmoid CE, numerically stable (tf.nn semantics).
@@ -60,15 +62,18 @@ def class_focal_loss(class_targets: Sequence[torch.Tensor],
                      class_outputs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
                      alpha: float, gamma: float, label_smoothing: float = 0.0) -> torch.Tensor:
     """Multi-level focal loss, each level's sum divided by its positives per
-    image (``sum(mask) / batch``), a level without positives adding 0."""
+    image (``sum(mask) / batch``), a level without positives adding 0. In a
+    data-parallel step the positives are the global batch's and a rank's sum is
+    scaled by R (``parallel.collectives``)."""
     total = 0.0
+    ranks = world()
     for targets, outputs, mask in zip(class_targets, class_outputs, masks):
-        normalizer = torch.sum(mask.to(torch.float32)) / float(mask.shape[0])
+        normalizer = global_sum(torch.sum(mask.to(torch.float32))) / float(mask.shape[0] * ranks)
         per_elem = focal_loss(targets, outputs, 1.0, alpha=alpha, gamma=gamma,
                               label_smoothing=label_smoothing)
         safe = torch.where(normalizer == 0, torch.ones_like(normalizer), normalizer)
         total = total + torch.where(normalizer == 0, torch.zeros_like(normalizer),
-                                    torch.sum(per_elem) / safe)
+                                    torch.sum(per_elem) * ranks / safe)
     return total
 
 
@@ -81,8 +86,15 @@ def regularized_weights(model: nn.Module):
 
 
 def l2_regularization(model: nn.Module, weight_decay: float) -> torch.Tensor:
-    """``weight_decay · Σ w²`` over ``regularized_weights(model)``."""
-    return weight_decay * sum(torch.sum(torch.square(w)) for w in regularized_weights(model))
+    """``weight_decay · Σ w²`` over ``regularized_weights(model)``. Weights that FSDP
+    shards (``DTensor``) are summed apart, their sum made whole (``full_tensor``, one
+    all-reduce) before it joins the others'."""
+    total = 0.0
+    weights = regularized_weights(model)
+    for sharded in (False, True):
+        part = sum(torch.sum(torch.square(w)) for w in weights if is_sharded(w) == sharded)
+        total = total + whole(part)
+    return weight_decay * total
 
 
 def focus_loss(y_true: torch.Tensor, y_pred_logits: torch.Tensor,
@@ -119,7 +131,8 @@ def euclidean_distance_sq(e1: torch.Tensor, e2: torch.Tensor, axis: int = -1) ->
 def triplet_loss(anchor: torch.Tensor, positive: torch.Tensor, negative: torch.Tensor,
                  alpha: float, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``max(pos − neg + α, 0)`` over squared distances, the mean over the batch;
-    with ``valid``, the sum over the valid triplets / ``max(Σ valid, 1)``.
+    with ``valid``, the sum over the valid triplets / ``max(Σ valid, 1)``, the count
+    over the global batch in a data-parallel step (a rank's sum scaled by R).
     ``torch.maximum`` splits the gradient at a hinge of exactly 0 in halves, as
     ``jnp.maximum`` does."""
     pos_dist = euclidean_distance_sq(anchor, positive, axis=1)
@@ -129,7 +142,8 @@ def triplet_loss(anchor: torch.Tensor, positive: torch.Tensor, negative: torch.T
     if valid is None:
         return torch.mean(basic)
     valid_f = valid.to(basic.dtype)
-    return torch.sum(basic * valid_f) / torch.clamp(torch.sum(valid_f), min=1.0)
+    return (torch.sum(basic * valid_f) * world()
+            / torch.clamp(global_sum(torch.sum(valid_f)), min=1.0))
 
 
 def flatten_heads(heads: Sequence[torch.Tensor]) -> torch.Tensor:
