@@ -17,7 +17,9 @@ through the NMS kernel (phase 22); then int8 serving and eval through the two in
 conv kernels (phase 23); then the serving artifacts of ``cli/export_model.py``
 served by ``serve --artifact``, every kernel in them as a ``tmv::`` op (phase 24);
 then data-parallel training through the trainers' ``--dp``/``--fsdp`` and sharded
-serving through ``serve --dp`` (phase 25).
+serving through ``serve --dp`` (phase 25); then the image height split over two
+shards with hand-written halo exchanges: ``serve --spatial 2`` and ``train_yolo --sp
+2`` (phase 26).
 Phases, each printing its own lines:
 
 1. environment: torch/CUDA/nvcc versions and the card (nvidia-smi);
@@ -32,15 +34,15 @@ Phases, each printing its own lines:
    {1, 127, 128, 1000, 1024, 3000}, B in {1, 16}, iou/diou, xyxy/yxyx, with and
    without class-aware, on clustered boxes with tied scores, ineligible padding
    and zero-area boxes; then the sweep's times at N = 1024, B = 1 and 16
-   (class-aware diou xyxy; calls back to back by CUDA events, turns plain,
-   kernel, kernel, plain, which include the wrapper's host work), its device
+   (class-aware diou xyxy; 200 kernel calls back to back by CUDA events, which
+   include the wrapper's host work, and one call of the plain host loop), its device
    time and each stage's by CUDA-graph replay, and the sweep's bound on that
    input;
 4. the YOLOv4 slice in f32 with TF32 off: the batched predictor with the kernel
    and with the plain sweep give identical detections, and the card's heads
    agree with the CPU forward of the same state_dict (tolerance 1e-4·max|ref|);
 5. YOLOv4 serving: the port's server (``tmv_tpu_torch.cli.serve.build_app``,
-   bf16) answers 20 seeded JPEGs; every request goes through the NMS kernel;
+   bf16) answers 10 seeded JPEGs; every request goes through the NMS kernel;
 6. YOLOv4 numbers: b1 image→boxes p50 and b16 images/sec (bf16 @640), the served
    p50, and the stage times (H2D, forward, post-process, D2H, whole) at b1 and
    b16 in bf16 and in f32 with TF32 off;
@@ -63,7 +65,7 @@ Phases, each printing its own lines:
     p50, and the stage times at b1 and b64;
 11. YOLOv4 training (80 classes @416 b8, bf16 activations on float32 master
     weights) on 64 synthetic JPEGs of ``tools/e2e_converged_map.py::make_dataset``:
-    ``tmv_tpu_torch.cli.train_yolo`` takes two epochs of 20 steps with checkpoints
+    ``tmv_tpu_torch.cli.train_yolo`` takes two epochs of 10 steps with checkpoints
     and a val mAP per epoch (through the NMS kernel); then the step's time by
     CUDA events, its parts (forward, loss, backward, optimizer), one step alone
     between synchronisations, its kernels' device time (torch.profiler), the
@@ -75,11 +77,12 @@ Phases, each printing its own lines:
 12. eval: ``tmv_tpu_torch.cli.eval_map`` in both modes on that checkpoint
     (the set's labels) and on a ``.pt`` of the seeded serving weights (labels
     made from their own detections: mAP strictly between 0 and 1), with the NMS
-    kernel and again with the plain sweep patched in: equal mAPs and identical
-    kept sets, and the kernel's launches counted;
+    kernel and again with the plain sweep patched in (one prediction pass per
+    model, both modes scored from it): equal mAPs and identical kept sets, and the
+    kernel's launches counted;
 13. EfficientDet-D0 training (81 classes @512 b16, bf16 activations on float32
     master weights) on the same 64 JPEGs: ``tmv_tpu_torch.cli.train_efficientdet
-    --deviceAug`` takes two epochs of 20 steps with checkpoints (no hand-written
+    --deviceAug`` takes two epochs of 10 steps with checkpoints (no hand-written
     kernel launches in training); then the step's time by CUDA events, its parts
     (forward, loss, backward, SGD with the clip, EMA), one step alone, its
     kernels' device time (torch.profiler) and busy share, the pipeline's host
@@ -94,7 +97,8 @@ Phases, each printing its own lines:
     1), through both kernels (16 depthwise launches per forward, one sweep per
     batch, counted), then with the plain sweep (identical kept rows, equal mAPs)
     and with the plain sweep and the plain depthwise (kept rows of the same count
-    and classes, boxes within 1e-3 px, scores within 1e-5, equal mAPs);
+    and classes, boxes within 1e-3 px, scores within 1e-5, equal mAPs), each plain
+    re-run one prediction pass per model with both modes scored from it;
 15. the YOLOv3 and ResNetYoloV3 slices (80 classes @416, f32 with TF32 off,
     B = 4, IoU NMS): detections identical with the NMS kernel and with the plain
     sweep, the sweeps' whole kept masks over the pre-NMS top 1024 identical too,
@@ -108,7 +112,7 @@ Phases, each printing its own lines:
     (``save_darknet_weights``), converted by ``cli/convert_darknet.py`` into a
     checkpoint directory that loads back to the same state_dict exactly;
     ``cli/train_yolo.py --version v3 --bf16 --darknetWeights … --warmupSteps
-    10`` for two epochs of 10 steps at b8 @416 (after the warm-up every
+    5`` for two epochs of 5 steps at b8 @416 (after the warm-up every
     parameter outside ``DarknetConv_0/1/2`` is bit-equal to the stream, the
     output convs and every BatchNorm statistic have moved; the main phase starts
     at step 0 with a fresh Adam); an overfit of one fixed batch (30 steps must
@@ -120,7 +124,7 @@ Phases, each printing its own lines:
     server on the trained checkpoint directory answering one request;
 18. YOLOv4 @608 with mosaic (80 classes, the COCO anchors scaled by 608/416):
     ``cli/train_yolo.py --imageSize 608 --mosaic 1.0 --cacheDir … --bf16`` for two
-    epochs of 10 steps at b8 with a val pass per epoch through the NMS kernel
+    epochs of 5 steps at b8 with a val pass per epoch through the NMS kernel
     (launches counted), no image decoded again once cached; two passes over the
     whole set through the cache (the second decodes nothing and its frames and
     labels equal uncached staging), the host staging time of a batch decoding
@@ -133,7 +137,7 @@ Phases, each printing its own lines:
     spread + 1e-6);
 19. UNet @128 through ``cli/train_unet.py`` at the CLI's defaults (depth 4,
     width 16, 4 points, b4, float32) on 16 synthetic labelme quads the script
-    writes: 20 steps with the dumps and checkpoints of two windows and a resume;
+    writes: 10 steps with the dumps and checkpoints of two windows and a resume;
     the step by CUDA events, its kernels' device time and its peak memory at
     widths 16 and 64; an overfit
     of one fixed batch (30 steps at lr 1e-2 must halve the loss); one float32
@@ -155,7 +159,7 @@ Phases, each printing its own lines:
     model at JAX's test tolerance; ``select_triplets`` at the CLI's defaults (P =
     45, I = 40, n = 1800, D = 512): its time and peak memory, and one CPU Gumbel
     draw mined on the card and on the CPU, equal away from the borderline pairs;
-    ``cli/train_facenet.py`` (b30, 2 epochs of 2 outer steps, the LFW flags) with
+    ``cli/train_facenet.py`` (b30, 2 epochs of 1 outer step, the LFW flags) with
     its outer step split into load, embed, mine and steps; the step (10
     triplets) by CUDA events, its kernels' device time, a warm step's peak and
     the memory its forward keeps for the backward, without and with ``--remat``
@@ -170,7 +174,7 @@ Phases, each printing its own lines:
     100 (D = 74,529) for 20 steps with a checkpoint (step, queue and pointer), a
     resume for 2 more (the step, the pointer, the 16 written queue rows and the
     key tower continue; the other rows stay), ``export_k`` (the key tower,
-    weights only) and ``finetune`` for 10 steps (exactly the output convs' 6
+    weights only) and ``finetune`` for 5 steps (exactly the output convs' 6
     tensors skipped by the graft); the MoCo step by CUDA events and in parts
     (key forward, query forward and loss, backward, SGD, momentum blend,
     enqueue), its kernels' device time and busy share, its peak above the
@@ -179,7 +183,7 @@ Phases, each printing its own lines:
     key tower, written queue rows) and a wrapping push equal on card and CPU;
     ``cli/train_distill.py`` train_teacher (5 steps) and promote (the teacher
     = the student), with neither kernel launched on the MoCo and teacher paths;
-    then dump_labels and train_students (10 steps) with the seeded ResNetYoloV3
+    then dump_labels and train_students (5 steps) with the seeded ResNetYoloV3
     of phase 15 as the teacher (box rows scaled): one sweep launch per labeler
     call, every sweep's whole kept mask equal to the plain sweep's and with
     suppressions, the dumped file identical with the plain sweep's, a box in
@@ -187,7 +191,8 @@ Phases, each printing its own lines:
     batch, the student step and the dump's images/s;
 23. int8 (~30 s): the seeded YOLOv4 @640 (phase 4's weights, bf16) served by
     ``cli/serve.py --int8Static DIR --int8PerChannel`` (16 scene JPEGs calibrate it)
-    at ``--batch`` 1 and 16 and by ``--int8`` at b1: 6 requests each, 107
+    at ``--batch`` 1 and 16 and by ``--int8`` at b1 (10 b1 requests one at a time, 32
+    b16 requests from 16 clients at once), 107
     ``int8_conv`` launches per forward; the forward's b1 p50 and b16 images/s by
     CUDA events against the same model in bf16, and the share of bf16's kept boxes
     that int8 keeps (printed, not gated); every distinct ``int8_conv`` /
@@ -224,12 +229,12 @@ Phases, each printing its own lines:
 25. data parallel (``tmv_tpu_torch/parallel/``; at most ~120 s): two gloo ranks
     sharing the card take the YOLOv4 @416 f32 step on their b4 halves, held to the
     plain b8 step (``tests/dp_equiv_cases.py``'s YOLO tolerances: loss rel 2e-3,
-    parameters rtol 1e-3 + atol 5e-4); ``cli/train_yolo.py`` @416 global b8 f32 for 3
+    parameters rtol 1e-3 + atol 5e-4); ``cli/train_yolo.py`` @416 global b8 f32 for 2
     steps plain, ``--dp`` (with its val pass through the sweep kernel) and ``--fsdp``
     at world ``device_count()`` by NCCL: the first step's loss within 1e-5 of plain's,
     the later losses and the parameters' update within 2x + 1e-4 of the distance
     between two plain runs with different cuDNN algorithms (Adam's sign-sized first
-    steps amplify rounding); ``cli/train_efficientdet.py`` @512 global b16 f32 3 steps
+    steps amplify rounding); ``cli/train_efficientdet.py`` @512 global b16 f32 2 steps
     ``--fsdp`` against ``--dp`` (losses and update within 1e-3), the ``--fsdp``
     checkpoint served by ``serve --family efficientdet`` and scored by ``eval_map``;
     ``serve --dp``'s sharded predictor over ``[cuda:0, cuda:0]`` for YOLOv4 @640 b16
@@ -240,7 +245,31 @@ Phases, each printing its own lines:
     exits with the reason; readings: the YOLOv4 step and the D0 step (bf16) plain, DP
     and FSDP at world 1 by CUDA events, the global BatchNorm's share
     (the DP step with rank-local statistics), FSDP's peak memory, and two replicas'
-    images/s beside one's.
+    images/s beside one's;
+26. the spatial axis (``parallel/spatial.py``, ``parallel/halo.py``; at most ~60 s):
+    ``serve --spatial 2`` over ``[cuda:0, cuda:0]`` for YOLOv4 @640 bf16, its
+    ``--int8Static --int8PerChannel`` twin and D0 @512 bf16, 4 b1 requests each
+    through the HTTP app; the letterboxed frames the server predicted are run again
+    through the unsharded predictor of the same module: every sweep's whole mask
+    equal for the int8 twin and D0, and for YOLOv4 in bf16 (whose cuDNN convs sum in
+    another order at a shard's shapes) the detections at >= 0.98 each way (phase 25's
+    rule for serve --dp) and the same frames' whole masks equal through float32
+    predictors (TF32 off) of the weights; each kernel sweep equal to the plain sweep;
+    every depthwise launch (on halo-padded shards) within one bf16 step of the plain
+    version, and every distinct int8 call held to the plain versions as in phase 23;
+    the served p50 and the b1
+    predictor's p50 height-sharded beside unsharded; meanwhile ``train_yolo --sp 2``
+    runs in two gloo ranks sharing the card (data 1 x space 2), YOLOv4 @416 global b8
+    f32 (TF32 off, cuDNN deterministic) 2 steps, held to phase 25's plain run by its
+    rules (first loss within 1e-5, the first gradients within 2x the plain run's
+    distance from float64 + 1e-4, later losses within 1e-2).
+
+Every phase prints ``phase N took X s`` and the last summary line the whole run's
+seconds. Two groups of phases that read nothing the others write run in a process of
+their own (``Side``) beside the main sequence, on the same card and host: 15-17
+(YOLOv3), 19 (UNet) and 21 (FaceNet) beside 12-14, and 24 (export) beside 18, 20 and
+22; the readings of phases 12-22 and 24 are taken on a shared card and host. Phases
+1-11, 23 (whose int8 times go into the kernels line), 25 and 26 run alone.
 
 The serving weights are seeded (``--randomInit --seed 0`` of each family), adjusted so
 that NMS has real work: YOLOv4's three output convs' box rows are scaled by
@@ -280,18 +309,18 @@ IMAGE = 640
 D0_IMAGE = 512
 TRAIN_IMAGE = 416
 TRAIN_BATCH = 8
-TRAIN_STEPS_PER_EPOCH = 20
+TRAIN_STEPS_PER_EPOCH = 10
 TRAIN_SET = 64
 VAL_SET = 16
 OVERFIT_STEPS = 30
 MOSAIC_IMAGE = 608
-MOSAIC_STEPS_PER_EPOCH = 10
+MOSAIC_STEPS_PER_EPOCH = 5
 UNET_SET = 16
-UNET_STEPS = 20
+UNET_STEPS = 10
 D0_TRAIN_BATCH = 16
 V3_IMAGE = 416
-V3_STEPS_PER_EPOCH = 10
-V3_WARMUP = 10
+V3_STEPS_PER_EPOCH = 5
+V3_WARMUP = 5
 V3_PREDICT_KW = dict(confidence_thresh=0.5, scores_thresh=0.2, iou_thresh=0.5, iou_type="iou")
 D0_OVERFIT_LR = 0.05
 FACE_IMAGE = 160
@@ -308,9 +337,9 @@ MOCO_FILTERS = 21
 MOCO_QUEUE = 100
 MOCO_DIM = (13 ** 2 + 26 ** 2 + 52 ** 2) * MOCO_FILTERS    # at 416
 MOCO_STEPS = 20
-FINETUNE_STEPS = 10
+FINETUNE_STEPS = 5
 TEACHER_STEPS = 5
-STUDENT_STEPS = 10
+STUDENT_STEPS = 5
 NMS_SOURCE = "tmv_tpu_torch/csrc/nms_sweep.cu"
 NMS_REPLACES = "tmv_tpu/kernels/nms_pallas.py:90"
 DW_SOURCE = "tmv_tpu_torch/csrc/dwconv_bn_swish.cu"
@@ -320,8 +349,8 @@ INT8_SOURCE = "tmv_tpu_torch/csrc/int8_conv.cu"
 # no Pallas kernel there; the dynamic path's is at tmv_tpu/quant/dynamic.py:85
 INT8_REPLACES = "tmv_tpu/quant/static.py:212"
 # phase 23's served readings: b1 requests one at a time, b16 requests from 16 clients
-SERVED_B1_REQUESTS = 30
-SERVED_B16_REQUESTS = 64
+SERVED_B1_REQUESTS = 10
+SERVED_B16_REQUESTS = 32
 PREDICT_KW = dict(confidence_thresh=0.5, scores_thresh=0.2, iou_thresh=0.5, iou_type="diou")
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -423,16 +452,23 @@ def turns(plain, kernel, plain_reps, kernel_reps):
     return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
 
 
+def write_atomic(path, data):
+    """``data`` (bytes) into ``path`` through a renamed temporary file: a phase in
+    another process that reads it meanwhile sees the whole old or new file."""
+    temporary = f"{path}.{os.getpid()}.tmp"
+    with open(temporary, "wb") as f:
+        f.write(data)
+    os.replace(temporary, path)
+
+
 def write_inputs(classes, anchors=None):
     """Classes file (and YOLO anchors file) for the serving CLI."""
     classes_file = os.path.join(WORK, "coco_classes.txt")
-    with open(classes_file, "w") as f:
-        f.write("\n".join(classes) + "\n")
+    write_atomic(classes_file, ("\n".join(classes) + "\n").encode())
     if anchors is None:
         return classes_file, None
     anchors_file = os.path.join(WORK, "coco_anchors.txt")
-    with open(anchors_file, "w") as f:
-        f.write(",".join(str(int(v)) for v in anchors[::-1].reshape(-1)))
+    write_atomic(anchors_file, ",".join(str(int(v)) for v in anchors[::-1].reshape(-1)).encode())
     return classes_file, anchors_file
 
 
@@ -655,17 +691,17 @@ def phase_kernel(card):
         def plain():
             greedy_sweep_reference(boxes, eligible, classes, 0.5, "diou", "xyxy")
 
-        kernel(), plain()
-        times[batch] = turns(plain, kernel, 3, 200)
+        kernel()
+        # the plain sweep is a host loop (no yardstick): one call, after the kernel's
+        times[batch] = (cuda_ms(kernel, 200), cuda_ms(plain, 1))
         mask = suppression_mask(boxes, classes, 0.5, "diou", "xyxy")
         device[batch] = {
             "sweep": graph_ms(kernel),
             "mask": graph_ms(lambda: suppression_mask(boxes, classes, 0.5, "diou", "xyxy")),
             "scan": graph_ms(lambda: scan(mask, eligible))}
         print(f"phase 3 time N=1024 B={batch} class-aware diou xyxy on [{card}]: "
-              f"calls back to back: kernel {times[batch][0]:.4f} ms, plain "
-              f"{times[batch][1]:.2f} ms (turns plain/kernel/kernel/plain: "
-              f"{', '.join(f'{t:.4f}' for t in times[batch][2])} ms); device time "
+              f"calls back to back: kernel {times[batch][0]:.4f} ms (200 calls), plain "
+              f"{times[batch][1]:.2f} ms (one call); device time "
               f"(CUDA graph): sweep {device[batch]['sweep']:.4f} ms = mask kernel "
               f"{device[batch]['mask']:.4f} ms + scan kernel {device[batch]['scan']:.4f} ms",
               flush=True)
@@ -861,7 +897,7 @@ def phase_serving(card, weights):
                              "--bf16", "--device", "cuda"])
     app, _, model = serve.build_app(args)
     check(all(p.device.type == "cuda" for p in model.parameters()), "model is not on cuda")
-    latencies, by_read, boxes_seen, launches = drive_server(app, 20, 2)
+    latencies, by_read, boxes_seen, launches = drive_server(app, 10, 2)
     check(launches["nms_sweep"] >= len(latencies),
           f"{launches['nms_sweep']} NMS launches for {len(latencies)} requests")
     p50 = statistics.median(latencies)
@@ -1493,13 +1529,14 @@ def phase_resume(card, files, ckpt, steps):
     return state.step
 
 
-def write_own_labels(files, records):
+def write_own_labels(files, records, name="own_labels.txt"):
     """A label file of the model's own detections: for each image its 4
     best-scored kept boxes that lie inside the image and span more than 2 px,
     each corner moved by up to 2 px, and one box the model did not find, so
     that an eval against it scores strictly between 0 and 1. The eval CLI's
     records come in its sampler's order (seed 0), which maps them to the
-    images. Returns the file's path and the number of the model's boxes in it."""
+    images. Returns the file's path (``name`` beside the set's labels) and the number
+    of the model's boxes in it."""
     from tmv_tpu_torch.data.loaders import load_classes, load_labels
     from tmv_tpu_torch.data.samplers import ClassBalancedSampler
 
@@ -1520,12 +1557,30 @@ def write_own_labels(files, records):
         count += len(own)
         own.append(f"{names[i % 4]},3,3,40,36")
         entries[next(order)["image_path"]] = own
-    path = os.path.join(os.path.dirname(files["labels"]), "own_labels.txt")
+    path = os.path.join(os.path.dirname(files["labels"]), name)
     with open(path, "w") as f:
         for label in labels:
             f.write(f"{os.path.basename(label['image_path'])}|"
                     f"{'|'.join(entries[label['image_path']])}|\n")
     return path, count
+
+
+def scored_records(records_fn, trained, seeded, modes):
+    """The eval CLI's records of the trained and the seeded model (``records_fn`` of
+    each argv: one prediction pass each), and their mAPs in every mode scored from
+    that one pass → (trained's mAPs, both models' records, seeded's mAPs). The
+    modes differ only in scoring, so a re-run that checks kept rows predicts once."""
+    from tmv_tpu_torch.cli import eval_map
+
+    out, records = [], []
+    for argv in (trained, seeded):
+        args = eval_map.parse_args(argv)
+        data, classes_num = records_fn(args)
+        records += data
+        out.append({mode: {"mAP": eval_map.score_dataset(data, classes_num, mode, args.variant,
+                                                           args.thresh), "images": len(data)}
+                    for mode in modes})
+    return out[0], records, out[1]
 
 
 def phase_eval(card, files, ckpt):
@@ -1549,14 +1604,14 @@ def phase_eval(card, files, ckpt):
     seeded = common + ["--modelPath", seeded_pt]
     modes = ("batch", "global")
 
-    def evaluate(own_labels=None):
+    def evaluate():
         """Both modes and the records of each model; the seeded model's own
-        labels are written from its records when not given."""
+        labels are written from its records."""
         maps = {mode: eval_map.main(trained + ["--mode", mode]) for mode in modes}
         records, _ = eval_map.predict_records(eval_map.parse_args(trained))
         seeded_records, _ = eval_map.predict_records(
             eval_map.parse_args(seeded + ["--labelFile", files["labels"]]))
-        own_labels = own_labels or write_own_labels(files, seeded_records)
+        own_labels = write_own_labels(files, seeded_records)
         own = {mode: eval_map.main(seeded + ["--mode", mode, "--labelFile", own_labels[0]])
                for mode in modes}
         return maps, records + seeded_records, own, own_labels
@@ -1565,7 +1620,8 @@ def phase_eval(card, files, ckpt):
     maps, records, own, own_labels = evaluate()
     launches = nms_sweep.launches
     with mock.patch("tmv_tpu_torch.ops.nms.greedy_sweep", greedy_sweep_reference):
-        plain, plain_records, plain_own, _ = evaluate(own_labels)
+        plain, plain_records, plain_own = scored_records(
+            eval_map.predict_records, trained, seeded + ["--labelFile", own_labels[0]], modes)
     batches = 6 * TRAIN_SET // 8
     check(launches >= batches, f"{launches} NMS launches for {batches} eval batches")
     check(nms_sweep.launches == launches, "the plain sweep launched the kernel")
@@ -1892,11 +1948,11 @@ def phase_d0_eval(card, files, ckpt, seeded_pt):
     seeded = common + ["--modelPath", spread_pt]
     modes = ("batch", "global")
 
-    def evaluate(own_labels=None):
+    def evaluate():
         records, _ = eval_map.efficientdet_records(eval_map.parse_args(trained))
         seeded_records, _ = eval_map.efficientdet_records(
             eval_map.parse_args(seeded + ["--labelFile", files["labels"]]))
-        own_labels = own_labels or write_d0_own_labels(files, seeded_records)
+        own_labels = write_d0_own_labels(files, seeded_records)
         own = {mode: eval_map.main(seeded + ["--mode", mode, "--labelFile", own_labels[0]])
                for mode in modes}
         maps = {mode: eval_map.main(trained + ["--mode", mode]) for mode in modes}
@@ -1910,13 +1966,18 @@ def phase_d0_eval(card, files, ckpt, seeded_pt):
           f"{launches['nms_sweep']} NMS launches for {batches} eval batches")
     check(launches["dwconv_bn_swish"] == 16 * batches,
           f"{launches['dwconv_bn_swish']} depthwise launches for {batches} eval forwards")
+    own_argv = seeded + ["--labelFile", own_labels[0]]
     with mock.patch("tmv_tpu_torch.ops.nms.greedy_sweep", greedy_sweep_reference):
-        plain, plain_records, plain_own, _ = evaluate(own_labels)
+        plain, plain_records, plain_own = scored_records(
+            eval_map.efficientdet_records, trained, own_argv, modes)
         with mock.patch("tmv_tpu_torch.models.efficientdet.backbone.fused_dw_bn_swish",
                         dw_bn_swish_reference):
-            both, both_records, both_own, _ = evaluate(own_labels)
+            both, both_records, both_own = scored_records(
+                eval_map.efficientdet_records, trained, own_argv, modes)
+    # the plain sweep's re-run launches the depthwise kernel in its two passes, the
+    # run with both plain versions launches neither
     check(nms_sweep.launches == launches["nms_sweep"]
-          and dwconv.launches == 2 * launches["dwconv_bn_swish"],
+          and dwconv.launches == launches["dwconv_bn_swish"] * 4 // 3,
           "the plain runs launched a kernel they replace")
     for name, got, want in (("trained", maps, plain), ("seeded", own, plain_own),
                             ("trained, plain depthwise", maps, both),
@@ -2274,11 +2335,11 @@ def phase_v3_eval(card, files, ckpt, converted):
     seeded = common + ["--modelPath", converted]
     modes = ("batch", "global")
 
-    def evaluate(own_labels=None):
+    def evaluate():
         records, _ = eval_map.predict_records(eval_map.parse_args(trained))
         seeded_records, _ = eval_map.predict_records(
             eval_map.parse_args(seeded + ["--labelFile", files["labels"]]))
-        own_labels = own_labels or write_own_labels(files, seeded_records)
+        own_labels = write_own_labels(files, seeded_records, "v3_own_labels.txt")
         maps = {mode: eval_map.main(trained + ["--mode", mode]) for mode in modes}
         own = {mode: eval_map.main(seeded + ["--mode", mode, "--labelFile", own_labels[0]])
                for mode in modes}
@@ -2290,15 +2351,17 @@ def phase_v3_eval(card, files, ckpt, converted):
         maps, records, own, own_labels = evaluate()
     launches = nms_sweep.launches
     with plain_log.patch():
-        plain, plain_records, plain_own, _ = evaluate(own_labels)
+        plain, plain_records, plain_own = scored_records(
+            eval_map.predict_records, trained, seeded + ["--labelFile", own_labels[0]], modes)
     batches = 6 * TRAIN_SET // 8
     check(launches >= batches, f"{launches} NMS launches for {batches} v3 eval batches")
     check(nms_sweep.launches == launches, "the plain sweep launched the kernel")
-    check(kernel_log.same_masks(plain_log),
-          "v3 eval: the sweeps' whole kept masks differ between kernel and plain")
     # evaluate()'s calls in order: 8 batches each of the trained, the converted,
-    # the trained twice and the converted twice
+    # the trained twice and the converted twice; the plain pass: the first two
     per = TRAIN_SET // 8
+    check(len(plain_log.masks) == 2 * per and all(
+        np.array_equal(a, b) for a, b in zip(kernel_log.masks[:2 * per], plain_log.masks)),
+        "v3 eval: the sweeps' whole kept masks differ between kernel and plain")
     check(len(kernel_log.masks) == 6 * per, f"{len(kernel_log.masks)} sweeps in the v3 eval")
     calls = {"trained": [slice(0, per), slice(2 * per, 4 * per)],
              "converted": [slice(per, 2 * per), slice(4 * per, 6 * per)]}
@@ -2385,7 +2448,6 @@ def phase_mosaic_train(card, files):
     from tmv_tpu_torch.data.yolo_pipeline import YoloDataPipeline
     from tmv_tpu_torch.kernels import nms_sweep
 
-    t_phase = time.perf_counter()
     anchors_file = write_anchors(files, MOSAIC_IMAGE)
     anchors = load_anchors(anchors_file)
     ckpt = os.path.join(WORK, "yolov4_608_mosaic")
@@ -2546,7 +2608,7 @@ def phase_mosaic_train(card, files):
           f"remat run twice differs by {abs(again - direct):.3g}), gradients' relative L2 "
           f"difference with remat: overall {grad_err[0]:.3g}, worst tensor {grad_err[1]:.3g}; "
           f"without remat twice: {spread[0]:.3g}, {spread[1]:.3g} (tolerance: within 2x that "
-          f"spread + 1e-6); phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+          f"spread + 1e-6)", flush=True)
     return {"ckpt": ckpt, "anchors_file": anchors_file, "val_launches": val_launches,
             "timing": timing, "grad_err": grad_err}
 
@@ -2598,7 +2660,6 @@ def phase_unet(card):
     from tmv_tpu_torch.cli import train_unet
     from tmv_tpu_torch.data.unet_dataset import get_dataset
 
-    t_phase = time.perf_counter()
     root = write_labelme_set(os.path.join(WORK, "unet_set"))
     ckpt = os.path.join(WORK, "unet_train")
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -2676,8 +2737,7 @@ def phase_unet(card):
           f"required >= 2x); f32 step (TF32 off): loss card {card_loss:.6f}, CPU "
           f"{cpu_loss:.6f} (relative {loss_rel:.3g}), float64 {ref_loss:.6f}; gradients' "
           f"relative L2 error against float64 (overall, worst tensor): card {card_err[0]:.3g}, "
-          f"{card_err[1]:.3g}; CPU float32 {cpu_err[0]:.3g}, {cpu_err[1]:.3g}; phase 19 took "
-          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+          f"{card_err[1]:.3g}; CPU float32 {cpu_err[0]:.3g}, {cpu_err[1]:.3g}", flush=True)
     return {"numbers": numbers, "overfit": (overfit[0], overfit[-1]), "card_err": card_err,
             "cpu_err": cpu_err}
 
@@ -2697,7 +2757,6 @@ def phase_serving_extras(card, files, mosaic, d0_ckpt):
     from tmv_tpu_torch.cli import detect
     from tmv_tpu_torch.kernels import dwconv, nms_sweep
 
-    t_phase = time.perf_counter()
     common = {"TMV_CLASSES_FILE": files["classes"], "TMV_BF16": "1", "TMV_DEVICE": "cuda"}
     yolo_env = dict(common, TMV_MODEL_PATH=mosaic["ckpt"], TMV_FAMILY="yolo", TMV_VERSION="v4",
                     TMV_ANCHORS_FILE=mosaic["anchors_file"], TMV_IMAGE_SIZE=str(MOSAIC_IMAGE))
@@ -2739,8 +2798,7 @@ def phase_serving_extras(card, files, mosaic, d0_ckpt):
           f"{served['D0 @512'][2]}); cli/detect.py wrote its image for YOLOv4 @608 "
           f"({detected['yolo'][0]} boxes, launches {detected['yolo'][1]}, the warm-up's "
           f"included) and D0 @512 ({detected['efficientdet'][0]} boxes, launches "
-          f"{detected['efficientdet'][1]}); phase 20 took {time.perf_counter() - t_phase:.1f} s",
-          flush=True)
+          f"{detected['efficientdet'][1]})", flush=True)
     nms = (sum(v[2]["nms_sweep"] for v in served.values())
            + sum(v[1]["nms_sweep"] for v in detected.values()))
     dw = (sum(v[2]["dwconv_bn_swish"] for v in served.values())
@@ -2890,7 +2948,6 @@ def phase_facenet(card):
     from tmv_tpu_torch.models.facenet import FaceNetModel, get_embeddings, lfw
     from tmv_tpu_torch.models.facenet.model import draw_gumbel, init_weights, select_triplets
 
-    t_phase = time.perf_counter()
     check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
           "TF32 must stay off for the FaceNet comparisons")
     launches_before = (nms_sweep.launches, dwconv.launches)
@@ -2993,7 +3050,7 @@ def phase_facenet(card):
     ckpt = os.path.join(WORK, "facenet_train")
     shutil.rmtree(ckpt, ignore_errors=True)
     argv = ["--filesPath", faces, "--peoplePerBatch", str(FACE_PEOPLE), "--imagesPerPerson",
-            str(FACE_IMAGES), "--batchSize", str(FACE_BATCH), "--stepsPerEpoch", "2",
+            str(FACE_IMAGES), "--batchSize", str(FACE_BATCH), "--stepsPerEpoch", "1",
             "--epochs", "2", "--lfwDir", lfw_dir, "--lfwPairs", pairs, "--modelPath", ckpt,
             "--device", "cuda"]
     t0 = time.perf_counter()
@@ -3009,7 +3066,7 @@ def phase_facenet(card):
     lfw_acc = [float(r[0].mean()) for r in out["lfw"]]
     print(f"phase 21 FaceNet CLI on [{card}]: cli/train_facenet.py @{FACE_IMAGE} IRv1 "
           f"embedding {FACE_EMBEDDING} float32 Adam 1e-3, {FACE_PEOPLE} people x {FACE_IMAGES} "
-          f"images, b{FACE_BATCH} (10 triplets a step), 2 epochs x 2 outer steps: "
+          f"images, b{FACE_BATCH} (10 triplets a step), 2 epochs x 1 outer step: "
           f"{out['step']} steps ({steps_per_outer} per outer step, triplets "
           f"{[o['triplets'] for o in out['outer']]}) in {wall:.1f} s, loss "
           f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}; the outer step's host-clock "
@@ -3149,8 +3206,7 @@ def phase_facenet(card):
           + f" (= lfw.evaluate of recomputed embeddings); facenet_distance on 4 images: "
           f"symmetric, zero diagonal, = get_embeddings' squared distances (same person "
           f"{matrix[0, 1]:.4f}, {matrix[2, 3]:.4f}; different {matrix[0, 2]:.4f}); no "
-          f"hand-written kernel launched; phase 21 took {time.perf_counter() - t_phase:.1f} s",
-          flush=True)
+          f"hand-written kernel launched", flush=True)
     return {"readings": readings, "mine_ms": mine_ms, "mine_peak": mine_peak,
             "numbers": numbers, "parts": parts, "card_err": card_err, "cpu_err": cpu_err}
 
@@ -3836,8 +3892,8 @@ def int8_calibration_set(count=16):
     rng = np.random.default_rng(23)
     sizes = [(480, 640), (720, 1280), (640, 640), (375, 500)]
     for i in range(count):
-        with open(os.path.join(root, f"scene_{i:02d}.jpg"), "wb") as f:
-            f.write(scene_jpeg(rng, *sizes[i % len(sizes)]))
+        write_atomic(os.path.join(root, f"scene_{i:02d}.jpg"),
+                     scene_jpeg(rng, *sizes[i % len(sizes)]))
     return root
 
 
@@ -3978,7 +4034,6 @@ def phase_int8(card, weights, files, ckpt, d0_ckpt):
     from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS
     from tmv_tpu_torch.quant import calibrate_model, prepare_static_int8, quantized
 
-    t0 = time.perf_counter()
     classes_file, anchors_file = write_inputs(COCO_CLASSES, COCO_ANCHORS)
     calib = int8_calibration_set()
     serve_base = ["--modelPath", weights, "--classesFile", classes_file, "--anchorsFile",
@@ -4145,7 +4200,6 @@ def phase_int8(card, weights, files, ckpt, d0_ckpt):
         dw_times = sum_int8_times(card, dw_calls, f"int8_dwconv per D0 @{D0_IMAGE} b64 bf16 forward")
     del d0, d0_b64, dw_calls
     torch.cuda.empty_cache()
-    print(f"phase 23 took {time.perf_counter() - t0:.1f} s on [{card}]", flush=True)
     for name, times in (("int8_conv", conv_times), ("int8_dwconv", dw_times)):
         max_err[name] = max(max_err[name], times["max_err"])
     return {"launches": launches, "max_err": max_err, "int8_conv": conv_times,
@@ -4247,7 +4301,6 @@ def phase_export(card, weights, d0_weights):
     from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS
     from tmv_tpu_torch.serving.export import export_file_size, load_predictor
 
-    t_phase = time.perf_counter()
     classes_file, anchors_file = write_inputs(COCO_CLASSES, COCO_ANCHORS)
     calib = int8_calibration_set()
     yolo = ["--modelPath", weights, "--classesFile", classes_file, "--anchorsFile",
@@ -4338,13 +4391,12 @@ def phase_export(card, weights, d0_weights):
           f"{int(yolo_card_out[3].sum())}: {agree[0]:.3f} of the card's found on the CPU and "
           f"{agree[1]:.3f} of the CPU's on the card (same class, IoU >= 0.5; tolerance 0.9) "
           f"[card {card}]", flush=True)
-    print(f"phase 24 took {time.perf_counter() - t_phase:.1f} s on [{card}]", flush=True)
     return served
 
 
 # ---------------------------------------------------------------- data parallel
 
-DP_STEPS = 3
+DP_STEPS = 2
 DP_LR = 1e-4
 DP_LOSS_REL = 1e-3      # phase 11's float32 loss tolerance
 DP_UPDATE_REL = 1e-3    # the same bound on the relative L2 error of the parameters' update
@@ -4496,14 +4548,15 @@ class CheckedDepthwise:
     def __init__(self):
         from tmv_tpu_torch.kernels.dwconv import fused_dw_bn_swish
 
-        self.kernel, self.agree = fused_dw_bn_swish, []
+        self.kernel, self.agree, self.halo_padded = fused_dw_bn_swish, [], 0
 
-    def __call__(self, x, w, scale, offset, stride=1):
+    def __call__(self, x, w, scale, offset, stride=1, row_pads=None):
         from tmv_tpu_torch.kernels.dwconv import dw_bn_swish_reference
 
-        out = self.kernel(x, w, scale, offset, stride)
-        self.agree.append(within_one_bf16_step(out, dw_bn_swish_reference(x, w, scale, offset,
-                                                                          stride)))
+        out = self.kernel(x, w, scale, offset, stride, row_pads=row_pads)
+        self.agree.append(within_one_bf16_step(out, dw_bn_swish_reference(
+            x, w, scale, offset, stride, row_pads)))
+        self.halo_padded += row_pads is not None
         return out
 
     def patch(self):
@@ -4813,14 +4866,14 @@ def phase_parallel(card, files, weights, d0_weights):
         t = []
         for fn in (lambda: plain_step(plain_state, on), lambda: dp_step(dp_state_, on),
                    lambda: dp_step(dp_state_, on), lambda: plain_step(plain_state, on)):
-            t.append(cuda_ms(fn, 6))
+            t.append(cuda_ms(fn, 3))
         with local_bn:
-            t_local = cuda_ms(lambda: dp_step(dp_state_, on), 6)
+            t_local = cuda_ms(lambda: dp_step(dp_state_, on), 3)
         step_ms[name] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t_local)
         del plain_state, dp_state_
         torch.cuda.empty_cache()
     bn_share = {k: (v[1] - v[2]) / v[1] for k, v in step_ms.items()}
-    print(f"phase 25 YOLOv4 @{TRAIN_IMAGE} b{TRAIN_BATCH} step ms (CUDA events, 6 steps, "
+    print(f"phase 25 YOLOv4 @{TRAIN_IMAGE} b{TRAIN_BATCH} step ms (CUDA events, 3 steps, "
           f"turns plain, DP, DP, plain, after 2 warm-up steps; DP at world 1 by NCCL): "
           + "; ".join(f"{k}: plain {v[0]:.2f}, DP {v[1]:.2f} ({(v[1] / v[0] - 1) * 100:+.1f}%), "
                       f"DP with rank-local BatchNorm {v[2]:.2f} (the global BatchNorm's share "
@@ -4843,10 +4896,10 @@ def phase_parallel(card, files, weights, d0_weights):
         step(state, d0_batch)
         torch.cuda.synchronize()
         peaks[mode] = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
-        d0_ms[mode] = cuda_ms(lambda: step(state, d0_batch), 3)
+        d0_ms[mode] = cuda_ms(lambda: step(state, d0_batch), 2)
         del state, step
         torch.cuda.empty_cache()
-    print(f"phase 25 D0 @{D0_IMAGE} b{D0_TRAIN_BATCH} bf16 step ms (CUDA events, 3 steps "
+    print(f"phase 25 D0 @{D0_IMAGE} b{D0_TRAIN_BATCH} bf16 step ms (CUDA events, 2 steps "
           f"after 2; world 1 by NCCL): plain {d0_ms['plain']:.2f}, DP {d0_ms['dp']:.2f}, FSDP "
           f"{d0_ms['fsdp']:.2f}; a step's peak above the resident state: plain "
           f"{peaks['plain']:.3f} GiB, DP {peaks['dp']:.3f} GiB, FSDP {peaks['fsdp']:.3f} GiB "
@@ -4854,9 +4907,266 @@ def phase_parallel(card, files, weights, d0_weights):
     dist.destroy_process_group()
     mark("D0 step readings")
     elapsed = time.perf_counter() - t_phase
-    print(f"phase 25 took {elapsed:.1f} s ({'; '.join(marks)}) on [{card}]", flush=True)
+    print(f"phase 25 parts: {'; '.join(marks)} on [{card}]", flush=True)
     return {"launches": launches, "seconds": elapsed, "step_ms": step_ms, "d0_ms": d0_ms,
-            "peaks": peaks, "serve": readings}
+            "peaks": peaks, "serve": readings, "yolo_argv": yolo_argv, "plain": dirs["plain"],
+            "reference": reference, "plain_grad_err": grad_err["plain"]}
+
+
+# ---------------------------------------------------------------- the spatial axis
+
+SP_REQUESTS = 4      # b1 requests through each height-sharded server
+
+
+def sp_trainer_rank(argv):
+    """One of two ranks sharing the card (``parallel.mesh.spawn``, gloo) that runs the
+    trainer CLI as under torchrun: float32 with TF32 off and cuDNN deterministic, as
+    phase 25's plain run."""
+    import torch
+
+    from tmv_tpu_torch.cli import train_yolo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    train_yolo.main(argv)
+
+
+def phase_spatial(card, files, weights, d0_weights, parallel):
+    """Phase 26: the spatial axis. ``serve --spatial 2`` over ``[cuda:0, cuda:0]`` for
+    YOLOv4 @640 bf16, its ``--int8Static --int8PerChannel`` twin and D0 @512 bf16, each
+    answering b1 requests through the HTTP app held to the unsharded predictor on the
+    same letterboxed frames (every sweep's whole mask equal; for YOLOv4 bf16 the
+    detections, and the whole masks through float32 predictors; the kernel's masks
+    equal to the plain sweep's), every depthwise launch on a halo-padded shard within
+    one bf16 step of the plain version and every distinct int8 call checked as phase
+    23 does;
+    then ``train_yolo --sp 2`` (two gloo ranks on the card, YOLOv4 @416 global b8
+    float32, started first) against phase 25's plain run by its rules."""
+    import torch
+
+    from tmv_tpu_torch.cli import serve
+    from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep
+    from tmv_tpu_torch.models.yolo_v4 import COCO_ANCHORS
+    from tmv_tpu_torch.parallel.mesh import spawn
+
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "spatial")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    sp_dir = os.path.join(root, "yolo_sp")
+    ranks = spawn(sp_trainer_rank, 2, parallel["yolo_argv"] + ["--modelPath", sp_dir, "--sp", "2"],
+                  devices=["cuda:0", "cuda:0"], join=False)
+
+    classes_file, anchors_file = write_inputs(COCO_CLASSES, COCO_ANCHORS)
+    calib = int8_calibration_set()
+    yolo_flags = ["--modelPath", weights, "--classesFile", classes_file, "--anchorsFile",
+                  anchors_file, "--imageSize", str(IMAGE), "--bf16", "--device", "cuda"]
+    d0_flags = ["--family", "efficientdet", "--modelName", "efficientdet-d0", "--modelPath",
+                d0_weights, "--classesFile", classes_file, "--imageSize", str(D0_IMAGE),
+                "--bf16", "--device", "cuda"]
+    launches = {"nms_sweep": 0, "dwconv_bn_swish": 0, "int8_conv": 0, "int8_dwconv": 0}
+    readings, int8_err, served = {}, 0.0, []
+    for seed, (label, flags, quant) in enumerate((
+            ("YOLOv4", yolo_flags, "off"),
+            ("YOLOv4 int8", yolo_flags + ["--int8Static", calib, "--int8PerChannel"],
+             "int8_static"),
+            ("D0", d0_flags, "off"))):
+        args = serve.parse_args(flags + ["--spatial", "2"])
+        app, service, model = serve.build_app(args, devices=["cuda:0", "cuda:0"])
+        _, make_batched, _ = serve._build_model(args, 80, torch.bfloat16)
+        one = make_batched(quant, model)           # the unsharded predictor, same module
+        frames, outs, sharded = [], [], service.predict_fn
+
+        def recorded(variables, frame, sharded=sharded):
+            frames.append(np.array(frame))
+            outs.append(sharded(variables, frame))
+            return outs[-1]
+
+        service.predict_fn = recorded
+        sweep, depthwise, calls = CheckedSweep(), CheckedDepthwise(), Int8Calls(distinct=True)
+        with sweep.patch(), depthwise.patch(), calls:
+            latencies, _, boxes_seen, used = drive_server(app, SP_REQUESTS, 90 + seed)
+        plain = SweepLog(greedy_sweep)
+        with plain.patch():
+            wants = [tuple(o[0] for o in one(None, frame)) for frame in frames]
+        bits = [int((a != b).sum()) for a, b in zip(sweep.masks, plain.masks)]
+        check(len(frames) == SP_REQUESTS and len(sweep.masks) == len(plain.masks),
+              f"{label} --spatial 2: {len(frames)} frames, {len(sweep.masks)} sweeps")
+        check(all(sweep.agree), f"{label} --spatial 2: a kernel sweep differs from the plain")
+        check(all(depthwise.agree), f"{label} --spatial 2: a depthwise launch differs")
+        check(used["nms_sweep"] >= SP_REQUESTS and (label != "D0" or depthwise.halo_padded
+                                                    == used["dwconv_bn_swish"] > 0),
+              f"{label} --spatial 2 launched {used}")
+        if label == "YOLOv4":
+            # bf16 YOLOv4: cuDNN's bf16 convs at a shard's shapes sum in another order
+            # (its f32 ones do not: the f32 twin below is exact), as serve --dp's
+            # replicas' batch shapes do: held by phase 25's detection rule, and the
+            # same frames through float32 predictors of the weights by whole masks
+            agree = (box_agreement(stack_outs(wants), stack_outs(outs))[0],
+                     box_agreement(stack_outs(outs), stack_outs(wants))[0])
+            check(min(agree) >= 0.98, f"YOLOv4 --spatial 2 detections {agree}")
+            exact = f32_spatial_masks(args, frames)
+            check(exact[0] == exact[1] and exact[0] > 0,
+                  f"YOLOv4 f32 --spatial 2: {exact[0]} of {exact[1]} whole masks equal")
+            held = (f"detections against the unsharded predictor's {agree[0]:.4f} / "
+                    f"{agree[1]:.4f} (IoU >= 0.5, same class; tolerance 0.98), whole masks "
+                    f"differing in {bits} of {[int(m.sum()) for m in plain.masks]} kept bits; "
+                    f"the same frames in f32 (TF32 off) sharded and unsharded: {exact[0]} of "
+                    f"{exact[1]} sweeps' whole masks equal")
+        else:
+            check(sum(bits) == 0, f"{label} --spatial 2: whole masks differ by {bits} bits")
+            held = (f"{len(sweep.masks)} sweeps' whole masks equal to the unsharded "
+                    f"predictor's on the same frames")
+        checked = distinct_calls(calls.calls)
+        for call in checked:
+            int8_err = max(int8_err, check_int8_call(*call))
+        check(bool(checked) == (quant == "int8_static"), f"{label}: {len(checked)} int8 calls")
+        for name in launches:
+            launches[name] += used.get(name, 0)
+        served.append((label, app, sharded, one, frames[0]))
+        print(f"phase 26 serve --spatial 2 {label} @{args.imageSize} bf16 over [cuda:0, cuda:0]: "
+              f"{SP_REQUESTS} b1 requests -> HTTP 200 ({boxes_seen} boxes); {held}; each "
+              f"kernel sweep's mask equal to the plain sweep's; {len(depthwise.agree)} "
+              f"depthwise launches ({depthwise.halo_padded} on halo-padded shards) within one "
+              f"bf16 step of the plain version; {len(checked)} distinct int8 calls held to the "
+              f"plain versions; launches {used} on [{card}]", flush=True)
+    serving_s = time.perf_counter() - t_phase
+
+    while not ranks.join():
+        pass
+    ranks_s = time.perf_counter() - t_phase
+    # the readings once the ranks have left the card and the host's cores
+    for seed, (label, app, sharded, one, frame) in enumerate(served):
+        latencies, _, _, used = drive_server(app, SP_REQUESTS, 95 + seed)
+        for name in launches:
+            launches[name] += used.get(name, 0)
+        readings[label] = (statistics.median(latencies), host_ms(lambda: sharded(None, frame), 10),
+                           host_ms(lambda: one(None, frame), 10))
+    print(f"phase 26 readings on [{card}] (b1; served: {SP_REQUESTS} more requests, p50; the "
+          f"predictor: host clock, median of 10 calls on one frame): " + "; ".join(
+              f"{label} served {v[0]:.1f} ms, predictor height-sharded over [cuda:0, cuda:0] "
+              f"{v[1]:.2f} ms, unsharded {v[2]:.2f} ms" for label, v in readings.items()),
+          flush=True)
+    del served
+    torch.cuda.empty_cache()
+    losses = losses_of(sp_dir)
+    plain_losses = losses_of(parallel["plain"])
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+    grad_err = rel_l2(first_gradients(sp_dir), parallel["reference"])
+    plain_err = parallel["plain_grad_err"]
+    check(len(losses) == DP_STEPS and loss_rel[0] <= DP_FIRST_LOSS_REL,
+          f"YOLOv4 --sp 2 first loss {losses[0]} vs plain {plain_losses[0]}")
+    check(grad_err[0] <= 2 * plain_err[0] + 1e-4 and grad_err[1] <= 2 * plain_err[1] + 1e-4,
+          f"YOLOv4 --sp 2 first gradients {grad_err} from float64, plain's {plain_err}")
+    check(max(loss_rel) <= DP_LOSS_BAND, f"YOLOv4 --sp 2 losses {losses} vs plain {plain_losses}")
+    print(f"phase 26 train_yolo --sp 2 (two gloo ranks on cuda:0, data 1 x space 2) YOLOv4 "
+          f"@{TRAIN_IMAGE} global b{TRAIN_BATCH} f32 (TF32 off, cuDNN deterministic) {DP_STEPS} "
+          f"steps of Adam at {DP_LR} against phase 25's plain run: losses "
+          f"{[round(x, 4) for x in losses]} vs {[round(x, 4) for x in plain_losses]}; the first "
+          f"step's loss relative difference {loss_rel[0]:.3g} (tolerance {DP_FIRST_LOSS_REL}); "
+          f"its gradients' relative L2 error from the float64 step (overall, worst tensor) "
+          f"{grad_err[0]:.3g}, {grad_err[1]:.3g}, plain {plain_err[0]:.3g}, {plain_err[1]:.3g} "
+          f"(tolerance 2x plain's + 1e-4); the worst later loss {max(loss_rel):.3g} (band "
+          f"{DP_LOSS_BAND}); the servers' checks ended at {serving_s:.1f} s, the ranks at "
+          f"{ranks_s:.1f} s on [{card}]", flush=True)
+    return {"launches": launches, "int8_err": int8_err, "readings": readings}
+
+
+def stack_outs(outs):
+    """Per-image predictor outputs (boxes, ids, scores, valid) stacked on a batch axis."""
+    return tuple(np.stack([o[k] for o in outs]) for k in range(4))
+
+
+def f32_spatial_masks(args, frames):
+    """(sweeps whose whole masks agree, sweeps) of ``frames`` through the float32 (TF32
+    off) predictors of ``args``' weights: unsharded and over ``[cuda:0, cuda:0]``."""
+    import torch
+
+    from tmv_tpu_torch.cli import serve
+    from tmv_tpu_torch.core.checkpoint import load_weights
+    from tmv_tpu_torch.kernels.nms_sweep import greedy_sweep
+    from tmv_tpu_torch.parallel.inference import make_spatial_predictor
+
+    model, make_batched, _ = serve._build_model(args, 80, torch.float32)
+    load_weights(model, args.modelPath)
+    model = model.to(device="cuda", memory_format=torch.channels_last).eval()
+    one = make_batched("off", model)
+    sharded, _, _ = make_spatial_predictor(model, lambda f: make_batched("off", f),
+                                           devices=["cuda:0", "cuda:0"])
+    a, b = SweepLog(greedy_sweep), SweepLog(greedy_sweep)
+    for frame in frames:
+        with a.patch():
+            one(None, frame)
+        with b.patch():
+            sharded(None, frame)
+    sharded.close()
+    equal = sum(np.array_equal(x, y) for x, y in zip(a.masks, b.masks))
+    return equal, len(a.masks)
+
+
+def _side_main(fn, path, args):
+    import pickle
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = fn(*args)
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+
+
+class Side:
+    """``fn(*args)`` (a module-level function) in a process of its own (start method
+    spawn, TF32 off) beside the phases that follow it on the same card and host;
+    ``result()`` waits for it and returns its value, ``stop()`` ends it where those
+    phases failed."""
+
+    def __init__(self, fn, *args):
+        import multiprocessing
+
+        self.name = fn.__name__
+        self.path = os.path.join(WORK, f"side_{self.name}.pkl")
+        self.process = multiprocessing.get_context("spawn").Process(
+            target=_side_main, args=(fn, self.path, args))
+        self.process.start()
+
+    def result(self):
+        import pickle
+
+        self.process.join()
+        check(self.process.exitcode == 0, f"{self.name} exited with {self.process.exitcode}")
+        with open(self.path, "rb") as f:
+            return pickle.load(f)
+
+    def stop(self):
+        self.process.terminate()
+        self.process.join()
+
+
+def v3_unet_facenet_phases(card, files):
+    """Phases 15-17 (the YOLOv3 family), 19 (UNet) and 21 (FaceNet), run beside
+    phases 12-14."""
+    v3_weights = timed(15, card, phase_v3_slice, card)
+    v3 = (timed(16, card, phase_v3_serving, card, v3_weights),
+          timed(17, card, phase_v3_train, card, files, v3_weights))
+    timed(19, card, phase_unet, card)
+    timed(21, card, phase_facenet, card)
+    return v3
+
+
+def export_phase(card, weights, d0_weights):
+    """Phase 24 (the serving artifacts), run beside phases 18, 20 and 22."""
+    return timed(24, card, phase_export, card, weights, d0_weights)
+
+
+def timed(number, card, fn, *args):
+    """``fn(*args)``, then ``phase N took X s`` on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {number} took {time.perf_counter() - t0:.1f} s on [{card}]", flush=True)
+    return out
 
 
 def main():
@@ -4867,47 +5177,57 @@ def main():
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    t0 = time.perf_counter()
     card = phase_environment()
+    print(f"phase 1 took {time.perf_counter() - t0:.1f} s on [{card}]", flush=True)
     os.makedirs(WORK, exist_ok=True)
-    phase_build(card)
-    nms_err, nms_times, nms_device, nms_bound = phase_kernel(card)
-    model_f32, weights = phase_slice(card)
-    model, yolo_launches, served_p50 = phase_serving(card, weights)
-    phase_numbers(card, model, model_f32, served_p50)
+    timed(2, card, phase_build, card)
+    nms_err, nms_times, nms_device, nms_bound = timed(3, card, phase_kernel, card)
+    model_f32, weights = timed(4, card, phase_slice, card)
+    model, yolo_launches, served_p50 = timed(5, card, phase_serving, card, weights)
+    timed(6, card, phase_numbers, card, model, model_f32, served_p50)
     del model, model_f32
-    dw_err, dw_sums = phase_dw_kernel(card)
-    d0_weights = phase_d0_slice(card)
-    d0_launches, d0_served_p50 = phase_d0_serving(card, d0_weights)
-    phase_d0_numbers(card, d0_weights, d0_served_p50)
+    dw_err, dw_sums = timed(7, card, phase_dw_kernel, card)
+    d0_weights = timed(8, card, phase_d0_slice, card)
+    d0_launches, d0_served_p50 = timed(9, card, phase_d0_serving, card, d0_weights)
+    timed(10, card, phase_d0_numbers, card, d0_weights, d0_served_p50)
     files = write_train_set(os.path.join(WORK, "train_set"))
-    train = phase_train(card, files)
-    eval_launches = phase_eval(card, files, train["ckpt"])
-    d0_train = phase_d0_train(card, files)
-    d0_eval = phase_d0_eval(card, files, d0_train["ckpt"], d0_weights)
-    v3_weights = phase_v3_slice(card)
-    v3_serving = phase_v3_serving(card, v3_weights)
-    v3_train = phase_v3_train(card, files, v3_weights)
-    mosaic = phase_mosaic_train(card, files)
-    phase_unet(card)
-    extras = phase_serving_extras(card, files, mosaic, d0_train["ckpt"])
-    phase_facenet(card)
-    t22 = time.perf_counter()
-    phase_moco(card, files)
-    distill = phase_distill(card, files)
-    print(f"phase 22 took {time.perf_counter() - t22:.1f} s on [{card}]", flush=True)
-    int8 = phase_int8(card, weights, files, train["ckpt"], d0_train["ckpt"])
-    exported = phase_export(card, weights, d0_weights)
-    parallel = phase_parallel(card, files, weights, d0_weights)
-    dp_launches = parallel["launches"]
+    train = timed(11, card, phase_train, card, files)
+    side = Side(v3_unet_facenet_phases, card, files)
+    try:
+        eval_launches = timed(12, card, phase_eval, card, files, train["ckpt"])
+        d0_train = timed(13, card, phase_d0_train, card, files)
+        d0_eval = timed(14, card, phase_d0_eval, card, files, d0_train["ckpt"], d0_weights)
+        v3_serving, v3_train = side.result()
+    except BaseException:
+        side.stop()
+        raise
+    export = Side(export_phase, card, weights, d0_weights)
+    try:
+        mosaic = timed(18, card, phase_mosaic_train, card, files)
+        extras = timed(20, card, phase_serving_extras, card, files, mosaic, d0_train["ckpt"])
+        distill = timed(22, card, lambda: (phase_moco(card, files),
+                                           phase_distill(card, files))[1])
+        exported = export.result()
+    except BaseException:
+        export.stop()
+        raise
+    # the kernels' and the parallel paths' readings: the card and host to themselves
+    int8 = timed(23, card, phase_int8, card, weights, files, train["ckpt"], d0_train["ckpt"])
+    parallel = timed(25, card, phase_parallel, card, files, weights, d0_weights)
+    spatial = timed(26, card, phase_spatial, card, files, weights, d0_weights, parallel)
+    dp_launches, sp_launches = parallel["launches"], spatial["launches"]
     nms_launches = (yolo_launches["nms_sweep"] + d0_launches["nms_sweep"]
                     + train["val_launches"] + eval_launches + d0_eval["nms_sweep"]
                     + v3_serving["launches"] + v3_train["launches"] + mosaic["val_launches"]
                     + extras["nms_sweep"] + distill["launches"] + exported["nms_sweep"]
-                    + dp_launches["nms_sweep"])
+                    + dp_launches["nms_sweep"] + sp_launches["nms_sweep"])
     dw_launches = (d0_launches["dwconv_bn_swish"] + d0_eval["dwconv_bn_swish"]
                    + extras["dwconv_bn_swish"] + exported["dwconv_bn_swish"]
-                   + dp_launches["dwconv_bn_swish"])
-    int8["launches"]["int8_conv"] += exported["int8_conv"] + dp_launches["int8_conv"]
+                   + dp_launches["dwconv_bn_swish"] + sp_launches["dwconv_bn_swish"])
+    int8["launches"]["int8_conv"] += (exported["int8_conv"] + dp_launches["int8_conv"]
+                                      + sp_launches["int8_conv"])
+    int8["max_err"]["int8_conv"] = max(int8["max_err"]["int8_conv"], spatial["int8_err"])
     dw = dw_sums[64]
     i8, i8dw = int8["int8_conv"], int8["int8_dwconv"]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s on [{card}]; kernels "
@@ -4937,7 +5257,10 @@ def main():
           f"int8_conv {exported['int8_conv']} launches, phase 25's data-parallel paths (the "
           f"--dp trainer's val pass, the --fsdp checkpoint served and scored, serve --dp) "
           f"nms_sweep {dp_launches['nms_sweep']}, dwconv_bn_swish "
-          f"{dp_launches['dwconv_bn_swish']} and int8_conv {dp_launches['int8_conv']}",
+          f"{dp_launches['dwconv_bn_swish']} and int8_conv {dp_launches['int8_conv']}, and "
+          f"phase 26's height-sharded servers (serve --spatial 2: YOLOv4, its int8 twin, D0) "
+          f"nms_sweep {sp_launches['nms_sweep']}, dwconv_bn_swish "
+          f"{sp_launches['dwconv_bn_swish']} and int8_conv {sp_launches['int8_conv']}",
           flush=True)
     print(json.dumps({"kernels": [
         {"name": "nms_sweep", "route": "cuda", "source": NMS_SOURCE, "replaces": NMS_REPLACES,

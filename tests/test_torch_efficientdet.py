@@ -347,10 +347,15 @@ def test_efficientdet_serve_refuses_unported_flags(tmp_path, capsys):
         with pytest.raises(SystemExit):
             serve.parse_args(base + extra)
         assert "int8 serving is yolo-family" in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        serve.parse_args(base + ["--spatial", "2"])
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and "ROADMAP.md queue 6" in err
+    # --spatial is ported, with the JAX server's EfficientDet rules
+    assert serve.parse_args(base + ["--spatial", "2"]).spatial == 2
+    for extra, why in ((["--spatial", "2", "--batch", "2"], "--spatial is the latency "
+                        "direction: --batch 1, no --dp"),
+                       (["--spatial", "2", "--imageSize", "417"], "--imageSize 417 is not "
+                        "divisible by --spatial 2")):
+        with pytest.raises(SystemExit):
+            serve.parse_args(base + extra)
+        assert why in capsys.readouterr().err
     # --dp is ported, with the JAX server's EfficientDet rule
     with pytest.raises(SystemExit):
         serve.parse_args(base + ["--dp", "2"])

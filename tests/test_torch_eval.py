@@ -204,14 +204,18 @@ def test_clis_refuse_unported_flags_and_need_a_card(tiny_set, capsys):
     root = tiny_set[0]
     train = ["--trainData", "l.txt", "--trainImagePath", "i", "--classesFile", "c.txt",
              "--anchorsFile", "a.txt"]
-    for extra in (["--sp", "2"], ["--tp", "2"]):
-        with pytest.raises(SystemExit):
-            train_yolo.parse_args(train + extra)
-        err = capsys.readouterr().err
-        assert "not yet ported" in err and "ROADMAP.md queue 6" in err and extra[0] in err
-    # --dp and --fsdp are ported; the JAX CLI's combination rules hold
+    with pytest.raises(SystemExit):
+        train_yolo.parse_args(train + ["--tp", "2"])
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and "ROADMAP.md queue 6" in err and "--tp" in err
+    # --dp, --fsdp and --sp are ported; the JAX CLI's combination rules hold, and the
+    # port splits the image's rows evenly
     assert train_yolo.parse_args(train + ["--dp"]).dp
     assert train_yolo.parse_args(train + ["--fsdp"]).fsdp
+    assert train_yolo.parse_args(train + ["--sp", "2"]).sp == 2
+    with pytest.raises(SystemExit):
+        train_yolo.parse_args(train + ["--sp", "3"])
+    assert "--imageSize 416 is not divisible by --sp 3" in capsys.readouterr().err
     for extra, why in ((["--fsdp", "--sp", "2"], "--fsdp shards state over the data axis"),
                        (["--dp", "--fsdp"], "--dp is implied by --sp/--tp/--fsdp"),
                        (["--sp", "2", "--tp", "2"], "--sp and --tp cannot be combined")):
@@ -393,16 +397,19 @@ def test_d0_train_cli_on_cpu_saves_resumes_and_evaluates(d0_set, tmp_path, capsy
 
 def test_d0_train_cli_refuses_unported_flags_and_needs_a_card(capsys):
     train = ["--trainData", "l.txt", "--trainImagePath", "i", "--classesFile", "c.txt"]
-    for extra in (["--sp", "2"], ["--tp", "2"]):
-        with pytest.raises(SystemExit):
-            train_efficientdet.parse_args(train + extra)
-        err = capsys.readouterr().err
-        assert "not yet ported" in err and "ROADMAP.md queue 6" in err and extra[0] in err
-    # --dp and --fsdp are ported; the JAX CLI's combination rules hold
+    with pytest.raises(SystemExit):
+        train_efficientdet.parse_args(train + ["--tp", "2"])
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and "ROADMAP.md queue 6" in err and "--tp" in err
+    # --dp, --fsdp and --sp are ported; the JAX CLI's combination rules hold
     assert train_efficientdet.parse_args(train + ["--dp"]).dp
     assert train_efficientdet.parse_args(train + ["--fsdp"]).fsdp
+    assert train_efficientdet.parse_args(train + ["--sp", "2", "--imageSize", "512"]).sp == 2
     for extra, why in ((["--fsdp", "--tp", "2"], "--fsdp shards state over the data axis"),
-                       (["--dp", "--fsdp"], "--dp is implied by --sp/--tp/--fsdp")):
+                       (["--dp", "--fsdp"], "--dp is implied by --sp/--tp/--fsdp"),
+                       (["--dp", "--sp", "2"], "--dp is implied by --sp/--tp/--fsdp"),
+                       (["--sp", "2", "--tp", "2"], "--sp and --tp cannot be combined"),
+                       (["--sp", "3", "--imageSize", "512"], "is not divisible by --sp 3")):
         with pytest.raises(SystemExit):
             train_efficientdet.parse_args(train + extra)
         assert why in capsys.readouterr().err

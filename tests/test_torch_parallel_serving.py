@@ -136,7 +136,8 @@ def test_serve_dp_rules_are_jaxs(tmp_path, capsys):
                       (d0 + ["--dp", "3", "--batch", "16"], "--dp requires --batch > 1 divisible"),
                       (["--classesFile", "c", "--artifact", "m.tmvt", "--dp", "2"],
                        "--dp cannot be combined with --artifact"),
-                      (yolo + ["--spatial", "2"], "ROADMAP.md queue 6")):
+                      (yolo + ["--spatial", "2", "--dp", "2", "--batch", "16"],
+                       "--spatial is the latency direction: --batch 1, no --dp")):
         with pytest.raises(SystemExit):
             serve.parse_args(argv)
         assert why in capsys.readouterr().err

@@ -135,10 +135,15 @@ def test_serve_path_answers_the_reference_contract(tmp_path, rng, batch):
 
 def test_serve_refuses_unported_flags_and_missing_weights(tmp_path, capsys):
     base = _write_inputs(tmp_path)
-    with pytest.raises(SystemExit):
-        serve.parse_args(base + ["--randomInit", "--spatial", "2"])
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and "ROADMAP.md queue 6" in err and "--spatial" in err
+    # --spatial is ported, with the JAX server's rules
+    assert serve.parse_args(base + ["--randomInit", "--spatial", "2"]).spatial == 2
+    for extra, why in ((["--batch", "2"], "--spatial is the latency direction: --batch 1"),
+                       (["--dp", "2", "--batch", "2"], "no --dp"),
+                       (["--imageSize", "66", "--spatial", "4"], "--imageSize 66 is not "
+                        "divisible by --spatial 4")):
+        with pytest.raises(SystemExit):
+            serve.parse_args(base + ["--randomInit", "--spatial", "2"] + extra)
+        assert why in capsys.readouterr().err
     # --dp is ported, with the JAX server's rules
     with pytest.raises(SystemExit):
         serve.parse_args(base + ["--randomInit", "--dp", "2"])

@@ -205,12 +205,13 @@ def snapshot(state, metrics):
     return out
 
 
-def run_case(name, wrapper=None):
+def run_case(name, wrapper=None, steps=None):
     """Case ``name`` in one process (``wrapper`` None) or under ``wrapper``
     (``DataParallel``/``FullyShardedDataParallel``) on this rank's rows; a
-    ``snapshot`` after each step."""
+    ``snapshot`` after each step (of the first ``steps`` where given)."""
     torch.manual_seed(0)
     state, step, batches, accum = CASES[name]()
+    batches = batches[:steps]
     if wrapper is not None:
         state = wrapper.put_state(state)
         step = wrapper.wrap_step(step)

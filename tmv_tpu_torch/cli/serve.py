@@ -32,7 +32,14 @@ checkpoint. ``--device cuda`` (the default) raises where there is no GPU.
 micro-batch queue: ``--batch`` > 1 divisible by N, each batch padded to ``--batch``
 and split in order over the replicas, each on its own stream and host thread
 (``parallel/inference.py``), for both families and with ``--int8Static``.
-``--spatial`` is not ported yet.
+
+``--spatial N`` (JAX's latency direction) splits each image's height over N
+predictor replicas (``cuda:0 … cuda:N−1``, or N shards on the CPU), each running its
+rows on a host thread and stream of its own with hand-written halo exchanges between
+them (``parallel/halo.py``); the heads are gathered on the first device and decoded
+and swept there once (``parallel/inference.py::make_spatial_predictor``). The JAX
+server's rules: ``--batch 1``, no ``--dp``, ``--imageSize`` divisible by N; for both
+families, with the int8 flags too.
 
 int8 serving (YOLO family only, as the JAX server): ``--int8Static CALIB_DIR``
 calibrates activation scales over the images of ``CALIB_DIR`` (letterboxed, the
@@ -47,12 +54,6 @@ at each call (batch 1 only). Usage:
 """
 
 import argparse
-
-# JAX-only flags, accepted by the parser so that they can be refused by name
-# → the ROADMAP.md item that holds them.
-_NOT_PORTED = {
-    "--spatial": (lambda a: a.spatial > 0, "ROADMAP.md queue 6: multi-GPU training"),
-}
 
 
 def parse_args(argv=None):
@@ -91,20 +92,17 @@ def parse_args(argv=None):
     p.add_argument("--dp", type=int, default=0,
                    help="shard the micro-batch over this many predictor replicas, one per "
                         "card (parallel/inference.py); needs --batch > 1 divisible by it")
-    p.add_argument("--spatial", type=int, default=0)
+    p.add_argument("--spatial", type=int, default=0,
+                   help="split each image's height over this many predictor replicas, one "
+                        "per card, with halo exchanges (parallel/halo.py); --batch 1")
     p.add_argument("--artifact", default=None,
                    help="serve an export of cli/export_model.py: skips the model build "
                         "and the checkpoint load")
     args = p.parse_args(argv)
-    refused = [f"{flag} ({where})" for flag, (given, where) in _NOT_PORTED.items()
-               if given(args)]
-    if refused:
-        p.error(f"not yet ported to tmv_tpu_torch: {'; '.join(refused)} "
-                "(serve them with python -m tmv_tpu.cli.serve)")
     if args.artifact:
         bad = [f for f, on in (("--batch", args.batch > 1), ("--int8", args.int8),
                                ("--int8Static", bool(args.int8Static)), ("--dp", args.dp > 0),
-                               ("--bf16", args.bf16),
+                               ("--spatial", args.spatial > 0), ("--bf16", args.bf16),
                                ("--modelPath", args.modelPath is not None),
                                ("--randomInit", args.randomInit)) if on]
         if bad:
@@ -128,6 +126,12 @@ def parse_args(argv=None):
                     "serving is yolo-family; see PARITY §6 — D0 measured 0.73x)")
         if args.dp and (args.batch <= 1 or args.batch % args.dp):
             p.error("--dp requires --batch > 1 divisible by it")
+        if args.spatial:
+            if args.batch > 1 or args.dp:
+                p.error("--spatial is the latency direction: --batch 1, no --dp")
+            if args.imageSize % args.spatial:
+                p.error(f"--imageSize {args.imageSize} is not divisible by --spatial "
+                        f"{args.spatial}")
     else:
         if args.int8 and args.int8Static:
             p.error("--int8 and --int8Static are mutually exclusive")
@@ -148,6 +152,13 @@ def parse_args(argv=None):
                         "micro-batch queue)")
             if args.batch % args.dp:
                 p.error(f"--batch {args.batch} is not divisible by --dp {args.dp}")
+        if args.spatial:
+            if args.batch > 1 or args.dp:
+                p.error("--spatial is the latency direction: --batch 1, no --dp (combine via "
+                        "a 2-D mesh is future work)")
+            if args.imageSize % args.spatial:
+                p.error(f"--imageSize {args.imageSize} is not divisible by --spatial "
+                        f"{args.spatial}")
     return args
 
 
@@ -226,12 +237,14 @@ def artifact_service(args):
     return DetectionService(predict_fn, None, classes_name, image_wh)
 
 
-def build_service(args, thresholds=None):
+def build_service(args, thresholds=None, devices=None):
     """Model, weights and warm predictor → ``(service, model)``: a
     ``DetectionService`` ready for ``create_app``/``run_server`` (its
     ``batcher`` is set when ``--batch`` > 1) and the module it serves (None for
     ``--artifact``, which builds no model).
-    ``thresholds`` as in ``_build_model`` (``cli/detect.py`` passes its own)."""
+    ``thresholds`` as in ``_build_model`` (``cli/detect.py`` passes its own).
+    ``devices`` replaces the ``--dp``/``--spatial`` replicas' cards (``cuda:0`` twice
+    shares one card between two replicas)."""
     import numpy as np
     import torch
 
@@ -241,13 +254,14 @@ def build_service(args, thresholds=None):
     from tmv_tpu_torch.serving.app import DetectionService
 
     device = check_device(args.device)
-    if getattr(args, "dp", 0):
-        from tmv_tpu_torch.parallel.inference import replica_devices
+    for flag in ("dp", "spatial"):
+        if getattr(args, flag, 0) and devices is None:
+            from tmv_tpu_torch.parallel.inference import replica_devices
 
-        try:   # before the model is built: more replicas than cards stop here
-            replica_devices(args.dp, device=args.device)
-        except ValueError as e:
-            raise SystemExit(f"--dp {args.dp}: {e}")
+            try:   # before the model is built: more replicas than cards stop here
+                replica_devices(getattr(args, flag), device=args.device)
+            except ValueError as e:
+                raise SystemExit(f"--{flag} {getattr(args, flag)}: {e}")
     if getattr(args, "artifact", None):
         service = artifact_service(args)
         service.batcher = None
@@ -282,8 +296,17 @@ def build_service(args, thresholds=None):
         from tmv_tpu_torch.parallel.inference import make_sharded_batched_predictor
 
         batched, _, devices = make_sharded_batched_predictor(
-            model, lambda replica: make_batched(quant, replica), args.dp, device=args.device)
+            model, lambda replica: make_batched(quant, replica), args.dp, devices=devices,
+            device=args.device)
         print(f"data-parallel serving over {len(devices)} replicas "
+              f"({', '.join(map(str, devices))})", flush=True)
+    if getattr(args, "spatial", 0):
+        from tmv_tpu_torch.parallel.inference import make_spatial_predictor
+
+        batched, _, devices = make_spatial_predictor(
+            model, lambda forward: make_batched(quant, forward), args.spatial,
+            devices=devices, device=args.device)
+        print(f"spatial serving over {len(devices)} devices "
               f"({', '.join(map(str, devices))})", flush=True)
     batcher = None
     # warm before accepting traffic (import-time parity)
@@ -303,12 +326,12 @@ def build_service(args, thresholds=None):
     return service, model
 
 
-def build_app(args):
+def build_app(args, devices=None):
     """``build_service`` behind the reference's WSGI routes → ``(app, service,
     model)``, for a caller that runs its own WSGI server."""
     from tmv_tpu_torch.serving.app import create_app
 
-    service, model = build_service(args)
+    service, model = build_service(args, devices=devices)
     return create_app(service), service, model
 
 

@@ -18,9 +18,10 @@ decoded, letterboxed frames in a memmap cache that later epochs read.
 ``--device cuda`` (the default) raises where there is no GPU; ``--device cpu``
 is for tests.
 
-``--dp`` (DDP) and ``--fsdp`` (FSDP2) train over every visible card with the JAX
-CLI's rules, as ``cli/train_yolo.py`` does: ``--batchSize`` is the global batch (the
-peak learning rate scales with it), each rank decodes and trains its rows, the
+``--dp`` (DDP), ``--fsdp`` (FSDP2) and ``--sp N`` (the image height split over N
+ranks, ``parallel.spatial``) train over every visible card with the JAX CLI's rules,
+as ``cli/train_yolo.py`` does: ``--batchSize`` is the global batch (the peak learning
+rate scales with it), each rank decodes and trains its data rows, the
 ``drop_connect`` draws are the global batch's; rank 0 alone logs and writes.
 
 Usage:
@@ -38,7 +39,7 @@ import os
 
 import numpy as np
 
-from tmv_tpu_torch.cli.train_yolo import check_parallel_flags, rank_rows
+from tmv_tpu_torch.cli.train_yolo import check_parallel_flags, parallel_mode, rank_rows
 
 
 def parse_args(argv=None):
@@ -61,7 +62,9 @@ def parse_args(argv=None):
                    help="recompute MBConv blocks, BiFPN cells and heads in the backward")
     p.add_argument("--dp", action="store_true",
                    help="data-parallel over every visible card (DDP)")
-    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--sp", type=int, default=1,
+                   help="spatial partitioning: shard the image height this many ways "
+                        "(a data x space mesh over the ranks)")
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--fsdp", action="store_true",
                    help="fully-sharded data parallelism (FSDP2): parameter, gradient and "
@@ -85,15 +88,16 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Train; returns ``{"step", "epochs"}``, None where ``--dp``/``--fsdp`` ran the
-    ranks in processes of their own."""
+    """Train; returns ``{"step", "epochs"}``, None where ``--dp``/``--fsdp``/``--sp``
+    ran the ranks in processes of their own."""
     from tmv_tpu_torch.parallel.launch import run_ranks
 
     return run_ranks(train, parse_args(argv))
 
 
 def train(args):
-    """The trainer in this process (one rank of ``--dp``/``--fsdp``, or alone)."""
+    """The trainer in this process (one rank of ``--dp``/``--fsdp``/``--sp``, or
+    alone)."""
     from tmv_tpu_torch.parallel.launch import data_parallel
 
     with data_parallel(args) as par:
@@ -150,8 +154,8 @@ def _train(args, par):
     if par is not None:
         state = par.put_state(state)
         step_fn = par.wrap_step(step_fn)
-        print(f"{'fsdp (ZeRO-3)' if args.fsdp else 'data-parallel'} rank {par.rank} of "
-              f"{par.world} on {device}", flush=True)
+        print(f"{parallel_mode(args, par)} rank {par.rank} of {par.world} on {device}",
+              flush=True)
     logger = MetricsLogger(os.path.join(args.modelPath, "metrics.jsonl") if lead else None,
                            print_every=20 if lead else 0)
     timer = StepTimer(batch_size=args.batchSize)
@@ -178,7 +182,7 @@ def _train(args, par):
                 warn_zero_foreground(batch, cfg)
                 warned_fg = True
             generator.manual_seed(step_i)
-            metrics = step_fn(state, batch)
+            metrics = step_fn(state, batch if args.sp <= 1 else par.put_rows(batch))
             metrics.update(timer.tick())
             record()
             pending.append((step_i, metrics))

@@ -24,14 +24,18 @@ instead of storing its activations (``layers.common.remat_call``).
 weights and float32 Adam moments. ``--device cuda`` (the default) raises where
 there is no GPU; ``--device cpu`` is for tests.
 
-``--dp`` trains data-parallel (``parallel.train.DataParallel``, DDP) and ``--fsdp``
-fully sharded (``parallel.fsdp.FullyShardedDataParallel``, FSDP2), with the JAX
-CLI's rules: ``--batchSize`` is the global batch (each rank decodes and trains its
-rows of it), ``--dp`` is implied by ``--fsdp``, and ``--fsdp`` does not combine with
+``--dp`` trains data-parallel (``parallel.train.DataParallel``, DDP), ``--fsdp``
+fully sharded (``parallel.fsdp.FullyShardedDataParallel``, FSDP2) and ``--sp N`` with
+the image height split over N ranks (``parallel.spatial.SpatialDataParallel``, a
+``(data, space)`` mesh of R / N x N ranks with hand-written halo exchanges), with the
+JAX CLI's rules: ``--batchSize`` is the global batch (each rank decodes and trains its
+data rows of it; under ``--sp`` each takes its rows of the image height), ``--dp`` is
+implied by ``--fsdp`` and ``--sp``, and ``--fsdp`` does not combine with
 ``--sp``/``--tp``. Under ``torchrun`` the ranks join its group; run plainly, one rank
-per visible card (``parallel.launch``). Rank 0 alone logs, validates and writes
-(under ``--fsdp`` every rank runs the val forwards, which gather the shards).
-The Darknet warm start does not run data-parallel (refused with ``--darknetWeights``).
+per visible card (``parallel.launch``; ``--sp N`` on fewer than N cards: N ranks sharing
+them). Rank 0 alone logs, validates and writes (under ``--fsdp`` every rank runs the val
+forwards, which gather the shards; the val forwards are not height-sharded). The
+Darknet warm start does not run data-parallel (refused with ``--darknetWeights``).
 
 Usage:
     python -m tmv_tpu_torch.cli.train_yolo --version v4 \\
@@ -48,16 +52,16 @@ import os
 
 import numpy as np
 
-# Flags of the JAX CLI the port does not run yet → the later ROADMAP.md item.
+# The flag of the JAX CLI the port does not run yet → the later ROADMAP.md item.
 _NOT_PORTED = {
-    "--sp": (lambda a: a.sp > 1, "ROADMAP.md queue 6: multi-GPU training"),
     "--tp": (lambda a: a.tp > 1, "ROADMAP.md queue 6: multi-GPU training"),
 }
 
 
 def check_parallel_flags(p, args):
     """The JAX CLIs' rules for ``--dp``/``--sp``/``--tp``/``--fsdp``, then the refusal
-    of the axes not ported yet."""
+    of the axis not ported yet (``--tp``) and of an image height ``--sp`` does not
+    divide."""
     if args.sp > 1 and args.tp > 1:
         p.error("--sp and --tp cannot be combined on the CLI (use the parallel/ API "
                 "directly for 3-D meshes)")
@@ -71,6 +75,10 @@ def check_parallel_flags(p, args):
                if given(args)]
     if refused:
         p.error(f"not yet ported to tmv_tpu_torch: {'; '.join(refused)}")
+    # the port splits the input image's rows evenly (JAX leaves an image whose height
+    # the space axis does not divide unsplit)
+    if args.sp > 1 and args.imageSize and args.imageSize % args.sp:
+        p.error(f"--imageSize {args.imageSize} is not divisible by --sp {args.sp}")
 
 
 def parse_args(argv=None):
@@ -99,7 +107,9 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--dp", action="store_true",
                    help="data-parallel over every visible card (DDP)")
-    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--sp", type=int, default=1,
+                   help="spatial partitioning: shard the image height this many ways "
+                        "(a data x space mesh over the ranks)")
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--fsdp", action="store_true",
                    help="fully-sharded data parallelism (FSDP2): parameter, gradient and "
@@ -119,22 +129,24 @@ def parse_args(argv=None):
     check_parallel_flags(p, args)
     if args.batchSize % args.accumSteps:
         p.error("--accumSteps must divide --batchSize")
-    if args.darknetWeights and (args.dp or args.fsdp):
-        p.error("--darknetWeights (the head-only warm start) does not run under --dp/--fsdp; "
-                "warm-start on one card, then resume from its checkpoint with --dp")
+    if args.darknetWeights and (args.dp or args.fsdp or args.sp > 1):
+        p.error("--darknetWeights (the head-only warm start) does not run under "
+                "--dp/--fsdp/--sp; warm-start on one card, then resume from its checkpoint "
+                "with --dp")
     return args
 
 
 def main(argv=None):
     """Train; returns ``{"step", "epochs", "val_mAP"}`` (the per-epoch val mAPs), None
-    where ``--dp``/``--fsdp`` ran the ranks in processes of their own."""
+    where ``--dp``/``--fsdp``/``--sp`` ran the ranks in processes of their own."""
     from tmv_tpu_torch.parallel.launch import run_ranks
 
     return run_ranks(train, parse_args(argv))
 
 
 def train(args):
-    """The trainer in this process (one rank of ``--dp``/``--fsdp``, or alone)."""
+    """The trainer in this process (one rank of ``--dp``/``--fsdp``/``--sp``, or
+    alone)."""
     from tmv_tpu_torch.parallel.launch import data_parallel
 
     with data_parallel(args) as par:
@@ -194,8 +206,8 @@ def _train(args, par):
     if par is not None:
         state = par.put_state(state)
         step_fn = par.wrap_step(step_fn)
-        print(f"{'fsdp (ZeRO-3)' if args.fsdp else 'data-parallel'} rank {par.rank} of "
-              f"{par.world} on {device}", flush=True)
+        print(f"{parallel_mode(args, par)} rank {par.rank} of {par.world} on {device}",
+              flush=True)
     optimizer = state.optimizer
     logger = MetricsLogger(os.path.join(args.modelPath, "metrics.jsonl") if lead else None,
                            print_every=50 if lead else 0)
@@ -222,7 +234,8 @@ def _train(args, par):
     it = iter(pipeline)
     try:
         for step_i in range(start_step, total_steps):
-            metrics = step_fn(state, next(it))
+            batch = next(it)
+            metrics = step_fn(state, batch if args.sp <= 1 else par.put_rows(batch))
             metrics.update(timer.tick())
             record()
             pending.append((step_i, metrics))
@@ -268,13 +281,22 @@ def _train(args, par):
 
 def rank_rows(args, par):
     """This rank's rows of the global ``--batchSize`` batch (``--accumSteps``
-    micro-batches each split over the ranks); exits where they do not divide."""
+    micro-batches each split over the data ranks); exits where they do not divide."""
     from tmv_tpu_torch.parallel.mesh import shard_rows
 
+    rank, world = getattr(par, "data_rank", par.rank), getattr(par, "data_world", par.world)
     try:
-        return shard_rows(args.batchSize, par.rank, par.world, args.accumSteps)
+        return shard_rows(args.batchSize, rank, world, args.accumSteps)
     except ValueError as e:
         raise SystemExit(f"--batchSize {args.batchSize}: {e}")
+
+
+def parallel_mode(args, par) -> str:
+    """How the ranks split the step, for the start-up line."""
+    if args.sp > 1:
+        return (f"spatial (data {par.data_world} x space {args.sp}, data rank "
+                f"{par.data_rank})")
+    return "fsdp (ZeRO-3)" if args.fsdp else "data-parallel"
 
 
 HEAD_PREFIXES = ("DarknetConv_0", "DarknetConv_1", "DarknetConv_2")

@@ -60,11 +60,16 @@ launches = 0
 _lock = threading.Lock()
 
 
+def _row_pads(x, k, stride, row_pads):
+    return same_pads(x.shape[2], k, stride) if row_pads is None else tuple(row_pads)
+
+
 def dw_bn_swish_reference(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                          offset: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """Plain PyTorch ``swish(depthwise_conv(x, w, stride, SAME) · scale + offset)``."""
+                          offset: torch.Tensor, stride: int = 1, row_pads=None) -> torch.Tensor:
+    """Plain PyTorch ``swish(depthwise_conv(x, w, stride, SAME) · scale + offset)``;
+    ``row_pads`` (top, bottom) replace the TF-SAME row pads (a halo-padded shard's)."""
     c, k = x.shape[1], w.shape[0]
-    top, bottom = same_pads(x.shape[2], k, stride)
+    top, bottom = _row_pads(x, k, stride, row_pads)
     left, right = same_pads(x.shape[3], k, stride)
     xp = F.pad(x.float(), (left, right, top, bottom))
     y = F.conv2d(xp, w.float().permute(2, 0, 1).unsqueeze(1), stride=stride, groups=c)
@@ -93,21 +98,24 @@ def _check(x, w, scale, offset, stride, layout=True):
             raise ValueError(f"fused_dw_bn_swish: {name} is on {t.device}, x on {x.device}")
 
 
-def _out_like(x, k, stride):
+def _out_like(x, k, stride, row_pads=None):
     b, c, h, w = x.shape
-    return torch.empty((b, c, -(-h // stride), -(-w // stride)), dtype=x.dtype,
-                       device=x.device, memory_format=torch.channels_last)
+    top, bottom = _row_pads(x, k, stride, row_pads)
+    return torch.empty((b, c, (h + top + bottom - k) // stride + 1, -(-w // stride)),
+                       dtype=x.dtype, device=x.device, memory_format=torch.channels_last)
 
 
-def _dw_cuda(x, w, scale, offset, stride):
+def _dw_cuda(x, w, scale, offset, stride, row_pads=None):
     """The kernel's launch (``tmv::dw_bn_swish``'s CUDA implementation). In a traced
     program the layout is the run's, not the trace's: a tensor that arrives in
-    another layout is made channels_last here (a no-op where it is)."""
+    another layout is made channels_last here (a no-op where it is). With
+    ``row_pads`` the kernel's top pad and output rows are a halo-padded shard's (the
+    rows past the input's last read as zeros, as the kernel reads every border)."""
     x = x.contiguous(memory_format=torch.channels_last)
     b, c, h, width = x.shape
     k = w.shape[0]
-    top, left = same_pads(h, k, stride)[0], same_pads(width, k, stride)[0]
-    out = _out_like(x, k, stride)
+    top, left = _row_pads(x, k, stride, row_pads)[0], same_pads(width, k, stride)[0]
+    out = _out_like(x, k, stride, row_pads)
     if out.numel() == 0:
         return out
     # 4-channel-aligned rows and pointers: the halo is staged by cp.async; else
@@ -148,20 +156,25 @@ def _dw_fake(x, w, scale, offset, stride):
 
 
 def fused_dw_bn_swish(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                      offset: torch.Tensor, stride: int = 1) -> torch.Tensor:
+                      offset: torch.Tensor, stride: int = 1, row_pads=None) -> torch.Tensor:
     """``swish(depthwise_conv(x, w, stride, SAME) · scale + offset)``; the CUDA
-    kernel for CUDA tensors. Does not synchronise."""
+    kernel for CUDA tensors. Does not synchronise. ``row_pads`` (top, bottom) replace
+    the TF-SAME row pads: the rows of a height-sharded forward's shard, its halo
+    included (``parallel.halo.window_rows``); the columns stay TF-SAME."""
     exporting = torch.compiler.is_exporting()
     # traced on the card, the swish after an eval BatchNorm carries contiguous
     # strides where the run gives channels_last; the CUDA implementation takes either
     _check(x, w, scale, offset, stride, layout=not exporting)
+    if row_pads is not None and (exporting or min(row_pads) < 0):
+        raise ValueError(f"fused_dw_bn_swish: row pads {row_pads} (exported programs take "
+                         "TF-SAME pads only)")
     if exporting:
         return dw_bn_swish_op(x, w, scale, offset, stride)
     if x.device.type == "cpu":
-        return dw_bn_swish_reference(x, w, scale, offset, stride)
+        return dw_bn_swish_reference(x, w, scale, offset, stride, row_pads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_dw_bn_swish: no kernel for device {x.device}")
-    return _dw_cuda(x, w, scale, offset, stride)
+    return _dw_cuda(x, w, scale, offset, stride, row_pads)
 
 
 def kernel_info(k: int, stride: int, dtype: torch.dtype) -> dict:

@@ -23,7 +23,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tmv_tpu_torch.models.layers.common import BatchNorm, Conv2d, remat_call
+from tmv_tpu_torch.models.layers.common import (
+    BatchNorm, Conv2d, max_pool_padded, remat_call, subsample,
+)
 
 BN_EPSILON = 1.001e-5
 
@@ -54,7 +56,7 @@ class BlockV2(nn.Module):
         if self.conv_shortcut:
             shortcut, k = self.Conv_0(preact), 1
         elif self.stride > 1:
-            shortcut = x[:, :, ::self.stride, ::self.stride]
+            shortcut = subsample(x, self.stride)
         else:
             shortcut = x
         y = F.relu(self.BatchNorm_1(getattr(self, f"Conv_{k}")(preact)))
@@ -100,7 +102,7 @@ class ResNet50V2(nn.Module):
         self.conv5 = StackV2(1024, 512, 3, stride1=1, **stack)
 
     def forward(self, x):
-        x = F.max_pool2d(self.conv1(x), 3, 2, padding=1)
+        x = max_pool_padded(self.conv1(x), 3, 2, 1)
         x, _ = self.conv2(x)
         x, y3 = self.conv3(x, tap_block=3)
         x, y2 = self.conv4(x, tap_block=5)

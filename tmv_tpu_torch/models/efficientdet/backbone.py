@@ -49,7 +49,9 @@ from tmv_tpu_torch.models.layers.common import (
     BatchNorm, as_dtype, conv2d_same, conv_as_input, remat_call,
 )
 from tmv_tpu_torch.ops.activations import swish
+from tmv_tpu_torch.ops.padding import same_pads
 from tmv_tpu_torch.ops.space_to_depth import s2d_stem_conv
+from tmv_tpu_torch.parallel import halo
 from tmv_tpu_torch.quant.dynamic import quant_mode
 from tmv_tpu_torch.quant.static import record, static_conv_site
 
@@ -70,7 +72,7 @@ class SE(nn.Module):
         self.Conv_1 = nn.Conv2d(se_filters, output_filters, 1, dtype=dtype, device=device)
 
     def forward(self, x):
-        se = x.mean(dim=(2, 3), keepdim=True)
+        se = halo.mean_hw(x)     # the whole image's, in a height-sharded forward
         se = conv_as_input(self.Conv_1, swish(conv_as_input(self.Conv_0, se)))
         return torch.sigmoid(se) * x
 
@@ -96,6 +98,8 @@ class Stem(nn.Module):
         if mode == "calib":
             record(self, "in_absmax_Conv_0", x)
         weight = as_dtype(self.Conv_0.weight, x.dtype)
+        if self.stem_s2d and halo.active() is not None:
+            raise ValueError("stem_s2d does not run height-sharded")
         y = s2d_stem_conv(x, weight) if self.stem_s2d else conv2d_same(x, weight, None, 2)
         return swish(self.BatchNorm_0(y))
 
@@ -157,7 +161,13 @@ class MBConvBlock(nn.Module):
             scale = bn.weight / torch.sqrt(bn.running_var + bn.eps)
             offset = bn.bias - bn.running_mean * scale
             taps = conv.weight.view(c, k * k).t().contiguous().view(k, k, c)
-            x = fused_dw_bn_swish(x, taps, scale, offset, self.stride)
+            if halo.active() is None:
+                x = fused_dw_bn_swish(x, taps, scale, offset, self.stride)
+            else:    # this shard's rows with their halo, and the row pads left
+                top, bottom = same_pads(halo.global_height(x), k, self.stride)
+                x, top, bottom = halo.window_rows(x, k, self.stride, top, bottom)
+                x = fused_dw_bn_swish(x.contiguous(memory_format=torch.channels_last), taps,
+                                      scale, offset, self.stride, row_pads=(top, bottom))
         x = self.SE_0(x)
         if static:
             return static_conv_site(self, f"_Conv_{ci + 1}", x, (1, 1), out_dtype=dtype)

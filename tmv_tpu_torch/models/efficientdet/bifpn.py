@@ -30,13 +30,13 @@ from typing import List, Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from tmv_tpu_torch.models.efficientdet.backbone import batch_norm
 from tmv_tpu_torch.models.layers.common import (
     as_dtype, conv2d_same, conv_as_input, max_pool_same,
 )
 from tmv_tpu_torch.ops.activations import swish
+from tmv_tpu_torch.parallel import halo
 from tmv_tpu_torch.quant.dynamic import quant_mode
 from tmv_tpu_torch.quant.static import record, static_conv_site
 
@@ -82,13 +82,13 @@ class ResampleFeatureMap(nn.Module):
             self.bn = batch_norm(target_num_channels, bn_momentum, bn_epsilon, device)
 
     def forward(self, x):
-        h = x.shape[2]
+        h = halo.global_height(x)
         if self.project:
             x = self.bn(conv_as_input(self.conv2d, x))
         if h > self.level_size:
             x = max_pool_same(x, 3, 2)
         elif h < self.level_size:
-            x = F.interpolate(x, size=(self.level_size, self.level_size), mode="nearest-exact")
+            x = halo.resize_rows(x, self.level_size)
         return x
 
 

@@ -24,6 +24,7 @@ from tmv_tpu_torch.models.efficientdet.heads import BoxNet, ClassNet
 from tmv_tpu_torch.models.layers.common import remat_call
 from tmv_tpu_torch.ops.losses import box_loss, focal_loss, l2_regularization
 from tmv_tpu_torch.parallel.collectives import global_sum, world
+from tmv_tpu_torch.parallel.halo import once_over_space
 
 CLASS_PRIOR = 0.01
 
@@ -133,10 +134,13 @@ def efficientdet_loss(model, outputs, batch, weight_decay: float = 4e-5,
     In a data-parallel step over R ranks ``num_positives`` is the global batch's
     (all-reduced, detached) and each summed data term is scaled by R, so that the
     mean of the ranks' losses is the global loss; the mean-reduced focal term and
-    the l2 term are not scaled."""
+    the l2 term are not scaled. In a height-sharded step every space rank computes the
+    l2 term whole from the parameters; its gradient is taken on one of them
+    (``parallel.halo.once_over_space``)."""
     cfg = model.config
     y_pred_boxes, y_pred_classes = outputs
-    loss = l2_regularization(model, weight_decay)
+    # every space shard of a height-sharded step computes it whole: its gradient once
+    loss = once_over_space(l2_regularization(model, weight_decay))
     num_positives = 1.0 + global_sum(sum(torch.sum(m.to(torch.float32))
                                          for m in batch["masks"]))
     ranks = world()

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from tmv_tpu_torch.ops.activations import leaky_relu, mish, swish
+from tmv_tpu_torch.parallel import halo
 from tmv_tpu_torch.parallel.collectives import active as data_group, global_batch_norm
 from tmv_tpu_torch.ops.padding import same_pads
 from tmv_tpu_torch.quant.dynamic import dynamic_int8_conv, quant_mode
@@ -98,10 +99,13 @@ def _pair(v: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
 
 def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias=None,
                 stride: Union[int, Tuple[int, int]] = 1, groups: int = 1) -> torch.Tensor:
-    """``F.conv2d`` with TF-SAME padding; an asymmetric pad is applied explicitly."""
+    """``F.conv2d`` with TF-SAME padding; an asymmetric pad is applied explicitly. In a
+    height-sharded forward the row pads are the global height's, and the shard's rows
+    come with their halo (``parallel.halo.window_rows``)."""
     stride = _pair(stride)
-    (top, bottom), (left, right) = (same_pads(x.shape[2], weight.shape[2], stride[0]),
+    (top, bottom), (left, right) = (same_pads(halo.global_height(x), weight.shape[2], stride[0]),
                                     same_pads(x.shape[3], weight.shape[3], stride[1]))
+    x, top, bottom = halo.window_rows(x, weight.shape[2], stride[0], top, bottom)
     if top == bottom and left == right:
         return F.conv2d(x, weight, bias, stride, (top, left), groups=groups)
     return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, bias, stride, groups=groups)
@@ -123,10 +127,17 @@ def conv_as_input(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computing in its input's type (``conv_as_input``), for the
-    flax ``nn.Conv`` modules that are called as modules (ResNet50V2's)."""
+    flax ``nn.Conv`` modules that are called as modules (ResNet50V2's); in a
+    height-sharded forward its rows come with their halo."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_as_input(self, x)
+        if halo.active() is None:
+            return conv_as_input(self, x)
+        (k, _), (s, _), (ph, pw) = self.kernel_size, self.stride, self.padding
+        x, top, bottom = halo.window_rows(x, k, s, ph, ph)
+        bias = None if self.bias is None else as_dtype(self.bias, x.dtype)
+        return F.conv2d(F.pad(x, (pw, pw, top, bottom)), as_dtype(self.weight, x.dtype), bias,
+                        self.stride, 0, self.dilation, self.groups)
 
 
 class DarknetConv(nn.Module):
@@ -147,8 +158,9 @@ class DarknetConv(nn.Module):
         weight = as_dtype(conv.weight, x.dtype)
         bias = None if conv.bias is None else as_dtype(conv.bias, x.dtype)
         if self.strides == (2, 2):
-            # Darknet downsampling: top-left zero pad + VALID
-            return F.conv2d(F.pad(x, (1, 0, 1, 0)), weight, bias, self.strides)
+            # Darknet downsampling: top-left zero pad + VALID (a shard's halo from above)
+            x, top, bottom = halo.window_rows(x, self.kernel_size[0], 2, 1, 0)
+            return F.conv2d(F.pad(x, (1, 0, top, bottom)), weight, bias, self.strides)
         return conv2d_same(x, weight, bias, self.strides)
 
 
@@ -169,14 +181,18 @@ class BatchNorm(nn.BatchNorm2d):
     package: ``global_batch_norm`` all-reduces the sum, the sum of squares and the
     count in float32 and takes flax's variance ``mean(x²) − mean(x)²``; the running
     statistics take that biased variance. A recomputed stage issues the same
-    all-reduce on every rank and again leaves the statistics alone."""
+    all-reduce on every rank and again leaves the statistics alone. In a
+    height-sharded step a split level's statistics are those of every rank's rows
+    (data x space), a gathered level's the data group's (``parallel.halo.stats_group``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        if data_group() is not None:
+        group = data_group()
+        if group is not None:
             y, mean, biased = global_batch_norm(x, self.weight, self.bias, self.eps,
-                                                self.running_mean, self.running_var)
+                                                self.running_mean, self.running_var,
+                                                halo.stats_group(x, group))
             if not recomputing():
                 self._update_running(mean, biased)
             return y
@@ -235,15 +251,29 @@ class ConvBN(nn.Module):
 
 def max_pool_same(x: torch.Tensor, window: int, strides: int = 1) -> torch.Tensor:
     """MaxPool2D with SAME padding (SPP pools), padded with -inf."""
-    (top, bottom), (left, right) = (same_pads(x.shape[2], window, strides),
+    (top, bottom), (left, right) = (same_pads(halo.global_height(x), window, strides),
                                     same_pads(x.shape[3], window, strides))
+    x, top, bottom = halo.window_rows(x, window, strides, top, bottom)
     x = F.pad(x, (left, right, top, bottom), value=float("-inf"))
     return F.max_pool2d(x, window, strides)
 
 
+def max_pool_padded(x: torch.Tensor, window: int, strides: int, pad: int) -> torch.Tensor:
+    """``F.max_pool2d(x, window, strides, padding=pad)`` (-inf at every border)."""
+    x, top, bottom = halo.window_rows(x, window, strides, pad, pad)
+    x = F.pad(x, (pad, pad, top, bottom), value=float("-inf"))
+    return F.max_pool2d(x, window, strides)
+
+
+def subsample(x: torch.Tensor, strides: int) -> torch.Tensor:
+    """``x[:, :, ::strides, ::strides]`` (flax's ``max_pool(x, (1, 1), strides)``)."""
+    x, _, _ = halo.window_rows(x, 1, strides, 0, 0)
+    return x[:, :, ::strides, ::strides]
+
+
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """UpSampling2D(2), nearest."""
-    return F.interpolate(x, scale_factor=2, mode="nearest")
+    return halo.upsample_rows(x, 2)
 
 
 @torch.no_grad()

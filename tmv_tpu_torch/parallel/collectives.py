@@ -225,13 +225,16 @@ class _GlobalBatchNormCuda(torch.autograd.Function):
 
 
 def global_batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
-                      running_mean: torch.Tensor, running_var: torch.Tensor):
+                      running_mean: torch.Tensor, running_var: torch.Tensor,
+                      group: Optional[DataGroup] = None):
     """``(y, mean, var)``: ``x`` normalised by the mean and biased variance of the
     global batch (float32, whatever ``x``'s type), scaled and shifted, in ``x``'s type;
     the statistics for the running update, which is the caller's (the running
-    statistics are read, not changed). Needs an active data group. On the card the
-    fused kernels (``_GlobalBatchNormCuda``), elsewhere the elementwise form."""
+    statistics are read, not changed). Reduces over ``group`` (default: the active
+    data group; a height-sharded step passes data x space for a split level). On the
+    card the fused kernels (``_GlobalBatchNormCuda``), elsewhere the elementwise form."""
+    group = group or _ACTIVE
     if x.is_cuda:
-        return _GlobalBatchNormCuda.apply(x, weight, bias, eps, _ACTIVE.group, _ACTIVE.world,
+        return _GlobalBatchNormCuda.apply(x, weight, bias, eps, group.group, group.world,
                                           running_mean, running_var)
-    return _GlobalBatchNorm.apply(x, weight, bias, eps, _ACTIVE.group)
+    return _GlobalBatchNorm.apply(x, weight, bias, eps, group.group)

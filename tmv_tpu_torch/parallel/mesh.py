@@ -20,6 +20,14 @@ rank's rows of the global batch:
 - ``spawn``: one process per rank from a plain ``python -m`` run (start method
   ``spawn``), as the JAX CLIs' ``--dp`` takes every local device.
 
+- ``spatial_mesh``: the 2-D ``(data, space)`` layout of the group (rank r is data row
+  ``r // S`` and space column ``r % S``, the JAX mesh's row-major order), with each
+  rank's data and space subgroups; ``spatial_share``: a rank's share of a global batch,
+  its data rows and, for the model input where it is of rank ≥ 4 and S divides its
+  height (dim 1), its rows of that height
+  (``tmv_tpu/parallel/spatial.py::SpatialDataParallel.leaf_sharding``'s rule, which
+  lays out the other leaves along H too; their values stay whole here, as there).
+
 ``batch_sharding`` and ``replicated_sharding`` have no counterpart: a PyTorch rank
 holds plain tensors, its rows of the batch and a whole copy of the state, so there is
 no sharding object to hand to a compiler.
@@ -27,7 +35,8 @@ no sharding object to hand to a compiler.
 
 import os
 import socket
-from typing import Callable, List, Optional, Sequence
+from dataclasses import dataclass
+from typing import Callable, Collection, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -144,6 +153,71 @@ def shard_batch(batch, mesh, axis: str = "data", accum_steps: int = 1):
         return x[rows]
 
     return take(batch)
+
+
+@dataclass(frozen=True)
+class SpatialMesh:
+    """This rank's place on the ``(data, space)`` layout of the process group and the
+    groups it reduces over: ``data_group`` (the ranks of its space column),
+    ``space_group`` (of its data row), ``world_group`` (every rank) and ``host_group``
+    (every rank, gloo: flags agreed on the host)."""
+
+    data: int
+    space: int
+    rank: int
+    data_rank: int
+    space_rank: int
+    data_group: object
+    space_group: object
+    world_group: object
+    host_group: object
+
+
+def spatial_mesh(space: int, data: Optional[int] = None) -> SpatialMesh:
+    """The ``(data, space)`` layout of the started group: ``data`` (default R / S)
+    times ``space`` must be its size R. Every rank creates every subgroup, in the same
+    order."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    data = data or world // space
+    if data * space != world or space < 1:
+        raise ValueError(f"mesh {data}x{space} needs {data * space} ranks, have {world}")
+    data_rank, space_rank = divmod(rank, space)
+    rows = [dist.new_group([d * space + s for s in range(space)]) for d in range(data)]
+    columns = [dist.new_group([d * space + s for d in range(data)]) for s in range(space)]
+    everyone = list(range(world))
+    return SpatialMesh(data, space, rank, data_rank, space_rank, columns[space_rank],
+                       rows[data_rank], dist.new_group(everyone),
+                       dist.new_group(everyone, backend="gloo"))
+
+
+def space_splits(shape: Sequence[int], space: int) -> bool:
+    """JAX's leaf rule: a leaf of rank ≥ 4 whose dim 1 (H of NHWC) ``space`` divides
+    is split along it; others are split over data only."""
+    return len(shape) >= 4 and shape[1] % space == 0
+
+
+def spatial_share(batch, mesh: SpatialMesh, space_keys: Collection[str], accum_steps: int = 1,
+                  data_rows: bool = True):
+    """This rank's share of a dict batch: its data rows of every leaf (``shard_rows`` over
+    the data axis; ``data_rows=False`` for a batch that holds them already) and, of the
+    leaves under ``space_keys`` that ``space_splits``, its space rows of the height. The
+    other leaves stay whole along H, as a loss reads them (JAX's leaf rule lays out every
+    such leaf along H, but its values stay whole there too)."""
+
+    def take(x, split):
+        if isinstance(x, dict):
+            return {k: take(v, split) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(take(v, split) for v in x)
+        if data_rows:
+            rows = shard_rows(x.shape[0], mesh.data_rank, mesh.data, accum_steps)
+            x = x[torch.as_tensor(rows, device=x.device)] if torch.is_tensor(x) else x[rows]
+        if split and space_splits(x.shape, mesh.space):
+            n = x.shape[1] // mesh.space
+            x = x[:, mesh.space_rank * n:(mesh.space_rank + 1) * n]
+        return x
+
+    return {k: take(v, k in space_keys) for k, v in batch.items()}
 
 
 @torch.no_grad()

@@ -25,6 +25,7 @@ import torch
 
 from tmv_tpu_torch.kernels.int8_conv import int8_conv, pack_dense, true_div
 from tmv_tpu_torch.ops.padding import same_pads
+from tmv_tpu_torch.parallel import halo
 
 _STATE = threading.local()
 
@@ -59,6 +60,17 @@ def conv_pads(size_hw: Tuple[int, int], kernel_size: Tuple[int, int], stride: in
     return (top, left, bottom, right)
 
 
+def shard_conv_input(x: torch.Tensor, kernel_size: Tuple[int, int], stride: int,
+                     padding: Union[str, Sequence[int]]):
+    """``(x, pads)``: ``x`` and its ``conv_pads``; in a height-sharded forward the pads of
+    the global image, and this shard's input rows with their halo and the row pads
+    left at the image's edges (``parallel.halo.window_rows``)."""
+    top, left, bottom, right = conv_pads((halo.global_height(x), x.shape[3]), kernel_size,
+                                         stride, padding)
+    x, top, bottom = halo.window_rows(x, kernel_size[0], stride, top, bottom)
+    return x, (top, left, bottom, right)
+
+
 def dynamic_int8_conv(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
                       padding: Union[str, Sequence[int]] = "SAME",
                       out_scale: Optional[torch.Tensor] = None,
@@ -70,10 +82,13 @@ def dynamic_int8_conv(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
     Cin, kh, kw)`` float weights; ``out_scale`` / ``out_offset``: optional ``(Cout,)``
     multiplier folded into the dequant and term added after it (the BN affine).
     Returns the channels_last output in float32, or rounded to ``out_dtype`` in
-    the kernel (the caller's cast, fused); the caller activates."""
+    the kernel (the caller's cast, fused); the caller activates. In a height-sharded
+    forward the absmax is the whole image's (the shards' maximum)."""
+    a_max = torch.clamp_min(halo.space_max(
+        torch.linalg.vector_norm(x, float("inf"), dtype=torch.float32), x), 1e-6)
+    kh, kw = weight.shape[2:]
+    x, pads = shard_conv_input(x, (kh, kw), stride, padding)
     x = x.contiguous(memory_format=torch.channels_last)
-    a_max = torch.clamp_min(
-        torch.linalg.vector_norm(x, float("inf"), dtype=torch.float32), 1e-6)
     kf = weight.float()
     w_max = torch.clamp_min(kf.abs().amax(dim=(1, 2, 3)), 1e-12)
     wq = torch.clamp(torch.round(kf * true_div(127.0, w_max).view(-1, 1, 1, 1)), -127, 127
@@ -82,7 +97,5 @@ def dynamic_int8_conv(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
     if out_scale is not None:
         deq = deq * out_scale.float()
     offset = None if out_offset is None else out_offset.float().contiguous()
-    kh, kw = weight.shape[2:]
-    pads = conv_pads(x.shape[2:], (kh, kw), stride, padding)
     return int8_conv(x, pack_dense(wq.permute(2, 3, 1, 0)), a_max, deq.contiguous(), offset,
                      (kh, kw), stride, pads, out_dtype=out_dtype)

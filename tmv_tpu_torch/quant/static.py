@@ -38,7 +38,7 @@ import torch.nn as nn
 from tmv_tpu_torch.kernels.int8_conv import (
     int8_conv, int8_dwconv, pack_dense, pack_depthwise, true_div,
 )
-from tmv_tpu_torch.quant.dynamic import conv_pads, quant_mode, quantized
+from tmv_tpu_torch.quant.dynamic import quant_mode, quantized, shard_conv_input
 
 _CALIB = threading.local()
 LEAVES = ("in_absmax", "kernel_q", "w_absmax", "deq", "offset")
@@ -198,8 +198,8 @@ def prepare_static_int8(model: nn.Module, absmax_tree: Dict[str, np.ndarray],
 
 def _int8_site_conv(x, kernel_q, in_absmax, deq, offset, kernel_size, stride, padding,
                     depthwise: bool, out_dtype):
+    x, pads = shard_conv_input(x, kernel_size, stride, padding)
     x = x.contiguous(memory_format=torch.channels_last)
-    pads = conv_pads(x.shape[2:], kernel_size, stride, padding)
     if depthwise:
         return int8_dwconv(x, kernel_q, in_absmax, deq, offset, kernel_size[0], stride, pads,
                            out_dtype=out_dtype)
